@@ -1,0 +1,6 @@
+from gordo_tpu_torch.models.factories.feedforward import (  # noqa: F401
+    feedforward_hourglass,
+    feedforward_model,
+    feedforward_symmetric,
+)
+from gordo_tpu_torch.models.factories.utils import hourglass_calc_dims  # noqa: F401
