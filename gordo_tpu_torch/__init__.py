@@ -6,9 +6,12 @@ Its device compute runs in kernels written by hand for ``sm_90a``
 (``gordo_tpu_torch/csrc``), each with a plain-PyTorch twin that the CPU
 tests hold to the JAX package.
 
-Ported so far: the serving path of the reference default detector
+Ported so far, for the reference default detector
 (``DiffBasedAnomalyDetector(Pipeline[MinMaxScaler, AutoEncoder(
-feedforward_hourglass)])``), scored by the fused ``fleet_score`` kernel.
+feedforward_hourglass)])``): serving, scored by the fused ``fleet_score``
+kernel; and the exact-mode fleet build (and the single-machine
+``cross_validate``/``fit``), trained by ``fleet_fit`` with stats from
+``scaler_stats`` and thresholds from ``cv_epilogue``.
 """
 
 __version__ = "0.1.0"

@@ -11,18 +11,26 @@ needs neither JAX nor ``gordo_tpu``:
 - the thresholds, and the definition dict (``gordo_tpu.*`` paths resolve
   through the port's alias table).
 
+Stacked params, with a leading machine axis (the fleet build's layout),
+go both ways: :func:`flax_to_layers` turns a stacked flax tree into the
+fleet kernels' ``[(kernel (M, in, out), bias (M, out)), ...]`` list (the
+tests give the port JAX's initial params so), and :func:`layers_to_flax`
+turns the port's stacked layers back into the flax tree (the tests compare
+fitted params leaf by leaf so).
+
 The tests feed both packages the same model with it; a JAX-artifact
 importer (ROADMAP queue 1 item 4) builds on it.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
 from gordo_tpu_torch.anomaly.diff import DiffBasedAnomalyDetector
 from gordo_tpu_torch.models.estimator import AutoEncoder
+from gordo_tpu_torch.models.factories.feedforward import layer_names
 from gordo_tpu_torch.pipeline import Pipeline
 from gordo_tpu_torch.serializer.definition import from_definition
 
@@ -36,6 +44,28 @@ def flax_to_state_arrays(params: Mapping[str, Mapping[str, Any]]) -> Dict[str, n
         )
         out[f"{name}.bias"] = np.array(leaf["bias"], np.float32)
     return out
+
+
+def flax_to_layers(params: Mapping[str, Mapping[str, Any]]) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """Flax ``Dense`` tree (any leading axes) → ``[(kernel, bias), ...]``
+    in application order, as float32 numpy."""
+    names = layer_names(len(params))
+    if set(names) != set(params):
+        raise ValueError(f"expected layers {names}, got {sorted(params)}")
+    return [
+        (np.ascontiguousarray(params[n]["kernel"], np.float32),
+         np.ascontiguousarray(params[n]["bias"], np.float32))
+        for n in names
+    ]
+
+
+def layers_to_flax(layers: Sequence[Tuple[Any, Any]]) -> Dict[str, Dict[str, np.ndarray]]:
+    """``[(kernel, bias), ...]`` (numpy or tensors, any leading axes) →
+    the flax ``Dense`` tree, as float32 numpy."""
+    return {
+        name: {"kernel": np.asarray(W, np.float32), "bias": np.asarray(b, np.float32)}
+        for name, (W, b) in zip(layer_names(len(layers)), layers)
+    }
 
 
 def from_reference(

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 
@@ -31,6 +32,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {device} requested but CUDA is not available")
     return device
+
+
+def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array as a tensor on ``device``.  A copy to CUDA is staged
+    through pinned memory and does not wait for the stream (a copy from
+    pageable memory would), so a kernel wrapper that ships its small index
+    arrays this way queues its launch behind running work without
+    blocking; PyTorch's host allocator keeps the pinned buffer until the
+    copy is done."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if torch.device(device).type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def resolve_compute_dtype(compute_dtype="auto") -> torch.dtype:

@@ -24,6 +24,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from gordo_tpu_torch.device import to_device
 from gordo_tpu_torch.kernels import build
 from gordo_tpu_torch.models.factories.feedforward import ACTIVATIONS
 
@@ -254,13 +255,13 @@ def fleet_score(
             raise ValueError(f"without idx, x needs one slot per machine ({m} != {M})")
         idx_dev = None
     else:
-        idx_dev = torch.from_numpy(_host_ints(idx, "idx", 0, M - 1)).to(device)
+        idx_dev = to_device(_host_ints(idx, "idx", 0, M - 1), device)
         if idx_dev.numel() != m:
             raise ValueError(f"idx needs one entry per slot ({idx_dev.numel()} != {m})")
     if n_rows is None:
         rows_dev = None
     else:
-        rows_dev = torch.from_numpy(_host_ints(n_rows, "n_rows", 1, n)).to(device)
+        rows_dev = to_device(_host_ints(n_rows, "n_rows", 1, n), device)
         if rows_dev.numel() != m:
             raise ValueError(f"n_rows needs one entry per slot ({rows_dev.numel()} != {m})")
 

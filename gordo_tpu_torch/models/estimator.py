@@ -2,18 +2,26 @@
 
 Counterpart of ``gordo_tpu/models/estimator.py``.  Construct with
 ``kind=<registered factory name>`` plus kwargs; the network is built from
-the widths of the parameters it is given.  Fitting (K1/K2) belongs to the
-training slice, ROADMAP queue 1 item 2.
+``X.shape`` at fit time, or from the widths of the parameters it is
+loaded with.  A fit is one launch of the ``fleet_fit`` kernel (K1 + K2)
+over a fleet of one machine, from the draws of its seed.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import time
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 
+from gordo_tpu_torch.device import resolve_device
+from gordo_tpu_torch.kernels.fleet_fit import fleet_fit, geometry
+from gordo_tpu_torch.models.factories.feedforward import layer_names
+from gordo_tpu_torch.ops.scalers import as_float2d
+from gordo_tpu_torch.parallel.fleet import Draws, chain_of, fleet_draws, put_draws
 from gordo_tpu_torch.registry import lookup_factory
+from gordo_tpu_torch.train.fit import TrainConfig, adam_hparams
 from gordo_tpu_torch.utils.args import ParamsMixin, capture_args
 
 
@@ -29,12 +37,70 @@ class AutoEncoder(ParamsMixin):
         self.kind = kind
         self.kwargs = kwargs
         self.module_: Optional[torch.nn.Module] = None
+        self.history_: Optional[np.ndarray] = None
+        self.fit_seconds_: Optional[float] = None
 
-    def fit(self, X, y=None, **fit_kwargs):
-        raise NotImplementedError(
-            "AutoEncoder.fit waits for ROADMAP queue 1 item 2 "
-            "(training: K1 train step, K2 Adam)"
+    def fit(self, X, y=None, device=None, draws: Draws = fleet_draws, **fit_kwargs):
+        """Fit on ``X`` (rows × features) against ``y`` (default ``X``).
+
+        ``device`` as :func:`gordo_tpu_torch.device.resolve_device`;
+        ``draws`` the source of initial params and permutations
+        (:func:`gordo_tpu_torch.parallel.fleet.fleet_draws`); ``fit_kwargs``
+        override the constructor's training kwargs."""
+        t0 = time.time()
+        X = as_float2d(X)
+        targets = X if y is None else as_float2d(y)
+        merged = {**self.kwargs, **fit_kwargs}
+        if merged.get("checkpoint_dir"):
+            raise NotImplementedError(
+                "checkpoint_dir waits for ROADMAP queue 1 item 6 (train/checkpoint.py)"
+            )
+        merged.pop("checkpoint_dir", None)
+        merged.pop("checkpoint_every", None)
+        cfg, factory_kwargs = TrainConfig.from_kwargs(merged)
+        hp = adam_hparams(cfg)
+        module = lookup_factory(self.model_type, self.kind)(
+            n_features=int(X.shape[1]),
+            n_features_out=int(targets.shape[1]),
+            **factory_kwargs,
         )
+        dims, acts = chain_of(module)
+        dev = resolve_device(device)
+        fits = [geometry(np.arange(X.shape[0]), cfg.batch_size)]
+        seed = int(factory_kwargs.get("seed", 0) or 0)
+        params0, perms = put_draws(draws, seed, dims, fits, cfg.epochs, dev)
+        x = torch.from_numpy(X[None]).to(dev)
+        ones = torch.ones((1, 1, X.shape[1]), dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            layers, history = fleet_fit(
+                x, torch.from_numpy(targets[None]).to(dev), fits, ones,
+                torch.zeros_like(ones), params0, perms, [0], acts, cfg.epochs, hp,
+            )
+        state = {}
+        for name, (W, b) in zip(layer_names(len(layers)), layers):
+            state[f"{name}.weight"] = W[0, 0].T.contiguous().cpu()
+            state[f"{name}.bias"] = b[0, 0].cpu()
+        module.load_state_dict(state)
+        self.module_ = module.eval()
+        self.history_ = history[0, 0].cpu().numpy()
+        self.fit_seconds_ = time.time() - t0
+        return self
+
+    def get_metadata(self) -> Dict[str, Any]:
+        meta: Dict[str, Any] = {
+            "model_type": type(self).__name__,
+            "kind": self.kind,
+            "parameters": {**self.kwargs},
+        }
+        if self.module_ is not None:
+            meta.update({
+                "num_params": int(sum(p.numel() for p in self.module_.parameters())),
+                "fit_seconds": self.fit_seconds_,
+                "history": {
+                    "loss": [float(v) for v in ([] if self.history_ is None else self.history_)],
+                },
+            })
+        return meta
 
     def load_state_arrays(self, state: Dict[str, np.ndarray]) -> "AutoEncoder":
         """Build the network from the widths of ``state`` (an ``nn.Linear``

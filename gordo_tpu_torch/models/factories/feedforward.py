@@ -64,6 +64,11 @@ def resolve_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Te
         )
 
 
+def layer_names(n_layers: int) -> List[str]:
+    """The children's names (the flax module's) in application order."""
+    return [f"dense_{i}" for i in range(n_layers - 1)] + ["out"]
+
+
 def _broadcast_funcs(funcs, n: int) -> Tuple:
     if funcs is None:
         funcs = "tanh"

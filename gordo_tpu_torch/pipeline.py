@@ -1,7 +1,9 @@
 """Sequential pipeline container (counterpart of ``gordo_tpu/pipeline.py``).
 
 Transforms are stats + pure-function scalers that the serving scorer folds
-into the fused kernel; the pipeline itself only holds the steps.
+into the fused kernel.  ``fit`` fits each transform on X and transforms X
+through it; the final estimator fits on the transformed X against the
+**raw** y, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,10 +43,15 @@ class Pipeline(ParamsMixin):
     def offset(self) -> int:
         return getattr(self._final, "offset", 0)
 
-    def fit(self, X, y=None, **fit_kwargs):
-        raise NotImplementedError(
-            "Pipeline.fit waits for ROADMAP queue 1 item 2 (training)"
-        )
+    def fit(self, X, y=None, device=None, **fit_kwargs):
+        for _, step in self.steps[:-1]:
+            X = step.fit_transform(X, y, device=device)
+        self._final.fit(X, y, device=device, **fit_kwargs)
+        return self
+
+    def get_metadata(self) -> Dict[str, Any]:
+        final = self._final
+        return final.get_metadata() if hasattr(final, "get_metadata") else {}
 
     def predict(self, X, device=None) -> np.ndarray:
         """Model output for ``X`` through the fused serving kernel."""

@@ -72,8 +72,8 @@ ALIASES: Dict[str, str] = {
 }
 
 _ITEM_TRAINING = (
-    "ROADMAP queue 1 item 2 (training: K1-K4, the other scalers and "
-    "pipeline containers)"
+    "ROADMAP queue 1 item 2 (training: the other scalers and pipeline "
+    "containers)"
 )
 _ITEM_LSTM = "ROADMAP queue 1 item 5 (the LSTM path, K6/K7)"
 

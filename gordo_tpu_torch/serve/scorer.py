@@ -44,7 +44,7 @@ def _minmax_stats(step, what: str):
     if not isinstance(step, MinMaxScaler):
         raise NotImplementedError(
             f"{what} {type(step).__name__} waits for ROADMAP queue 1 item 2 "
-            "(training: K3 and the other scalers); the port serves MinMaxScaler"
+            "(training: the other scalers); the port serves MinMaxScaler"
         )
     if step.stats_ is None:
         raise RuntimeError(f"{what} {type(step).__name__} is not fitted")

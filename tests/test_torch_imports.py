@@ -60,6 +60,14 @@ def test_every_port_module_imports_with_jax_and_gordo_tpu_blocked():
         "gordo_tpu_torch.kernels.fleet_score",
         "gordo_tpu_torch.convert",
         "gordo_tpu_torch.cli",
+        "gordo_tpu_torch.train.fit",
+        "gordo_tpu_torch.train.cv",
+        "gordo_tpu_torch.ops.metrics",
+        "gordo_tpu_torch.parallel.fleet",
+        "gordo_tpu_torch.parallel.anomaly",
+        "gordo_tpu_torch.kernels.fleet_fit",
+        "gordo_tpu_torch.kernels.scaler_stats",
+        "gordo_tpu_torch.kernels.cv_epilogue",
     ):
         assert expected in result["modules"]
 
@@ -145,6 +153,28 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda, tmp_path):
     scorer = CompiledScorer(model, device="cpu")
     assert scorer.device.type == "cpu"
     assert scorer.predict(np.zeros((2, 3), np.float32)).shape == (2, 3)
+
+
+def test_training_entry_points_refuse_the_cpu_unless_asked(no_cuda):
+    from gordo_tpu_torch.models.estimator import AutoEncoder
+    from gordo_tpu_torch.ops.scalers import MinMaxScaler
+    from gordo_tpu_torch.parallel.anomaly import FleetDiffBuilder, analyze_definition
+
+    X = np.random.default_rng(0).standard_normal((40, 3)).astype(np.float32)
+    detector = _tiny_detector().clone()
+    spec = analyze_definition(detector.clone())
+    assert spec is not None
+    for train in (
+        lambda: MinMaxScaler().fit(X),
+        lambda: AutoEncoder(kind="feedforward_hourglass", epochs=1).fit(X),
+        lambda: detector.clone().fit(X),
+        lambda: detector.clone().cross_validate(X),
+        lambda: FleetDiffBuilder(spec),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train()
+    # asked for by name, the CPU trains
+    assert AutoEncoder(kind="feedforward_hourglass", epochs=1).fit(X, device="cpu").history_.shape == (1,)
 
 
 def test_cli_run_server_refuses_the_cpu_unless_asked(tmp_path):
