@@ -33,6 +33,26 @@ itself.  Phases, each printing one JSON line:
    and their thresholds and CV scores compared; 8 of the card's detectors
    are dumped and served through the HTTP server for one bulk request,
    held to the plain scorer on the CPU.
+7. ``lstm_kernel_check``: the LSTM serving kernels at the bench's LSTM
+   (BASELINE config 2: 64 machines × 4096 rows × 50 tags,
+   ``lstm_hourglass``, lookback 12): ``lstm_layer`` for every layer, each
+   fed what the kernel made for the layer before, the ``fleet_score`` head,
+   and ``rolling_median`` (window 144, NaNs in one column), each against
+   its plain version on the card (also on a subset of the bucket with
+   ragged rows, the forecast's windows and lookback 1); times as in
+   phase 3, each bound, and the
+   time of one PyTorch call of the same function (``torch.nn.LSTM`` per
+   machine and layer; chunked ``torch.nanquantile``).
+8. ``lstm_serve``: a model directory of 8 LSTM ``ae`` detectors at the
+   bench config, an LSTM ``forecast`` detector with window 144 and a
+   default feedforward detector with window 144 (random weights from a
+   seed), served over HTTP: per-machine requests of 4096 rows, a short
+   request (400), one bulk request of all ten machines × 576 rows, and one
+   of five of the ae detectors at ragged rows with the other two.
+   Responses are held to the plain versions on the CPU, one to a float64
+   numpy reference, and the launch counts (set to 0 just before) must show
+   every scoring request went through ``lstm_layer`` (once per layer),
+   ``fleet_score`` and ``rolling_median``.
 
 Then the ``kernels`` summary line and, last, ``{"ok": true, "device":
 {...}}``.  Any failure raises and exits non-zero without a result; so does
@@ -129,6 +149,17 @@ def random_chain(rng: np.random.Generator, machines: int, tags: int):
         W = rng.standard_normal((machines, dims[i], dims[i + 1])) / math.sqrt(dims[i])
         b = 0.1 * rng.standard_normal((machines, dims[i + 1]))
         layers.append((W.astype(np.float32), b.astype(np.float32)))
+    return {
+        "dims": dims,
+        "layers": layers,
+        "acts": ["tanh"] * (len(dims) - 2) + ["linear"],
+        **random_stats(rng, machines, tags),
+    }
+
+
+def random_stats(rng: np.random.Generator, machines: int, tags: int):
+    """Pipeline and detector MinMax stats and thresholds of ``machines``
+    detectors."""
     def minmax():
         lo = rng.uniform(-3, -1, (machines, tags))
         hi = rng.uniform(1, 3, (machines, tags))
@@ -137,9 +168,6 @@ def random_chain(rng: np.random.Generator, machines: int, tags: int):
     scale, offset = minmax()
     det_scale, det_offset = minmax()
     return {
-        "dims": dims,
-        "layers": layers,
-        "acts": ["tanh"] * (len(dims) - 2) + ["linear"],
         "scale": scale,
         "offset": offset,
         "det_scale": det_scale,
@@ -218,7 +246,9 @@ def time_calls_ms(fn, reps: int):
     """``(device ms, host ms)`` per call of a function that launches many
     small kernels (a plain version): CUDA events around ``reps`` whole
     calls after one warm-up, so the device time includes the gaps in which
-    the card waits for the host."""
+    the card waits for the host; the host time is the host's own, up to
+    the last call's return (a function that waits for the card inside,
+    as a plain version does, has that wait in it)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -226,9 +256,10 @@ def time_calls_ms(fn, reps: int):
     start.record()
     for _ in range(reps):
         fn()
+    host = time.perf_counter() - t0
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, (time.perf_counter() - t0) * 1e3 / reps
+    return start.elapsed_time(end) / reps, host * 1e3 / reps
 
 
 def bound(nbytes: float, ops: float):
@@ -273,7 +304,8 @@ def phase_build():
     from gordo_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
-    paths = build.build("fleet_score", "fleet_fit", "scaler_stats", "cv_epilogue")
+    paths = build.build("fleet_score", "fleet_fit", "scaler_stats", "cv_epilogue",
+                        "lstm_layer", "rolling_median")
     seconds = time.perf_counter() - t0
     ptxas = []
     for p in paths:
@@ -699,6 +731,525 @@ def phase_train():
     }
 
 
+# -- the LSTM path --------------------------------------------------------
+
+#: the bench's LSTM (BASELINE config 2; bench.py:49-51,248-266): a bucket of
+#: 64 machines, 4096-row requests (bench.py:836), 50 tags, lookback 12
+LSTM_SHAPE = (64, 4096, 50)
+LOOKBACK = 12
+#: the detector window: one day of the bench's 10-minute rows
+SMOOTH_WINDOW = 144
+#: LSTM kernels against their plain versions, max |kernel - plain| / max
+#: |plain| per output (fp32): each layer's two products sum in another
+#: order than the plain version's matmuls; the median selects the same
+#: values and averages them the same way, so it is exact
+LSTM_TOLERANCE = {"lstm_layer": 1e-5, "fleet_score": 1e-5, "rolling_median": 0.0}
+#: served LSTM responses against the plain versions on the CPU and a
+#: float64 numpy reference (six layers of twelve steps in float32)
+LSTM_SERVE_TOLERANCE = 1e-5
+LSTM_MODEL = {
+    "gordo_tpu.anomaly.diff.DiffBasedAnomalyDetector": {
+        "base_estimator": {"gordo_tpu.pipeline.Pipeline": {"steps": [
+            "gordo_tpu.ops.scalers.MinMaxScaler",
+            {"gordo_tpu.models.estimator.LSTMAutoEncoder": {
+                "kind": "lstm_hourglass", "lookback_window": LOOKBACK}},
+        ]}}
+    }
+}
+
+
+def with_window(definition: dict, estimator: str = None) -> dict:
+    """``definition`` with a detector window of SMOOTH_WINDOW rows (and the
+    final estimator's path replaced by ``estimator``)."""
+    definition = json.loads(json.dumps(definition))
+    det = definition["gordo_tpu.anomaly.diff.DiffBasedAnomalyDetector"]
+    det["window"] = SMOOTH_WINDOW
+    if estimator is not None:
+        steps = det["base_estimator"]["gordo_tpu.pipeline.Pipeline"]["steps"]
+        ((_, kwargs),) = steps[-1].items()
+        steps[-1] = {estimator: kwargs}
+    return definition
+
+
+def random_lstm(rng: np.random.Generator, machines: int, tags: int):
+    """Stacked numpy arrays of ``machines`` LSTM detectors at the hourglass
+    widths: kernels scaled as lecun-normal, small biases, MinMax stats and
+    thresholds."""
+    dims = hourglass(tags)[:-1]  # tags, then the six LSTM widths
+    cells = []
+    for i in range(len(dims) - 1):
+        n_in, h = dims[i], dims[i + 1]
+        ki = rng.standard_normal((machines, n_in, 4 * h)) / math.sqrt(n_in)
+        kh = rng.standard_normal((machines, h, 4 * h)) / math.sqrt(h)
+        b = 0.1 * rng.standard_normal((machines, 4 * h))
+        cells.append(tuple(a.astype(np.float32) for a in (ki, kh, b)))
+    W = rng.standard_normal((machines, dims[-1], tags)) / math.sqrt(dims[-1])
+    b = 0.1 * rng.standard_normal((machines, tags))
+    return {
+        "dims": dims,
+        "cells": cells,
+        "head": (W.astype(np.float32), b.astype(np.float32)),
+        **random_stats(rng, machines, tags),
+    }
+
+
+def lstm_layer_cost(m: int, n: int, n_in: int, h: int, first: bool, last: bool):
+    """(bytes, FLOPs) of one ``lstm_layer`` call over a bucket: its input
+    read once (the first layer's request rows, a later layer's windows),
+    its weights once per machine, its output written once.  The hidden
+    product is needed per window and step (each window's state starts at
+    zero), and so is a later layer's input product, whose input differs
+    per window; the first layer's input product depends on the row alone
+    (windows overlap), so the function needs it once per row, although
+    the kernel and JAX compute it per window and step."""
+    nw = n - LOOKBACK + 1
+    inp = m * n * n_in if first else m * nw * LOOKBACK * n_in
+    out = m * nw * h * (1 if last else LOOKBACK)
+    weights = m * 4 * h * (n_in + h + 1)
+    input_product = 8 * h * n_in * (m * n if first else m * nw * LOOKBACK)
+    hidden_product = 8 * h * h * m * nw * LOOKBACK
+    return 4 * (inp + out + weights), input_product + hidden_product
+
+
+def lstm_layer_bound(m: int, n: int, dims):
+    costs = [lstm_layer_cost(m, n, dims[i], dims[i + 1], i == 0, i == len(dims) - 2)
+             for i in range(len(dims) - 1)]
+    return bound(sum(c[0] for c in costs), sum(c[1] for c in costs))
+
+
+def _torch_lstm(ki, kh, b):
+    """``torch.nn.LSTM`` (cuDNN, TF32 off) with one machine's layer, the
+    yardstick: flax's i, f, g, o blocks are PyTorch's gate order; the bias
+    goes to ``bias_ih``, ``bias_hh`` is zero."""
+    n_in, h4 = ki.shape
+    lstm = torch.nn.LSTM(n_in, h4 // 4, batch_first=True).to(ki.device)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(ki.T)
+        lstm.weight_hh_l0.copy_(kh.T)
+        lstm.bias_ih_l0.copy_(b)
+        lstm.bias_hh_l0.zero_()
+    return lstm
+
+
+def _valid_err(ref, got, counts, what: str, tol: float):
+    """Max normalised and absolute error over each slot's first
+    ``counts[s]`` rows; NaN must sit where the plain version has it."""
+    r = torch.cat([ref[s, :c] for s, c in enumerate(counts)])
+    g = torch.cat([got[s, :c] for s, c in enumerate(counts)])
+    check(bool(torch.equal(torch.isnan(r), torch.isnan(g))), f"{what}: NaN where the plain version has it")
+    fin = ~torch.isnan(r)
+    err = norm_err(r[fin], g[fin])
+    check(err <= tol, f"{what} within {tol}: {err}")
+    return err, float((r[fin].double() - g[fin].double()).abs().max())
+
+
+def lstm_layer_variants(rng, net, x, scale, offset):
+    """``lstm_layer`` on what the bucket-wide check does not reach: a
+    subset of the bucket's machines by stack position (``idx``) with ragged
+    windows per slot, the forecast's one-fewer windows, and lookback 1."""
+    from gordo_tpu_torch.kernels import lstm_layer as ll
+
+    machines, n, _ = x.shape
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(x.device)  # noqa: E731
+    (ki0, kh0, b0), (ki1, kh1, b1) = ([put(a) for a in c] for c in net["cells"][:2])
+    out = []
+    m_sub = min(8, machines)
+    idx = np.sort(rng.choice(machines, m_sub, replace=False))[::-1].copy()
+    windows = rng.integers(1, n - LOOKBACK + 2, m_sub)
+    xs = x[:m_sub].contiguous()
+    for name, kw in (
+        ("subset_ragged", dict(lookback=LOOKBACK, idx=idx, slot_windows=windows)),
+        ("forecast_windows", dict(lookback=LOOKBACK, n_windows=n - LOOKBACK)),
+        ("lookback_1", dict(lookback=1)),
+    ):
+        counts = windows if "slot_windows" in kw else [kw.get("n_windows", n - kw["lookback"] + 1)] * m_sub
+        first = dict(kw, act="tanh", scale=scale, offset=offset)
+        if "idx" not in kw:
+            first.update(scale=scale[:m_sub].contiguous(), offset=offset[:m_sub].contiguous())
+            weights0 = [a[:m_sub].contiguous() for a in (ki0, kh0, b0)]
+            weights1 = [a[:m_sub].contiguous() for a in (ki1, kh1, b1)]
+        else:
+            weights0, weights1 = (ki0, kh0, b0), (ki1, kh1, b1)
+        got0 = ll.lstm_layer(xs, *weights0, **first)
+        plain_kw = {k: v for k, v in first.items() if k != "slot_windows"}
+        ref0 = ll.lstm_layer_plain(xs, *weights0, **plain_kw)
+        err0, abs0 = _valid_err(ref0, got0, counts, f"lstm_layer {name} (rows)", LSTM_TOLERANCE["lstm_layer"])
+        # the next layer, fed the kernel's windows, as its last layer
+        second = {k: v for k, v in kw.items() if k != "n_windows"}
+        got1 = ll.lstm_layer(got0, *weights1, act="tanh", last=True, **second)
+        second.pop("slot_windows", None)
+        ref1 = ll.lstm_layer_plain(got0, *weights1, act="tanh", last=True, **second)
+        err1, abs1 = _valid_err(ref1, got1, counts, f"lstm_layer {name} (windows)", LSTM_TOLERANCE["lstm_layer"])
+        out.append({"variant": name, "max_norm_err": max(err0, err1), "max_abs_err": max(abs0, abs1)})
+    return out
+
+
+def rolling_median_variant(rng, tag, total, thr):
+    """``rolling_median`` on a subset of the bucket's machines with ragged
+    rows per slot and the confidence of each slot's machine."""
+    from gordo_tpu_torch.kernels import rolling_median as rm
+
+    machines, nw, _ = tag.shape
+    m_sub = min(8, machines)
+    idx = np.sort(rng.choice(machines, m_sub, replace=False))[::-1].copy()
+    rows = rng.integers(1, nw + 1, m_sub)
+    rows[0] = 1
+    sub_tag, sub_total = tag[:m_sub].contiguous(), total[:m_sub].contiguous()
+    got = rm.rolling_median(sub_tag, sub_total, SMOOTH_WINDOW, agg_thr=thr, idx=idx, n_rows=rows)
+    ref = rm.rolling_median_plain(sub_tag, sub_total, SMOOTH_WINDOW, agg_thr=thr, idx=idx)
+    errs, worst = {}, 0.0
+    for k in ref:
+        errs[k], a = _valid_err(ref[k], got[k], rows, f"rolling_median subset {k}",
+                                LSTM_TOLERANCE["rolling_median"])
+        worst = max(worst, a)
+    return {"machines": m_sub, "max_norm_err": errs, "max_abs_err": worst}
+
+
+def phase_lstm_kernel_check():
+    from gordo_tpu_torch.kernels import fleet_score as fs
+    from gordo_tpu_torch.kernels import lstm_layer as ll
+    from gordo_tpu_torch.kernels import rolling_median as rm
+    from gordo_tpu_torch.ops.windows import make_windows
+
+    machines, n, tags = LSTM_SHAPE
+    rng = np.random.default_rng(SEED + 4)
+    net = random_lstm(rng, machines, tags)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEVICE)  # noqa: E731
+    x = put(rng.standard_normal((machines, n, tags)).astype(np.float32))
+    scale, offset = put(net["scale"]), put(net["offset"])
+    nw = n - LOOKBACK + 1
+    entries, layers = {}, []
+
+    def timed(entry, run, plain, reps, library=None):
+        if DEVICE == "cuda":
+            entry["ms"], entry["host_ms"] = time_ms(run, reps)
+            entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, 2)
+            if library is not None:
+                entry["library_ms"], _ = time_calls_ms(library, 2)
+
+    # every layer, fed what the kernel made for the layer before
+    h = x
+    for i, cell in enumerate(net["cells"]):
+        ki, kh, b = (put(a) for a in cell)
+        n_in, hidden = int(ki.shape[1]), int(kh.shape[1])
+        first, last = i == 0, i == len(net["cells"]) - 1
+        kw = dict(lookback=LOOKBACK, act="tanh", last=last,
+                  scale=scale if first else None, offset=offset if first else None)
+        inp = h
+        run = lambda: ll.lstm_layer(inp, ki, kh, b, **kw)  # noqa: E731
+        plain = lambda: ll.lstm_layer_plain(inp, ki, kh, b, **kw)  # noqa: E731
+        got, ref = run(), plain()
+        check(bool(got.isfinite().all()), f"lstm_layer {i} is finite")
+        err = norm_err(ref, got)
+        check(err <= LSTM_TOLERANCE["lstm_layer"],
+              f"lstm_layer {i} within {LSTM_TOLERANCE['lstm_layer']}: {err}")
+        entry = {"layer": i, "widths": [n_in, hidden], "max_norm_err": err,
+                 "max_abs_err": float((ref.double() - got.double()).abs().max())}
+        del ref
+        library = None
+        if DEVICE == "cuda":
+            # the library's LSTM takes materialised windows, one machine a call
+            wins = make_windows(inp * scale[:, None] + offset[:, None], LOOKBACK) if first else inp
+            nets = [_torch_lstm(ki[j], kh[j], b[j]) for j in range(machines)]
+
+            def library():
+                with torch.no_grad():
+                    return [torch.tanh(nets[j](wins[j])[0]) for j in range(machines)]
+
+            lib_out = torch.stack([o[:, -1] if last else o for o in library()])
+            entry["library_max_norm_err"] = norm_err(got, lib_out)
+            del lib_out
+        timed(entry, run, plain, 5, library)
+        entry.update(bound(*lstm_layer_cost(machines, n, n_in, hidden, first, last)))
+        layers.append(entry)
+        h = got
+        if DEVICE == "cuda":
+            del wins, nets, library
+            torch.cuda.empty_cache()
+    total = {k: sum(e[k] for e in layers) for k in ("ms", "plain_ms", "library_ms") if k in layers[0]}
+    total.update(lstm_layer_bound(machines, n, net["dims"]))
+    entries["lstm_layer"] = {"layers": layers, "tolerance": LSTM_TOLERANCE["lstm_layer"], **total,
+                             "variants": lstm_layer_variants(rng, net, x, scale, offset)}
+    entries["lstm_layer"]["max_abs_err"] = max(
+        [e["max_abs_err"] for e in layers] + [v["max_abs_err"] for v in entries["lstm_layer"]["variants"]])
+
+    # the head and detector epilogue: fleet_score on the final states
+    W, bh = put(net["head"][0]), put(net["head"][1])
+    hidden = int(W.shape[1])
+    det = dict(det_scale=put(net["det_scale"]), det_offset=put(net["det_offset"]),
+               y=x, y_offset=LOOKBACK - 1)
+    run = lambda: fs.fleet_score(h, [(W, bh)], ["linear"], **det)  # noqa: E731
+    plain = lambda: fs.fleet_score_plain(h, [(W, bh)], ["linear"], **det)  # noqa: E731
+    got, ref = run(), plain()
+    check(all(bool(v.isfinite().all()) for v in got.values()), "LSTM head is finite")
+    errs = {k: norm_err(ref[k], got[k]) for k in ref}
+    check(all(e <= LSTM_TOLERANCE["fleet_score"] for e in errs.values()),
+          f"LSTM head within {LSTM_TOLERANCE['fleet_score']}: {errs}")
+    head = {"shape": [machines, nw, hidden, tags], "max_norm_err": errs,
+            "max_abs_err": max(float((ref[k].double() - got[k].double()).abs().max()) for k in ref)}
+    timed(head, run, plain, 20)
+    head.update(bound(4 * (machines * nw * (hidden + tags)  # states, targets
+                           + machines * (hidden * tags + 3 * tags)  # head, detector stats
+                           + machines * nw * (2 * tags + 1)),  # pred, tags, total
+                      2 * machines * nw * hidden * tags))
+    entries["fleet_score_lstm_head"] = head
+
+    # the detector's smoothing, with NaNs in one tag's column
+    tag = got["tag-anomaly-scores"].clone()
+    total_score = got["total-anomaly-score"]
+    holes = torch.from_numpy(rng.random((machines, nw)) < 0.1).to(tag.device)
+    gap = min(1000, nw // 4)
+    holes[:, gap: gap + 2 * SMOOTH_WINDOW] = True  # all-NaN windows too
+    tag[:, :, 3] = torch.where(holes, torch.nan, tag[:, :, 3])
+    thr = put(net["agg"])
+    run = lambda: rm.rolling_median(tag, total_score, SMOOTH_WINDOW, agg_thr=thr)  # noqa: E731
+    plain = lambda: rm.rolling_median_plain(tag, total_score, SMOOTH_WINDOW, agg_thr=thr)  # noqa: E731
+    got_m, ref_m = run(), plain()
+    check(bool(torch.isnan(ref_m["tag-anomaly-scores"][:, gap + 2 * SMOOTH_WINDOW - 1, 3]).all()),
+          "an all-NaN window gives NaN")
+    errs, worst = {}, 0.0
+    for k in ref_m:
+        r, g = ref_m[k], got_m[k]
+        check(bool(torch.equal(torch.isnan(r), torch.isnan(g))),
+              f"rolling_median {k}: NaN exactly where the plain version has it")
+        fin = ~torch.isnan(r)
+        errs[k] = norm_err(r[fin], g[fin])
+        worst = max(worst, float((r[fin].double() - g[fin].double()).abs().max()))
+    check(all(e <= LSTM_TOLERANCE["rolling_median"] for e in errs.values()),
+          f"rolling_median within {LSTM_TOLERANCE['rolling_median']}: {errs}")
+    subset = rolling_median_variant(rng, tag, total_score, thr)
+    median = {"shape": [machines, nw, tags + 1], "window": SMOOTH_WINDOW, "max_norm_err": errs,
+              "max_abs_err": max(worst, subset["max_abs_err"]), "subset": subset,
+              "tolerance": LSTM_TOLERANCE["rolling_median"]}
+
+    def library():
+        # torch.nanquantile refuses inputs over 2**24 elements: each slot's
+        # windows go in two chunks of rows
+        series = torch.cat([tag, total_score[..., None]], dim=-1)
+        pad = series.new_full((machines, SMOOTH_WINDOW - 1, tags + 1), float("nan"))
+        padded = torch.cat([pad, series], dim=1)
+        half = nw // 2
+        return [torch.nanquantile(padded[j, lo: hi + SMOOTH_WINDOW - 1].unfold(0, SMOOTH_WINDOW, 1),
+                                  0.5, dim=-1, interpolation="midpoint")
+                for j in range(machines) for lo, hi in ((0, half), (half, nw))]
+
+    timed(median, run, plain, 20, library)
+    elems = machines * nw * (tags + 1)
+    # in: the scores, thresholds; out: the smoothed scores, confidence; a
+    # compare per window element
+    median.update(bound(4 * (2 * elems + machines + machines * nw), elems * SMOOTH_WINDOW))
+    entries["rolling_median"] = median
+    emit({"phase": "lstm_kernel_check", "shape": list(LSTM_SHAPE), "lookback": LOOKBACK,
+          "kernels": entries})
+    del x, h, got, ref, tag, got_m, ref_m
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return entries
+
+
+def lstm_numpy_reference(net, i: int, X: np.ndarray, mode: str, window: int, rows: int) -> dict:
+    """Float64 numpy evaluation of LSTM detector ``i`` of ``net`` on ``X``
+    (its first ``rows`` output rows), independent of torch."""
+    L = LOOKBACK
+    off = L - 1 if mode == "ae" else L
+    X = X.astype(np.float64)
+    xs = X * net["scale"][i] + net["offset"][i]
+    h_in = np.stack([xs[w: w + L] for w in range(rows)])  # (rows, L, F)
+    sig = lambda z: 1.0 / (1.0 + np.exp(-z))  # noqa: E731
+    for ki, kh, b in net["cells"]:
+        ki, kh, b = (a[i].astype(np.float64) for a in (ki, kh, b))
+        H = kh.shape[0]
+        h = np.zeros((rows, H))
+        c = np.zeros((rows, H))
+        steps = []
+        for t in range(L):
+            z = h_in[:, t] @ ki + h @ kh + b
+            c = sig(z[:, H:2 * H]) * c + sig(z[:, :H]) * np.tanh(z[:, 2 * H:3 * H])
+            h = sig(z[:, 3 * H:]) * np.tanh(c)
+            steps.append(np.tanh(h))
+        h_in = np.stack(steps, 1)
+    pred = h_in[:, -1] @ net["head"][0][i].astype(np.float64) + net["head"][1][i]
+    ds, do = net["det_scale"][i], net["det_offset"][i]
+    y = X[off: off + rows]
+    tag = np.abs((pred * ds + do) - (y * ds + do))
+    total = np.sqrt((tag * tag).sum(-1))
+    if window:
+        def smooth(a):
+            return np.stack([np.median(a[max(0, r - window + 1): r + 1], axis=0) for r in range(len(a))])
+        tag, total = smooth(tag), smooth(total)
+    return {"model-output": pred, "tag-anomaly-scores": tag, "total-anomaly-score": total,
+            "anomaly-confidence": total / max(float(net["agg"][i]), 1e-12)}
+
+
+def phase_lstm_serve():
+    from gordo_tpu_torch import convert, serializer
+    from gordo_tpu_torch.kernels import fleet_score as fs
+    from gordo_tpu_torch.kernels import lstm_layer as ll
+    from gordo_tpu_torch.kernels import rolling_median as rm
+    from gordo_tpu_torch.serve.scorer import CompiledScorer, short_rows_message
+    from gordo_tpu_torch.serve.server import ModelCollection, make_server
+
+    _, rows, tags = LSTM_SHAPE
+    bulk_rows = 576
+    ae_count = 8
+    rng = np.random.default_rng(SEED + 5)
+    net = random_lstm(rng, ae_count + 1, tags)  # 8 ae detectors, then the forecast one
+    ff = random_chain(rng, 1, tags)
+    forecast = with_window(LSTM_MODEL, "gordo_tpu.models.estimator.LSTMForecast")
+    models = {}  # name -> (definition, flax params, arrays, index in them)
+    for i in range(ae_count + 1):
+        params = convert.lstm_layers_to_flax([tuple(a[i] for a in c) for c in net["cells"]],
+                                             (net["head"][0][i], net["head"][1][i]))
+        if i < ae_count:
+            models[f"lstm-ae-{i}"] = (LSTM_MODEL, params, net, i)
+        else:
+            models["lstm-forecast"] = (forecast, params, net, i)
+    ff_params = {(f"dense_{l}" if l < len(ff["layers"]) - 1 else "out"): {"kernel": W[0], "bias": b[0]}
+                 for l, (W, b) in enumerate(ff["layers"])}
+    models["ff-window"] = (with_window(DEFAULT_MODEL), ff_params, ff, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lstm_") as tmp:
+        for name, (definition, params, src, i) in models.items():
+            model = convert.from_reference(
+                definition, params,
+                scaler_stats=[{"scale": src["scale"][i], "offset": src["offset"][i]}],
+                detector_stats={"scale": src["det_scale"][i], "offset": src["det_offset"][i]},
+                feature_thresholds=src["feature_thresholds"][i],
+                aggregate_threshold=float(src["agg"][i]),
+            )
+            meta = {"dataset": {"tag_list": [f"{name}-tag-{j}" for j in range(tags)]}}
+            serializer.dump(model, os.path.join(tmp, name), metadata=meta)
+        collection = ModelCollection.from_directory(
+            tmp, project="lstm", device=None if DEVICE == "cuda" else DEVICE
+        )
+        cpu = {name: CompiledScorer(serializer.load(os.path.join(tmp, name)), device="cpu")
+               for name in models}
+        server = make_server(collection, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/lstm"
+        inputs = {name: rng.standard_normal((rows, tags)).astype(np.float32)
+                  for name in ("lstm-ae-0", "lstm-forecast", "ff-window")}
+        bulk = {name: rng.standard_normal((bulk_rows, tags)).astype(np.float32) for name in models}
+        for mod in (ll, fs, rm):
+            mod.launches = 0
+        responses, latencies = [], {}
+        try:
+            for name, X in inputs.items():
+                for route in ("prediction", "anomaly/prediction"):
+                    t0 = time.perf_counter()
+                    status, body = _request(f"{base}/{name}/{route}", {"X": X.tolist()})
+                    latencies[f"{name} {route}"] = time.perf_counter() - t0
+                    check(status == 200, f"{route} {name}: {status} {body}")
+                    responses.append((name, route, X, body["data"]))
+            t0 = time.perf_counter()
+            status, body = _request(f"{base}/_bulk/anomaly/prediction",
+                                    {"X": {n: X.tolist() for n, X in bulk.items()}})
+            latencies["bulk"] = time.perf_counter() - t0
+            check(status == 200, f"bulk: {status} {body}")
+            for name, X in bulk.items():
+                responses.append((name, "bulk", X, body["data"][name]))
+            # part of the ae bucket at ragged rows (one row past the
+            # lookback gives one window), and the other two buckets
+            ragged = {f"lstm-ae-{i}": r for i, r in zip((6, 1, 4, 3, 2), (576, 400, 200, 13, 12))}
+            ragged.update({"lstm-forecast": 145, "ff-window": 7})
+            sub = {name: bulk[name][:r] for name, r in ragged.items()}
+            status, body = _request(f"{base}/_bulk/anomaly/prediction",
+                                    {"X": {n: X.tolist() for n, X in sub.items()}})
+            check(status == 200, f"ragged bulk: {status} {body}")
+            for name, X in sub.items():
+                responses.append((name, "bulk", X, body["data"][name]))
+            launches = {"lstm_layer": ll.launches, "fleet_score": fs.launches,
+                        "rolling_median": rm.launches}
+            # a request no longer than the lookback is a client error
+            status, body = _request(f"{base}/lstm-forecast/anomaly/prediction",
+                                    {"X": bulk["lstm-forecast"][:LOOKBACK].tolist()})
+            check(status == 400 and json.loads(body) == {"error": short_rows_message(LOOKBACK, LOOKBACK)},
+                  f"short request: {status} {body}")
+            breakdown = _request_breakdown(collection, inputs, sub) if DEVICE == "cuda" else {}
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        check(not thread.is_alive(), "server thread stopped")
+    # six lstm_layer launches for each LSTM request, one fleet_score for
+    # each request, one rolling_median for each anomaly request with a
+    # window; each bulk request scores three buckets (the ae detectors,
+    # the forecast one, the feedforward one)
+    expected = {"lstm_layer": 6 * 4 + 2 * 6 * 2, "fleet_score": 6 + 2 * 3, "rolling_median": 2 + 2 * 2}
+    if DEVICE == "cuda":
+        check(launches == expected, f"LSTM serving launches {launches}, expected {expected}")
+    worst = {}
+    for name, route, X, data in responses:
+        scorer = cpu[name]
+        ref = {"model-output": scorer.predict(X)} if route == "prediction" else scorer.anomaly_arrays(X)
+        for k in OUTPUTS:
+            if k not in data:
+                continue
+            got = np.asarray(data[k], np.float64)
+            check(got.shape == np.shape(ref[k]) and np.isfinite(got).all(), f"{route} {name} {k}")
+            err = float(np.abs(got - ref[k]).max() / max(np.abs(ref[k]).max(), 1e-30))
+            worst[k] = max(worst.get(k, 0.0), err)
+    # one response against float64 numpy: the forecast detector's anomaly
+    # response, its first 300 rows
+    ((X, data),) = [(X, d) for n, r, X, d in responses
+                    if n == "lstm-forecast" and r == "anomaly/prediction"]
+    first = min(300, X.shape[0] - LOOKBACK)
+    ref64 = lstm_numpy_reference(net, ae_count, X, "forecast", SMOOTH_WINDOW, first)
+    worst64 = {}
+    for k, ref in ref64.items():
+        got = np.asarray(data[k], np.float64)[:first]
+        worst64[k] = float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+    check(all(v <= LSTM_SERVE_TOLERANCE for v in worst.values()),
+          f"served LSTM values within {LSTM_SERVE_TOLERANCE} of the plain versions: {worst}")
+    check(all(v <= LSTM_SERVE_TOLERANCE for v in worst64.values()),
+          f"served forecast response within {LSTM_SERVE_TOLERANCE} of float64: {worst64}")
+    return {
+        "machines": {"lstm_ae": ae_count, "lstm_forecast_window": 1, "ff_window": 1},
+        "request_rows": rows,
+        "bulk_rows": bulk_rows,
+        "scoring_requests": 2 * len(inputs) + 2,
+        "launches": launches,
+        "max_norm_err_vs_plain": worst,
+        "max_norm_err_vs_float64": worst64,
+        "request_seconds": latencies,
+        "breakdown": breakdown,
+    }
+
+
+def _request_breakdown(collection, inputs, ragged) -> dict:
+    """Where a 4096-row anomaly request's time goes, per model: the
+    kernels (CUDA events around the launches of one request, on rows
+    already on the card) and the scorer's call (host clock: copies to and
+    from the card, the launches, numpy), beside the HTTP request's wall
+    time measured above (JSON decode and encode on top).  And the ragged
+    bulk request's slots of the LSTM ``ae`` bucket, a subset at ragged
+    rows: its kernels and the host time that enqueues them (the slot
+    indices and counts go to the card once for the seven launches)."""
+    out = {}
+    bucket = next(b for b in collection.fleet_scorer.buckets if "lstm-ae-0" in b.position)
+    names = [n for n in ragged if n in bucket.position]
+    rows = [int(ragged[n].shape[0]) for n in names]
+    x = np.zeros((len(names), max(rows), bucket.n_features), np.float32)
+    for slot, name in enumerate(names):
+        x[slot, : rows[slot]] = ragged[name]
+    x = torch.from_numpy(x).to(DEVICE)
+    idx = [bucket.position[n] for n in names]
+    device_ms, host_ms = time_calls_ms(lambda: bucket.run(x, True, idx, rows), 5)
+    out[f"lstm-ae bulk, {len(names)} ragged slots"] = {"kernels_ms": device_ms, "enqueue_ms": host_ms}
+    for name, X in inputs.items():
+        scorer = collection.get(name).scorer
+        x = torch.from_numpy(X[None]).to(DEVICE)
+        device_ms, host_ms = time_calls_ms(lambda: scorer._stack.run(x, True), 5)
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            scorer.anomaly_arrays(X)
+            walls.append(time.perf_counter() - t0)
+        out[name] = {"kernels_ms": device_ms, "enqueue_ms": host_ms,
+                     "scorer_ms": float(np.median(walls)) * 1e3}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU", file=sys.stderr)
@@ -720,15 +1271,21 @@ def main() -> int:
     train_kernels = phase_train_kernel_check()
     train = phase_train()
     emit({"phase": "train", **train})
+    lstm_kernels = phase_lstm_kernel_check()
+    lstm_serve = phase_lstm_serve()
+    emit({"phase": "lstm_serve", **lstm_serve})
     main_shape = shapes[0]
+    head = lstm_kernels["fleet_score_lstm_head"]
     summary = [{
         "name": "fleet_score",
         "route": "cuda",
         "source": fs.SOURCE,
         "replaces": fs.REPLACES,
-        "launches": serve["launches"] + train["launches"]["fleet_score"],
-        "launches_by_path": {"serve": serve["launches"], "train": train["launches"]["fleet_score"]},
-        "max_abs_err": max(s["max_abs_err"] for s in shapes),
+        "launches": (serve["launches"] + train["launches"]["fleet_score"]
+                     + lstm_serve["launches"]["fleet_score"]),
+        "launches_by_path": {"serve": serve["launches"], "train": train["launches"]["fleet_score"],
+                             "lstm_serve": lstm_serve["launches"]["fleet_score"]},
+        "max_abs_err": max([s["max_abs_err"] for s in shapes] + [head["max_abs_err"]]),
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
@@ -737,7 +1294,10 @@ def main() -> int:
         "shape": main_shape["shape"],
         "shapes": [{k: s[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by",
                                       "host_ms", "plain_host_ms")}
-                   for s in shapes],
+                   for s in shapes]
+                  + [{"shape": head["shape"], "lstm_head": True,
+                      **{k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "host_ms", "plain_host_ms")}}],
     }]
     for name, entry in train_kernels.items():
         mod = importlib.import_module(f"gordo_tpu_torch.kernels.{name}")
@@ -756,6 +1316,23 @@ def main() -> int:
             "shape": list(TRAIN_SHAPE),
             "host_ms": entry["host_ms"],
             "plain_host_ms": entry["plain_host_ms"],
+        })
+    for name in ("lstm_layer", "rolling_median"):
+        entry = lstm_kernels[name]
+        mod = importlib.import_module(f"gordo_tpu_torch.kernels.{name}")
+        summary.append({
+            "name": name,
+            "route": "cuda",
+            "source": mod.SOURCE,
+            "replaces": mod.REPLACES,
+            "launches": lstm_serve["launches"][name],
+            "max_abs_err": entry["max_abs_err"],
+            "ms": entry["ms"],
+            "plain_ms": entry["plain_ms"],
+            "bound_ms": entry["bound_ms"],
+            "bound_by": entry["bound_by"],
+            "library_ms": entry["library_ms"],
+            "shape": list(LSTM_SHAPE),
         })
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -11,7 +11,10 @@ Ported so far, for the reference default detector
 feedforward_hourglass)])``): serving, scored by the fused ``fleet_score``
 kernel; and the exact-mode fleet build (and the single-machine
 ``cross_validate``/``fit``), trained by ``fleet_fit`` with stats from
-``scaler_stats`` and thresholds from ``cv_epilogue``.
+``scaler_stats`` and thresholds from ``cv_epilogue``.  Serving of LSTM
+detectors (``LSTMAutoEncoder``, ``LSTMForecast``) through ``lstm_layer``
+and ``fleet_score``, and of detectors with a smoothing ``window`` through
+``rolling_median``.
 """
 
 __version__ = "0.1.0"

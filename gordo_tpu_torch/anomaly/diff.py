@@ -6,7 +6,12 @@ detector scaler applied to targets and predictions, per-tag
 ``feature_thresholds_`` and an ``aggregate_threshold_``.  The scoring math
 (scaled |diff|, L2 total over tags, confidence) runs in the fused
 ``fleet_score`` kernel and its plain twin
-(``gordo_tpu_torch/kernels/fleet_score.py``).  ``cross_validate`` derives
+(``gordo_tpu_torch/kernels/fleet_score.py``); with ``window`` set, the tag
+and total scores are smoothed by a trailing rolling median of ``window``
+rows (``min_periods=1``) and the confidence taken from the smoothed total,
+in the ``rolling_median`` kernel (``gordo_tpu_torch/kernels/
+rolling_median.py``), as ``gordo_tpu/anomaly/diff.py:143-160`` smooths
+them with pandas.  ``cross_validate`` derives
 the thresholds through the exact fleet build with one machine
 (``gordo_tpu_torch/parallel/anomaly.py``): fold fits in ``fleet_fit``,
 out-of-fold scoring in ``fleet_score``, smoothed maxima and metrics in
@@ -22,6 +27,7 @@ import torch
 
 from gordo_tpu_torch.anomaly.base import AnomalyDetectorBase
 from gordo_tpu_torch.device import resolve_device
+from gordo_tpu_torch.models.estimator import LSTMAutoEncoder
 from gordo_tpu_torch.ops.scalers import BaseTransform, MinMaxScaler, as_float2d
 from gordo_tpu_torch.parallel.fleet import Draws, fleet_draws
 from gordo_tpu_torch.train.cv import METRIC_NAMES, build_splitter
@@ -82,6 +88,12 @@ class DiffBasedAnomalyDetector(ParamsMixin, AnomalyDetectorBase):
         y_arr = X_arr if y is None else as_float2d(y)
         dev = resolve_device(device)
         spec = analyze_definition(self.clone())
+        if spec is None and isinstance(getattr(self.base_estimator, "_final", self.base_estimator),
+                                       LSTMAutoEncoder):
+            raise NotImplementedError(
+                "cross_validate of an LSTM detector waits for ROADMAP queue 1 item 5 "
+                "(LSTM training, K6 backward)"
+            )
         if spec is None:
             raise NotImplementedError(
                 f"cross_validate of {type(self.base_estimator).__name__} waits for "

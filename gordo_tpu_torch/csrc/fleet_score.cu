@@ -4,11 +4,13 @@
 // (gordo_tpu/serve/fleet_scorer.py:51 `_fleet_score_core`, :120
 // `_fleet_score_subset_core`) and the single-machine `serve.score`
 // (gordo_tpu/serve/scorer.py:211 `_score_program_fn`) for the
-// feedforward / MinMax / no-window chain.  Per machine and row:
+// feedforward / MinMax chain, and the LSTM chain's head (below); a
+// detector window is rolling_median's.  Per machine and row:
 //
 //   xs    = x * scale + offset                      (pipeline MinMax)
 //   h     = act_l(h @ W_l + b_l)  for every layer   (dense stack)
-//   tag   = |(h * ds + do) - (y * ds + do)|         (detector MinMax, y = x)
+//   tag   = |(h * ds + do) - (y * ds + do)|         (detector MinMax, y = x
+//                                                    or given targets)
 //   total = sqrt(sum_j tag_j^2)
 //   conf  = total / max(threshold, 1e-12)
 //
@@ -44,27 +46,22 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "activations.cuh"
+
 #define FS_MAX_LAYERS 16
 #define FS_THREADS 256
 #define FS_RPT 4
 
-enum {
-  ACT_LINEAR = 0,
-  ACT_TANH = 1,
-  ACT_RELU = 2,
-  ACT_SIGMOID = 3,
-  ACT_ELU = 4,
-  ACT_SELU = 5,
-  ACT_SOFTPLUS = 6,
-  ACT_LEAKY_RELU = 7,
-  ACT_GELU = 8,
-};
-
+// The LSTM detectors use it as their head and epilogue: x is the last LSTM
+// layer's final-step state (m, windows, H), the one layer is the `out`
+// Dense, there is no pipeline scaler, and y is the raw request rows from
+// the model's offset on (y_n rows per slot, starting at row y_row0).
+//
 // Mirrored field by field by `_Args` in gordo_tpu_torch/kernels/fleet_score.py;
 // fleet_score_args_size() lets the wrapper check the two agree.
 struct FleetScoreArgs {
   const float* x;           // (m, n, f) raw rows of each dispatch slot
-  const float* y;           // (m, n, f) targets, or null: y = x
+  const float* y;           // (m, y_n, f_out) targets from row y_row0, or null: y = x
   const int* idx;           // (m,) stacked machine of each slot, or null: slot
   const int* n_rows;        // (m,) valid rows of each slot, or null: n
   const float* scale;       // (M, f) pipeline MinMax, or null: none
@@ -81,6 +78,8 @@ struct FleetScoreArgs {
   int m;
   int n;
   int f;
+  int y_n;                  // rows per slot of y
+  int y_row0;               // y row of output row 0
   int n_layers;
   int dims[FS_MAX_LAYERS + 1];
   int act[FS_MAX_LAYERS];
@@ -90,31 +89,6 @@ struct FleetScoreArgs {
   int wbuf_floats;          // all layers' W and b if resident, else the largest layer's
   int smem_bytes;
 };
-
-__device__ __forceinline__ float act_fn(int code, float x) {
-  switch (code) {
-    case ACT_TANH:
-      return tanhf(x);
-    case ACT_RELU:
-      return fmaxf(x, 0.f);
-    case ACT_SIGMOID:
-      return 1.f / (1.f + expf(-x));
-    case ACT_ELU:
-      return x > 0.f ? x : expm1f(x);
-    case ACT_SELU:
-      return 1.0507009873554804934193349852946f *
-             (x > 0.f ? x : 1.6732632423543772848170429916717f * expm1f(x));
-    case ACT_SOFTPLUS:
-      return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-    case ACT_LEAKY_RELU:
-      return x >= 0.f ? x : 0.01f * x;
-    case ACT_GELU:  // tanh approximation, flax's default
-      return 0.5f * x *
-             (1.f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
-    default:
-      return x;
-  }
-}
 
 // Calls body(q, c) for each pair of [0, nq) x [0, nc) that falls to this
 // thread when the block's threads walk the pairs in row-major order (c
@@ -154,27 +128,34 @@ fleet_score_kernel(const FleetScoreArgs a) {
 
   float* wbuf = smem;                  // weights: W then b, layer after layer
   float* sdet = wbuf + a.wbuf_floats;  // detector scale (fo), offset (fo)
-  float* yraw = sdet + 2 * fo;         // R x F raw targets (detector only)
-  float* bufa = yraw + (det ? R * F : 0);  // R x D activations
+  float* yraw = sdet + 2 * fo;         // R x fo raw targets (detector only)
+  float* bufa = yraw + (det ? R * fo : 0);  // R x D activations
   float* bufb = bufa + R * D;              // R x D activations
 
   // device memory → shared: rows, stats, resident weights
   const size_t row_base = (size_t)slot * a.n + row0;
   const float* xt = a.x + row_base * F;
-  const float* yt = (a.y ? a.y : a.x) + row_base * F;
   const float* sc = a.scale ? a.scale + (size_t)mach * F : nullptr;
   const float* of = a.scale ? a.offset + (size_t)mach * F : nullptr;
+  // without y, F == fo and the raw rows are the targets
+  const bool y_is_x = det && !a.y;
   walk2d(R, F, [&](int r, int j) {
     float v = 0.f;
     float t = 0.f;
     if (r < rows) {
       v = __ldg(xt + r * F + j);
-      t = a.y ? __ldg(yt + r * F + j) : v;
+      t = v;
       if (sc) v = v * __ldg(sc + j) + __ldg(of + j);
     }
     bufa[r * D + j] = v;
-    if (det) yraw[r * F + j] = t;
+    if (y_is_x) yraw[r * fo + j] = t;
   });
+  if (det && a.y) {
+    const float* yt = a.y + ((size_t)slot * a.y_n + a.y_row0 + row0) * fo;
+    walk2d(R, fo, [&](int r, int j) {
+      yraw[r * fo + j] = r < rows ? __ldg(yt + r * fo + j) : 0.f;
+    });
+  }
   if (det) {
     for (int j = threadIdx.x; j < fo; j += FS_THREADS) {
       sdet[j] = __ldg(a.det_scale + (size_t)mach * fo + j);
@@ -244,9 +225,9 @@ fleet_score_kernel(const FleetScoreArgs a) {
     if (det) {
       const float s = sdet[j];
       const float c = sdet[fo + j];
-      const float t = fabsf((p * s + c) - (yraw[r * F + j] * s + c));
+      const float t = fabsf((p * s + c) - (yraw[r * fo + j] * s + c));
       a.tag[o] = t;
-      yraw[r * F + j] = t * t;
+      yraw[r * fo + j] = t * t;
     }
   });
   if (det) {
@@ -258,7 +239,7 @@ fleet_score_kernel(const FleetScoreArgs a) {
       float sq = 0.f;
       int j = r % fo;
       for (int n = 0; n < fo; ++n) {
-        sq += yraw[r * F + j];
+        sq += yraw[r * fo + j];
         if (++j == fo) j = 0;
       }
       const float total = sqrtf(sq);

@@ -2,9 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and builds with
 ``nvcc`` alone (no PyTorch headers, so a build takes seconds) into
-``kernels/_build/lib<name>-<hash>.so``, keyed by a hash of the source and
-the flags: an edited source rebuilds, an unchanged one loads the cached
-library.  ``build`` starts one ``nvcc`` per source, all at once.  The
+``kernels/_build/lib<name>-<hash>.so``, keyed by a hash of the source, the
+shared headers and the flags: an edited source rebuilds, an unchanged one
+loads the cached library.  ``build`` starts one ``nvcc`` per source, all at once.  The
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is
 kept beside each library as ``.log``.
 """
@@ -55,8 +55,12 @@ def source_path(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Keyed by the source, the shared headers (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

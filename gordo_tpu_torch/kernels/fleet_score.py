@@ -4,7 +4,10 @@ Replaces the XLA programs ``serve.fleet`` / ``serve.fleet_subset``
 (``gordo_tpu/serve/fleet_scorer.py:51`` ``_fleet_score_core``, ``:120``
 ``_fleet_score_subset_core``) and ``serve.score``
 (``gordo_tpu/serve/scorer.py:211`` ``_score_program_fn``) for the
-feedforward / MinMax / no-window chain.  The kernel is CUDA C++ for
+feedforward / MinMax chain; for an LSTM detector it is the ``out`` head
+and the detector epilogue after the ``lstm_layer`` launches, and with a
+detector window ``rolling_median`` smooths its scores and takes the
+confidence.  The kernel is CUDA C++ for
 ``sm_90a`` (``gordo_tpu_torch/csrc/fleet_score.cu``, whose header gives
 its bound and design); :func:`fleet_score_plain` is the same function in
 plain PyTorch.
@@ -77,6 +80,8 @@ class _Args(ctypes.Structure):
         ("m", ctypes.c_int),
         ("n", ctypes.c_int),
         ("f", ctypes.c_int),
+        ("y_n", ctypes.c_int),
+        ("y_row0", ctypes.c_int),
         ("n_layers", ctypes.c_int),
         ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
         ("act", ctypes.c_int * MAX_LAYERS),
@@ -134,7 +139,7 @@ def launch_plan(
     resident = 4 * sum(sizes) <= RESIDENT_WEIGHT_BYTES
     wbuf = sum(sizes) if resident else max(sizes)
     fixed = wbuf + 2 * dims[-1]
-    per_row = 2 * max(dims) + (dims[0] if with_detector else 0)
+    per_row = 2 * max(dims) + (dims[-1] if with_detector else 0)
     for rows in _ROW_TILES:
         smem = 4 * (fixed + rows * per_row)
         if smem <= SMEM_LIMIT:
@@ -157,6 +162,19 @@ def _host_ints(values, name: str, lo: int, hi: int) -> np.ndarray:
     if arr.size and (arr.min() < lo or arr.max() > hi):
         raise ValueError(f"{name} values must lie in [{lo}, {hi}]")
     return arr.astype(np.int32)
+
+
+def slot_ints(values, name: str, lo: int, hi: int, device) -> torch.Tensor:
+    """Per-slot ints (``idx``, row or window counts) as an int32 tensor on
+    ``device``, checked against ``[lo, hi]`` on the host.  An int32 tensor
+    already on ``device`` passes as it is, unchecked: its maker checked it,
+    so a caller that feeds several kernels the same counts copies them to
+    the card once."""
+    if isinstance(values, torch.Tensor) and values.device == torch.device(device):
+        if values.dtype != torch.int32 or values.dim() != 1:
+            raise ValueError(f"{name} must be a 1-D int32 tensor, got {values.dtype} {tuple(values.shape)}")
+        return values
+    return to_device(_host_ints(values, name, lo, hi), device)
 
 
 def _check(t: Optional[torch.Tensor], name: str, shape: Tuple[int, ...], device) -> None:
@@ -189,6 +207,7 @@ def fleet_score(
     idx=None,
     n_rows=None,
     y: Optional[torch.Tensor] = None,
+    y_offset: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """Score ``x`` (m, n, f) through the stacked chains of M machines.
 
@@ -201,12 +220,16 @@ def fleet_score(
     the stacked machine each slot of ``x`` is scored by (default: slot i
     is machine i, m == M).  ``n_rows`` (m,) host ints: valid rows of each
     slot (default n); output rows past them are unspecified.  ``y``
-    (m, n, f): targets of the detector (default ``x``).
+    (m, n_y, f_out): targets of the detector, output row ``r`` against
+    ``y`` row ``y_offset + r`` (default ``x``, which then needs f_out ==
+    f).  The LSTM detectors pass their last layer's final states as ``x``
+    and the raw request rows as ``y``, from the model's offset on.
     """
     if x.device.type == "cpu":
         return fleet_score_plain(
             x, layers, acts, scale=scale, offset=offset, det_scale=det_scale,
             det_offset=det_offset, agg_thr=agg_thr, idx=idx, n_rows=n_rows, y=y,
+            y_offset=y_offset,
         )
     if x.device.type != "cuda":
         raise ValueError(f"fleet_score runs on cuda or cpu tensors, got {x.device}")
@@ -244,24 +267,34 @@ def fleet_score(
         raise ValueError("det_scale and det_offset come together")
     if det_scale is None and (agg_thr is not None or y is not None):
         raise ValueError("agg_thr and y need the detector scaler")
-    if det_scale is not None and fo != f:
-        raise ValueError(f"anomaly scoring needs as many outputs as inputs ({fo} != {f})")
+    if det_scale is not None and y is None and fo != f:
+        raise ValueError(
+            f"anomaly scoring against x needs as many outputs as inputs ({fo} != {f})"
+        )
     _check(det_scale, "det_scale", (M, fo), device)
     _check(det_offset, "det_offset", (M, fo), device)
     _check(agg_thr, "agg_thr", (M,), device)
-    _check(y, "y", (m, n, f), device)
+    y_n = n
+    if y is not None:
+        y_n = int(y.shape[1]) if y.dim() == 3 else -1
+        if y_offset < 0 or y_n < y_offset + n:
+            raise ValueError(
+                f"y needs rows {y_offset}..{y_offset + n - 1} of each slot, got "
+                f"shape {tuple(y.shape)}"
+            )
+        _check(y, "y", (m, y_n, fo), device)
     if idx is None:
         if m != M:
             raise ValueError(f"without idx, x needs one slot per machine ({m} != {M})")
         idx_dev = None
     else:
-        idx_dev = to_device(_host_ints(idx, "idx", 0, M - 1), device)
+        idx_dev = slot_ints(idx, "idx", 0, M - 1, device)
         if idx_dev.numel() != m:
             raise ValueError(f"idx needs one entry per slot ({idx_dev.numel()} != {m})")
     if n_rows is None:
         rows_dev = None
     else:
-        rows_dev = to_device(_host_ints(n_rows, "n_rows", 1, n), device)
+        rows_dev = slot_ints(n_rows, "n_rows", 1, n, device)
         if rows_dev.numel() != m:
             raise ValueError(f"n_rows needs one entry per slot ({rows_dev.numel()} != {m})")
 
@@ -288,6 +321,7 @@ def fleet_score(
         _ptr(pred), _ptr(tag), _ptr(total), _ptr(conf)
     )
     args.m, args.n, args.f, args.n_layers = m, n, f, len(layers)
+    args.y_n, args.y_row0 = y_n, y_offset
     for i, d in enumerate(dims):
         args.dims[i] = d
     for i, a in enumerate(acts):
@@ -325,6 +359,7 @@ def fleet_score_plain(
     idx=None,
     n_rows=None,
     y: Optional[torch.Tensor] = None,
+    y_offset: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """:func:`fleet_score` in plain PyTorch, in the JAX program's op order.
 
@@ -344,7 +379,7 @@ def fleet_score_plain(
         h = ACTIVATIONS[act](torch.bmm(h, W) + b[:, None, :])
     out = {"model-output": h}
     if det_scale is not None:
-        target = x if y is None else y
+        target = x if y is None else y[:, y_offset: y_offset + x.shape[1]]
         ds, do = det_scale[:, None, :], det_offset[:, None, :]
         tag = torch.abs((h * ds + do) - (target * ds + do))
         total = torch.sqrt(torch.sum(tag * tag, dim=-1))

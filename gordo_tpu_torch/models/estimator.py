@@ -3,8 +3,10 @@
 Counterpart of ``gordo_tpu/models/estimator.py``.  Construct with
 ``kind=<registered factory name>`` plus kwargs; the network is built from
 ``X.shape`` at fit time, or from the widths of the parameters it is
-loaded with.  A fit is one launch of the ``fleet_fit`` kernel (K1 + K2)
-over a fleet of one machine, from the draws of its seed.
+loaded with.  An ``AutoEncoder`` fit is one launch of the ``fleet_fit``
+kernel (K1 + K2) over a fleet of one machine, from the draws of its seed.
+``LSTMAutoEncoder`` and ``LSTMForecast`` serve (through the
+``lstm_layer`` and ``fleet_score`` kernels) but do not train yet.
 """
 
 from __future__ import annotations
@@ -25,8 +27,8 @@ from gordo_tpu_torch.train.fit import TrainConfig, adam_hparams
 from gordo_tpu_torch.utils.args import ParamsMixin, capture_args
 
 
-class AutoEncoder(ParamsMixin):
-    """Feedforward reconstruction autoencoder (reference: ``KerasAutoEncoder``)."""
+class _Estimator(ParamsMixin):
+    """What the estimators share: construction, metadata, state, predict."""
 
     model_type = "AutoEncoder"
     #: rows of the input consumed before the first prediction row
@@ -39,6 +41,50 @@ class AutoEncoder(ParamsMixin):
         self.module_: Optional[torch.nn.Module] = None
         self.history_: Optional[np.ndarray] = None
         self.fit_seconds_: Optional[float] = None
+
+    def get_metadata(self) -> Dict[str, Any]:
+        meta: Dict[str, Any] = {
+            "model_type": type(self).__name__,
+            "kind": self.kind,
+            "parameters": {**self.kwargs},
+        }
+        if self.module_ is not None:
+            meta.update({
+                "num_params": int(sum(p.numel() for p in self.module_.parameters())),
+                "fit_seconds": self.fit_seconds_,
+                "history": {
+                    "loss": [float(v) for v in ([] if self.history_ is None else self.history_)],
+                },
+            })
+        return meta
+
+    def _load_module(self, n_features: int, n_features_out: int, state: Dict[str, np.ndarray]):
+        module = lookup_factory(self.model_type, self.kind)(
+            n_features=n_features, n_features_out=n_features_out, **self.kwargs,
+        )
+        module.load_state_dict(
+            {k: torch.from_numpy(np.array(v, np.float32)) for k, v in state.items()}
+        )
+        self.module_ = module.eval()
+        return self
+
+    def state_arrays(self) -> Dict[str, np.ndarray]:
+        if self.module_ is None:
+            return {}
+        return {
+            k: v.detach().cpu().numpy() for k, v in self.module_.state_dict().items()
+        }
+
+    def predict(self, X, device=None) -> np.ndarray:
+        """Model output for ``X`` through the serving kernels (``offset``
+        fewer rows than ``X``)."""
+        from gordo_tpu_torch.serve.scorer import CompiledScorer
+
+        return CompiledScorer(self, device=device).predict(X)
+
+
+class AutoEncoder(_Estimator):
+    """Feedforward reconstruction autoencoder (reference: ``KerasAutoEncoder``)."""
 
     def fit(self, X, y=None, device=None, draws: Draws = fleet_draws, **fit_kwargs):
         """Fit on ``X`` (rows × features) against ``y`` (default ``X``).
@@ -86,52 +132,65 @@ class AutoEncoder(ParamsMixin):
         self.fit_seconds_ = time.time() - t0
         return self
 
-    def get_metadata(self) -> Dict[str, Any]:
-        meta: Dict[str, Any] = {
-            "model_type": type(self).__name__,
-            "kind": self.kind,
-            "parameters": {**self.kwargs},
-        }
-        if self.module_ is not None:
-            meta.update({
-                "num_params": int(sum(p.numel() for p in self.module_.parameters())),
-                "fit_seconds": self.fit_seconds_,
-                "history": {
-                    "loss": [float(v) for v in ([] if self.history_ is None else self.history_)],
-                },
-            })
-        return meta
-
     def load_state_arrays(self, state: Dict[str, np.ndarray]) -> "AutoEncoder":
         """Build the network from the widths of ``state`` (an ``nn.Linear``
         state dict as numpy arrays) and load it."""
         if not state:
             return self
         first = state["dense_0.weight"] if "dense_0.weight" in state else state["out.weight"]
-        factory = lookup_factory(self.model_type, self.kind)
-        module = factory(
-            n_features=int(first.shape[1]),
-            n_features_out=int(state["out.weight"].shape[0]),
-            **self.kwargs,
+        return self._load_module(int(first.shape[1]), int(state["out.weight"].shape[0]), state)
+
+
+class LSTMAutoEncoder(_Estimator):
+    """Windowed LSTM reconstruction (reference: ``KerasLSTMAutoEncoder``).
+
+    The model reconstructs each ``lookback_window``-row window's last row,
+    so predictions start at row ``lookback_window - 1`` of the input
+    (``offset``)."""
+
+    model_type = "LSTMAutoEncoder"
+
+    @capture_args
+    def __init__(self, kind: str = "lstm_hourglass", **kwargs):
+        super().__init__(kind=kind, **kwargs)
+
+    @property
+    def lookback_window(self) -> int:
+        return int(self.kwargs.get("lookback_window", 1))
+
+    @property
+    def offset(self) -> int:
+        return self.lookback_window - 1
+
+    def fit(self, X, y=None, device=None, **fit_kwargs):
+        raise NotImplementedError(
+            f"{type(self).__name__}.fit waits for ROADMAP queue 1 item 5 "
+            "(LSTM training, K6 backward)"
         )
-        module.load_state_dict(
-            {k: torch.from_numpy(np.array(v, np.float32)) for k, v in state.items()}
+
+    def load_state_arrays(self, state: Dict[str, np.ndarray]) -> "LSTMAutoEncoder":
+        """Build the network from the widths of ``state`` (the module's
+        state dict as numpy arrays) and load it."""
+        if not state:
+            return self
+        return self._load_module(
+            int(state["OptimizedLSTMCell_0.kernel_i"].shape[0]),
+            int(state["out.weight"].shape[0]),
+            state,
         )
-        self.module_ = module.eval()
-        return self
-
-    def state_arrays(self) -> Dict[str, np.ndarray]:
-        if self.module_ is None:
-            return {}
-        return {
-            k: v.detach().cpu().numpy() for k, v in self.module_.state_dict().items()
-        }
-
-    def predict(self, X, device=None) -> np.ndarray:
-        """Model output for ``X`` through the fused serving kernel."""
-        from gordo_tpu_torch.serve.scorer import CompiledScorer
-
-        return CompiledScorer(self, device=device).predict(X)
 
 
+class LSTMForecast(LSTMAutoEncoder):
+    """Windowed LSTM one-step-ahead forecast (reference:
+    ``KerasLSTMForecast``): the window of rows ``t - L .. t - 1`` predicts
+    row ``t``, so predictions start at row ``lookback_window``."""
+
+    @property
+    def offset(self) -> int:
+        return self.lookback_window
+
+
+# Parity aliases (reference class names).
 KerasAutoEncoder = AutoEncoder
+KerasLSTMAutoEncoder = LSTMAutoEncoder
+KerasLSTMForecast = LSTMForecast

@@ -3,4 +3,9 @@ from gordo_tpu_torch.models.factories.feedforward import (  # noqa: F401
     feedforward_model,
     feedforward_symmetric,
 )
+from gordo_tpu_torch.models.factories.lstm import (  # noqa: F401
+    lstm_hourglass,
+    lstm_model,
+    lstm_symmetric,
+)
 from gordo_tpu_torch.models.factories.utils import hourglass_calc_dims  # noqa: F401

@@ -40,10 +40,6 @@ def lookup_factory(model_type: str, kind: str) -> Callable:
     by_type = FACTORY_REGISTRY.get(model_type, {})
     if kind in by_type:
         return by_type[kind]
-    if kind in _UNPORTED_FACTORIES:
-        raise NotImplementedError(
-            f"model factory kind={kind!r} waits for {_UNPORTED_FACTORIES[kind]}"
-        )
     raise ValueError(
         f"Unknown model factory kind={kind!r} for type={model_type!r}; "
         f"available: {sorted(by_type)}"
@@ -54,6 +50,8 @@ _DETECTOR = "gordo_tpu_torch.anomaly.diff.DiffBasedAnomalyDetector"
 _PIPELINE = "gordo_tpu_torch.pipeline.Pipeline"
 _MINMAX = "gordo_tpu_torch.ops.scalers.MinMaxScaler"
 _AUTOENCODER = "gordo_tpu_torch.models.estimator.AutoEncoder"
+_LSTM_AE = "gordo_tpu_torch.models.estimator.LSTMAutoEncoder"
+_LSTM_FORECAST = "gordo_tpu_torch.models.estimator.LSTMForecast"
 
 ALIASES: Dict[str, str] = {
     # the JAX package's own paths (DEFAULT_MODEL, project YAMLs)
@@ -62,12 +60,18 @@ ALIASES: Dict[str, str] = {
     "gordo_tpu.ops.scalers.MinMaxScaler": _MINMAX,
     "gordo_tpu.models.estimator.AutoEncoder": _AUTOENCODER,
     "gordo_tpu.models.estimator.KerasAutoEncoder": _AUTOENCODER,
+    "gordo_tpu.models.estimator.LSTMAutoEncoder": _LSTM_AE,
+    "gordo_tpu.models.estimator.KerasLSTMAutoEncoder": _LSTM_AE,
+    "gordo_tpu.models.estimator.LSTMForecast": _LSTM_FORECAST,
+    "gordo_tpu.models.estimator.KerasLSTMForecast": _LSTM_FORECAST,
     # reference-era paths
     "sklearn.pipeline.Pipeline": _PIPELINE,
     "sklearn.preprocessing.MinMaxScaler": _MINMAX,
     "sklearn.preprocessing.data.MinMaxScaler": _MINMAX,
     "gordo_components.model.models.KerasAutoEncoder": _AUTOENCODER,
     "gordo_components.model.models.KerasRawModelRegressor": _AUTOENCODER,
+    "gordo_components.model.models.KerasLSTMAutoEncoder": _LSTM_AE,
+    "gordo_components.model.models.KerasLSTMForecast": _LSTM_FORECAST,
     "gordo_components.model.anomaly.diff.DiffBasedAnomalyDetector": _DETECTOR,
 }
 
@@ -75,7 +79,6 @@ _ITEM_TRAINING = (
     "ROADMAP queue 1 item 2 (training: the other scalers and pipeline "
     "containers)"
 )
-_ITEM_LSTM = "ROADMAP queue 1 item 5 (the LSTM path, K6/K7)"
 
 UNPORTED: Dict[str, str] = {}
 for _path in (
@@ -90,15 +93,6 @@ for _path in (
 ):
     UNPORTED[f"sklearn.{_path}"] = _ITEM_TRAINING
 for _path in (
-    "gordo_tpu.models.estimator.LSTMAutoEncoder",
-    "gordo_tpu.models.estimator.LSTMForecast",
-    "gordo_tpu.models.estimator.KerasLSTMAutoEncoder",
-    "gordo_tpu.models.estimator.KerasLSTMForecast",
-    "gordo_components.model.models.KerasLSTMAutoEncoder",
-    "gordo_components.model.models.KerasLSTMForecast",
-):
-    UNPORTED[_path] = _ITEM_LSTM
-for _path in (
     "gordo_tpu.pipeline.FeatureUnion",
     "gordo_tpu.pipeline.TransformedTargetRegressor",
     "gordo_tpu.pipeline.MultiOutputRegressor",
@@ -107,10 +101,6 @@ for _path in (
     "sklearn.multioutput.MultiOutputRegressor",
 ):
     UNPORTED[_path] = _ITEM_TRAINING
-
-_UNPORTED_FACTORIES = {
-    name: _ITEM_LSTM for name in ("lstm_model", "lstm_symmetric", "lstm_hourglass")
-}
 
 #: the only prefix ``importlib`` ever sees (after alias rewriting)
 ALLOWED_IMPORT_PREFIXES = ("gordo_tpu_torch.",)

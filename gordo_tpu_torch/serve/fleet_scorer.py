@@ -1,13 +1,18 @@
 """Stacked multi-machine serving: many models resident on the card, scored
-in one kernel launch per bucket.
+in one round of kernel launches per bucket.
 
 Counterpart of ``gordo_tpu/serve/fleet_scorer.py``.  Machines whose chains
-are structurally identical share a :class:`_Bucket`: their parameters are
-stacked along a leading machine axis and stay on the device.  A request
-for part of a bucket passes the machines' stack positions to the kernel
-(``idx``) instead of gathering their parameters; ragged row counts pass as
-per-slot row counts (``n_rows``) instead of repeat-last padding.  Used by
-``POST .../_bulk/anomaly/prediction``.
+are structurally identical (widths, activations, mode, lookback, detector
+window) share a :class:`_Bucket`: their parameters are stacked along a
+leading machine axis and stay on the device.  A bucket scores as the
+single-machine scorer does (:class:`~gordo_tpu_torch.serve.scorer._Stack`):
+one ``fleet_score`` launch for a feedforward bucket, one ``lstm_layer``
+per layer before it for an LSTM bucket, one ``rolling_median`` after it
+with a window.  A request for part of a bucket passes the machines' stack
+positions to every kernel (``idx``) instead of gathering their
+parameters; ragged row counts pass as per-slot row counts (``n_rows``,
+windows per slot ``n_rows - offset``) instead of repeat-last padding.
+Used by ``POST .../_bulk/anomaly/prediction``.
 """
 
 from __future__ import annotations
@@ -35,9 +40,14 @@ def _signature(chain: Dict[str, Any]) -> Optional[Tuple]:
         return None
     return (
         chain["n_features"],
+        chain["mode"],
+        chain["lookback"],
+        tuple(ki.shape for ki, _, _ in chain["cells"]),
+        chain["cell_acts"],
         tuple(W.shape for W, _ in chain["layers"]),
         chain["acts"],
         chain["scale"] is not None,
+        det["window"],
         det["feature_thresholds"] is not None,
     )
 
@@ -120,8 +130,8 @@ class FleetScorer:
                 # not sink the stacked launch; "client-error" maps to 400
                 if arr.ndim != 2:
                     error = f"X must be 2-dimensional, got shape {arr.shape}"
-                elif arr.shape[0] <= 0:
-                    error = short_rows_message(0, arr.shape[0])
+                elif arr.shape[0] <= bucket.offset_rows:
+                    error = short_rows_message(bucket.offset_rows, arr.shape[0])
                 elif arr.shape[1] != bucket.n_features:
                     error = (
                         f"X has {arr.shape[1]} columns; model expects "
@@ -148,7 +158,8 @@ class FleetScorer:
                 n_rows=None if min(rows) == n else rows,
             )
             slots = [
-                (name, i, positions[i], rows[i]) for i, name in enumerate(wanted)
+                (name, i, positions[i], rows[i] - bucket.offset_rows)
+                for i, name in enumerate(wanted)
             ]
             dispatch._pending.append((out, bucket, slots))
 

@@ -11,8 +11,10 @@ Counterpart of ``gordo_tpu/serve/server.py`` on the standard library's
 - ``POST {p}/_bulk/anomaly/prediction``
 
 with ``{p} = /gordo/v0/<project>``.  Every scoring route goes through the
-fused ``fleet_score`` kernel: one launch per request on the per-machine
-routes, one per bucket on the bulk route.  Time-index columns, msgpack,
+hand-written kernels (``serve/scorer.py``): per request on the per-machine
+routes and per bucket on the bulk route, one ``fleet_score`` launch,
+after one ``lstm_layer`` launch per layer for an LSTM model, and before
+one ``rolling_median`` launch for a detector with a window.  Time-index columns, msgpack,
 coalescing, streaming and ``/metrics`` are ROADMAP queue 1 item 9.
 """
 

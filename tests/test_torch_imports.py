@@ -68,6 +68,10 @@ def test_every_port_module_imports_with_jax_and_gordo_tpu_blocked():
         "gordo_tpu_torch.kernels.fleet_fit",
         "gordo_tpu_torch.kernels.scaler_stats",
         "gordo_tpu_torch.kernels.cv_epilogue",
+        "gordo_tpu_torch.kernels.lstm_layer",
+        "gordo_tpu_torch.kernels.rolling_median",
+        "gordo_tpu_torch.models.factories.lstm",
+        "gordo_tpu_torch.ops.windows",
     ):
         assert expected in result["modules"]
 
@@ -130,6 +134,35 @@ def _tiny_detector():
     )
 
 
+def _tiny_lstm_detector():
+    """A forecast LSTM detector (lookback 2) with a smoothing window."""
+    from gordo_tpu_torch import convert
+
+    rng = np.random.default_rng(1)
+    widths = [3, 2, 2]  # lstm_symmetric with dims [2]
+    cells = [(rng.standard_normal((widths[i], 4 * widths[i + 1])),
+              rng.standard_normal((widths[i + 1], 4 * widths[i + 1])),
+              np.zeros(4 * widths[i + 1]))
+             for i in range(len(widths) - 1)]
+    head = (rng.standard_normal((2, 3)), np.zeros(3))
+    stats = {"scale": np.ones(3), "offset": np.zeros(3)}
+    definition = {
+        "gordo_tpu.anomaly.diff.DiffBasedAnomalyDetector": {
+            "window": 3,
+            "base_estimator": {"gordo_tpu.pipeline.Pipeline": {"steps": [
+                "gordo_tpu.ops.scalers.MinMaxScaler",
+                {"gordo_tpu.models.estimator.LSTMForecast": {
+                    "kind": "lstm_symmetric", "dims": [2], "lookback_window": 2,
+                }},
+            ]}},
+        }
+    }
+    return convert.from_reference(
+        definition, convert.lstm_layers_to_flax(cells, head), scaler_stats=[stats],
+        detector_stats=stats, feature_thresholds=np.ones(3), aggregate_threshold=1.0,
+    )
+
+
 def test_entry_points_refuse_the_cpu_unless_asked(no_cuda, tmp_path):
     from gordo_tpu_torch import serializer
     from gordo_tpu_torch.device import resolve_device
@@ -138,7 +171,9 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda, tmp_path):
     from gordo_tpu_torch.serve.server import ModelCollection
 
     model = _tiny_detector()
+    lstm = _tiny_lstm_detector()
     serializer.dump(model, str(tmp_path / "m"))
+    serializer.dump(lstm, str(tmp_path / "lstm"))
     for build in (
         lambda: resolve_device(),
         lambda: resolve_device("cuda"),
@@ -146,6 +181,11 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda, tmp_path):
         lambda: FleetScorer.from_models({"m": model}),
         lambda: ModelCollection.from_directory(str(tmp_path)),
         lambda: model.anomaly(np.zeros((2, 3), np.float32)),
+        lambda: CompiledScorer(lstm),
+        lambda: FleetScorer.from_models({"lstm": lstm}),
+        lambda: lstm.anomaly(np.zeros((5, 3), np.float32)),
+        lambda: lstm.predict(np.zeros((5, 3), np.float32)),
+        lambda: lstm.base_estimator._final.predict(np.zeros((5, 3), np.float32)),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             build()
@@ -153,6 +193,10 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda, tmp_path):
     scorer = CompiledScorer(model, device="cpu")
     assert scorer.device.type == "cpu"
     assert scorer.predict(np.zeros((2, 3), np.float32)).shape == (2, 3)
+    # the forecast model consumes its lookback: 5 rows give 3 outputs
+    out = lstm.anomaly(np.zeros((5, 3), np.float32), device="cpu")
+    assert out["total-anomaly-score"].shape == (3,)
+    assert ModelCollection.from_directory(str(tmp_path), device="cpu").fleet_scorer.buckets
 
 
 def test_training_entry_points_refuse_the_cpu_unless_asked(no_cuda):
