@@ -80,7 +80,8 @@ itself.  Phases, each printing one JSON line:
 11. ``ragged_kernel_check``: the masked epilogue (K8: ``cv_epilogue`` with
    row counts from 0 to 144 over 1,536 slots × 144 rows × 10 tags, held
    to its plain version, the empty slots to their fixed values, and to
-   the suffix-weighted metrics), ``scaler_stats`` on NaN-padded ragged
+   the suffix-weighted metrics; slots with NaN and inf in real rows,
+   whose non-finite maxima K8 maps to 0 and K4 keeps), ``scaler_stats`` on NaN-padded ragged
    rows, ``fleet_fit`` with a real-row count per (machine, fit) at 512 ×
    576 × 10 whose fits hold minibatches of padding alone, and two
    lockstep LSTM steps of the bench's LSTM build with ragged window
@@ -100,11 +101,43 @@ itself.  Phases, each printing one JSON line:
    lockstep fit and plain versions on the card, the 576-row machines bit
    for bit; then a warm exact rebuild from the padded build's params,
    held to its plain version.
+14. ``precision_kernel_check``: the bf16 instantiations (K10) against
+   their plain versions on the card: ``fleet_score`` over bf16 storage at
+   512 × 2048 × 10 (and a subset with ragged rows) and the bf16 LSTM head
+   at 64 × 4085 × 42→50; ``lstm_layer`` over bf16 storage, six layers at
+   64 × 4096 × 50; ``fake_quant`` over every stacked leaf of a 512-machine
+   default bucket and of a 64-machine LSTM bucket (bf16, one scale across
+   the machines) and over one machine's f32 leaves, bit for bit; times,
+   and bounds with the inputs at their storage width.
+15. ``precision_serve``: 512 default and 8 LSTM detectors served over HTTP
+   at ``GORDO_SERVE_DTYPE=float32``, ``bfloat16`` and ``int8``
+   (``GORDO_SERVE_INT8=1``): six per-machine requests, a bulk request of
+   all 520 and a one-machine subset of each bucket; the reduced responses
+   held to the f32 ones with the r12 bounds; device bytes resident per
+   bucket; each kernel's launches (set to 0 just before), the bf16 ones
+   and ``fake_quant``'s at the int8 load.
+16. ``stream_kernel_check``: ``stream_step`` for a default detector
+   (window 144) and an LSTM ae detector's head (50 tags, lookback 12), at
+   f32 and over bf16, at steady state and in warm-up, against its plain
+   version, and bit for bit against the request path's kernels
+   (``fleet_score``, after ``lstm_layer``, then ``rolling_median``) over
+   the same rows; the ring shift alone; times and bounds.
+17. ``stream``: 64 default and 8 LSTM ae detectors (window 144) fed 300
+   rows each through ``StreamHub.ingest_rows`` (launches set to 0 just
+   before: one ``stream_step`` per row; an LSTM's row also one shift and
+   one ``lstm_layer`` per layer), every steady-state verdict of 8 of each
+   kind held bit for bit to the request path, each row's latency on the
+   host clock; a bf16 twin held to f32 with the r12 bounds; then 20 rows
+   through HTTP ingest (both body forms) with an SSE subscriber and a
+   poller, whose event ids must be the ring's, strictly increasing, none
+   lost or repeated; the routes' 400, 404 and 422 answers.
 
 Then the ``kernels`` summary line (``cv_epilogue``'s launches in pad-up
 groups are listed under ``cv_epilogue_masked``, K8; those in exact groups
-under ``cv_epilogue``, K4) and, last, ``{"ok": true, "device":
-{...}}``.  Any failure raises and exits non-zero without a result; so does
+under ``cv_epilogue``, K4; ``fleet_score_bf16`` and ``lstm_layer_bf16``
+are the bf16 instantiations, whose launches are also in ``fleet_score``'s
+and ``lstm_layer``'s; ``stream_step`` counts the scoring launches and the
+LSTM rows' shifts) and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero without a result; so does
 a run without CUDA or outside a checkout of the repository.
 """
 
@@ -329,14 +362,15 @@ def bound(nbytes: float, ops: float):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def fleet_score_bound(m: int, n: int, dims, machines: int):
-    """Least time for one fleet_score call: each input byte read once,
-    each output byte written once, and the dense layers' FLOPs."""
+def fleet_score_bound(m: int, n: int, dims, machines: int, in_bytes: int = 4):
+    """Least time for one fleet_score call: each input byte read once (the
+    rows, weights and stats at ``in_bytes`` each, the f32 thresholds), each
+    output byte written once, and the dense layers' FLOPs."""
     f = dims[0]
     weights = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(dims) - 1))
-    in_floats = m * n * f + machines * (weights + 4 * f + 1)
+    in_values = m * n * f + machines * (weights + 4 * f)
     out_floats = m * n * (2 * dims[-1] + 2)
-    nbytes = 4 * (in_floats + out_floats)
+    nbytes = in_bytes * in_values + 4 * (machines + out_floats)
     flops = 2 * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1)) * m * n
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return {
@@ -365,7 +399,7 @@ def phase_build():
     t0 = time.perf_counter()
     paths = build.build("fleet_score", "fleet_fit", "scaler_stats", "cv_epilogue",
                         "lstm_layer", "rolling_median", "lstm_layer_bwd", "lstm_head_fit",
-                        "fleet_adam")
+                        "fleet_adam", "fake_quant", "stream_step")
     seconds = time.perf_counter() - t0
     ptxas = []
     for p in paths:
@@ -443,7 +477,7 @@ def numpy_reference(chain, i: int, X: np.ndarray) -> dict:
 
 
 def phase_serve():
-    from gordo_tpu_torch import convert, serializer
+    from gordo_tpu_torch import serializer
     from gordo_tpu_torch.kernels import fleet_score as fs
     from gordo_tpu_torch.serve.server import ModelCollection, make_server
 
@@ -456,18 +490,7 @@ def phase_serve():
         for tags, (count, rows) in groups.items():
             chain = random_chain(rng, count, tags)
             for i in range(count):
-                params = {
-                    (f"dense_{l}" if l < len(chain["layers"]) - 1 else "out"):
-                        {"kernel": W[i], "bias": b[i]}
-                    for l, (W, b) in enumerate(chain["layers"])
-                }
-                model = convert.from_reference(
-                    definition, params,
-                    scaler_stats=[{"scale": chain["scale"][i], "offset": chain["offset"][i]}],
-                    detector_stats={"scale": chain["det_scale"][i], "offset": chain["det_offset"][i]},
-                    feature_thresholds=chain["feature_thresholds"][i],
-                    aggregate_threshold=float(chain["agg"][i]),
-                )
+                model = port_detector(definition, dense_params(chain, i), chain, i)
                 name = f"m{tags}-{i}"
                 meta = {"dataset": {"tag_list": [f"{name}-tag-{j}" for j in range(tags)]}}
                 serializer.dump(model, os.path.join(model_dir, name), metadata=meta)
@@ -1193,7 +1216,7 @@ def lstm_numpy_reference(net, i: int, X: np.ndarray, mode: str, window: int, row
 
 
 def phase_lstm_serve():
-    from gordo_tpu_torch import convert, serializer
+    from gordo_tpu_torch import serializer
     from gordo_tpu_torch.kernels import fleet_score as fs
     from gordo_tpu_torch.kernels import lstm_layer as ll
     from gordo_tpu_torch.kernels import rolling_median as rm
@@ -1209,24 +1232,14 @@ def phase_lstm_serve():
     forecast = with_window(LSTM_MODEL, "gordo_tpu.models.estimator.LSTMForecast")
     models = {}  # name -> (definition, flax params, arrays, index in them)
     for i in range(ae_count + 1):
-        params = convert.lstm_layers_to_flax([tuple(a[i] for a in c) for c in net["cells"]],
-                                             (net["head"][0][i], net["head"][1][i]))
         if i < ae_count:
-            models[f"lstm-ae-{i}"] = (LSTM_MODEL, params, net, i)
+            models[f"lstm-ae-{i}"] = (LSTM_MODEL, lstm_params(net, i), net, i)
         else:
-            models["lstm-forecast"] = (forecast, params, net, i)
-    ff_params = {(f"dense_{l}" if l < len(ff["layers"]) - 1 else "out"): {"kernel": W[0], "bias": b[0]}
-                 for l, (W, b) in enumerate(ff["layers"])}
-    models["ff-window"] = (with_window(DEFAULT_MODEL), ff_params, ff, 0)
+            models["lstm-forecast"] = (forecast, lstm_params(net, i), net, i)
+    models["ff-window"] = (with_window(DEFAULT_MODEL), dense_params(ff, 0), ff, 0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_lstm_") as tmp:
         for name, (definition, params, src, i) in models.items():
-            model = convert.from_reference(
-                definition, params,
-                scaler_stats=[{"scale": src["scale"][i], "offset": src["offset"][i]}],
-                detector_stats={"scale": src["det_scale"][i], "offset": src["det_offset"][i]},
-                feature_thresholds=src["feature_thresholds"][i],
-                aggregate_threshold=float(src["agg"][i]),
-            )
+            model = port_detector(definition, params, src, i)
             meta = {"dataset": {"tag_list": [f"{name}-tag-{j}" for j in range(tags)]}}
             serializer.dump(model, os.path.join(tmp, name), metadata=meta)
         collection = ModelCollection.from_directory(
@@ -2179,6 +2192,48 @@ def _bitwise_equal(a, b, machines, what: str) -> int:
     return len(machines)
 
 
+def _non_finite_max_check(rng, tags: int) -> dict:
+    """Slots whose real rows hold NaN (a diverged pad-up fit) or inf: the
+    masked epilogue (K8) gives their maxima 0, as ``_masked_smoothed_max``
+    does, the exact one (K4) keeps them; kernel and plain version agree
+    bit for bit on which and on every finite maximum."""
+    from gordo_tpu_torch.kernels import cv_epilogue as ce
+
+    S, nt = 8, 144
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)  # noqa: E731
+    y = rng.standard_normal((S, nt, tags))
+    pred = y + 0.3 * rng.standard_normal((S, nt, tags))
+    pred[0, 5:40] = np.nan  # every tag's windows reach a NaN row
+    pred[1, :, 2] = np.nan  # one tag NaN throughout
+    pred[2, 7, 4] = np.inf
+    y, pred = put(y), put(pred)
+    tag = (pred - y).abs().contiguous()
+    total = tag.norm(dim=-1).contiguous()
+    counts = np.array([nt, nt, nt, nt, 60, 1, 0, nt // 2])
+    out = {}
+    for masked in (True, False):
+        got = ce.cv_epilogue(tag, total, pred, y, counts, masked=masked)
+        ref = ce.cv_epilogue_plain(tag, total, pred, y, counts, masked=masked)
+        for k in ("feature_max", "total_max"):
+            g, r = got[k], ref[k]
+            check(bool(torch.equal(torch.isnan(g), torch.isnan(r))), f"cv_epilogue {k} masked={masked}: NaN where the plain version has it")
+            fin = torch.isfinite(r)
+            check(bool(torch.equal(g[fin], r[fin])) and bool(torch.equal(torch.isinf(g), torch.isinf(r))),
+                  f"cv_epilogue {k} masked={masked} equals its plain version")
+        if masked:
+            check(bool(got["feature_max"][:3].isfinite().all()) and float(got["feature_max"][0].abs().max()) == 0.0,
+                  "K8 maps a non-finite maximum of a slot with rows to 0")
+            check(float(got["total_max"][0]) == 0.0 and float(got["feature_max"][1, 2]) == 0.0,
+                  "K8 maps a NaN total maximum and a NaN tag's maximum to 0")
+        else:
+            check(bool(torch.isnan(got["feature_max"][0]).all()) and bool(torch.isnan(got["feature_max"][1, 2])),
+                  "K4 keeps a NaN maximum")
+        out["masked" if masked else "exact"] = {
+            "non_finite_feature_max": int((~torch.isfinite(got["feature_max"])).sum()),
+            "zeroed": int((got["feature_max"][:3] == 0).sum())}
+    return out
+
+
 def phase_ragged_kernel_check():
     """K8 and the per-machine counts on the card: ``cv_epilogue`` with row
     counts from 0 to nt (against its plain version and the suffix-weighted
@@ -2223,8 +2278,8 @@ def phase_ragged_kernel_check():
     counts = rng.integers(0, nt + 1, S)
     counts[:8] = [0, 0, 1, 2, nt, nt, nt - 1, 3]
     epi_args = (tag, total, pred, y, counts)
-    run = lambda: ce.cv_epilogue(*epi_args)  # noqa: E731
-    plain = lambda: ce.cv_epilogue_plain(*epi_args)  # noqa: E731
+    run = lambda: ce.cv_epilogue(*epi_args, masked=True)  # noqa: E731
+    plain = lambda: ce.cv_epilogue_plain(*epi_args, masked=True)  # noqa: E731
     got, ref = run(), plain()
     empty = torch.from_numpy(counts == 0).to(DEVICE)
     check(bool(torch.equal(got["has"], ref["has"])), "cv_epilogue has flags equal the plain version's")
@@ -2248,6 +2303,7 @@ def phase_ragged_kernel_check():
              **bound(4 * (real * (3 * tags + 1) + S * (tags + 7)),
                      real * tags * (ce.SMOOTHING_WINDOW + 12) + real * ce.SMOOTHING_WINDOW)}
     timed(entry, run, plain, 20, 5)
+    entry["non_finite"] = _non_finite_max_check(rng, tags)
     entries["cv_epilogue_masked"] = entry
 
     # K3 on NaN-padded ragged rows: each machine's rows past its length NaN
@@ -2494,6 +2550,741 @@ def phase_ragged_lstm_train():
             "warm": warm_info, "warm_vs_plain_max_norm_err": warm_worst}
 
 
+# -- reduced-precision serving (K10) and the streaming plane (K9) ------------
+
+#: reduced precision against f32, per machine and output: max |f32 -
+#: reduced| / max |f32|, the r12 bounds of tests/test_serving_precision.py
+#: (:100-105 for bf16, :295 for int8)
+PRECISION_BOUNDS = {
+    "bfloat16": {"model-output": 0.03, "tag-anomaly-scores": 0.10,
+                 "total-anomaly-score": 0.10, "anomaly-confidence": 0.10},
+    "int8": {k: 0.25 for k in OUTPUTS},
+}
+#: the precision phase's fleet: a bucket of default detectors (the build
+#: bench's 512) and one of LSTM detectors at the bench's LSTM
+PRECISION_FLEET = {"default": 512, "lstm": 8}
+PRECISION_ROWS = 64
+#: the stream phase: default detectors (10 tags) and LSTM ae detectors
+#: (50 tags), both with the smoothing window; rows each is fed in process
+#: and over HTTP; machines of each kind whose every steady-state verdict is
+#: held bit for bit to the request path
+STREAM_FLEET = {"default": 64, "lstm": 8}
+STREAM_ROWS = 300
+STREAM_HTTP_ROWS = 20
+STREAM_CHECKED = 8
+
+
+def port_detector(definition, params, src, i, thresholds: bool = True):
+    """The port's detector ``i`` of the stacked random arrays ``src``."""
+    from gordo_tpu_torch import convert
+
+    return convert.from_reference(
+        definition, params,
+        scaler_stats=[{"scale": src["scale"][i], "offset": src["offset"][i]}],
+        detector_stats={"scale": src["det_scale"][i], "offset": src["det_offset"][i]},
+        feature_thresholds=src["feature_thresholds"][i] if thresholds else None,
+        aggregate_threshold=float(src["agg"][i]) if thresholds else None,
+    )
+
+
+def dense_params(chain, i):
+    return {(f"dense_{l}" if l < len(chain["layers"]) - 1 else "out"): {"kernel": W[i], "bias": b[i]}
+            for l, (W, b) in enumerate(chain["layers"])}
+
+
+def lstm_params(net, i):
+    from gordo_tpu_torch import convert
+
+    return convert.lstm_layers_to_flax([tuple(a[i] for a in c) for c in net["cells"]],
+                                       (net["head"][0][i], net["head"][1][i]))
+
+
+def write_fleet(directory: str, rng, fleet: dict, window: bool) -> dict:
+    """Dump ``fleet["default"]`` default detectors (10 tags) and
+    ``fleet["lstm"]`` LSTM ae detectors (50 tags, lookback LOOKBACK),
+    with the smoothing window when ``window``; returns ``{name: tags}``."""
+    from gordo_tpu_torch import serializer
+
+    tags = {}
+    chain = random_chain(rng, fleet["default"], 10)
+    net = random_lstm(rng, fleet["lstm"], LSTM_SHAPE[2])
+    ff_def = with_window(DEFAULT_MODEL) if window else DEFAULT_MODEL
+    lstm_def = with_window(LSTM_MODEL) if window else LSTM_MODEL
+    models = [(f"ff-{i}", ff_def, dense_params(chain, i), chain, i) for i in range(fleet["default"])]
+    models += [(f"lstm-{i}", lstm_def, lstm_params(net, i), net, i) for i in range(fleet["lstm"])]
+    for name, definition, params, src, i in models:
+        model = port_detector(definition, params, src, i)
+        n = int(src["scale"].shape[1])
+        meta = {"dataset": {"tag_list": [f"{name}-tag-{j}" for j in range(n)]}}
+        serializer.dump(model, os.path.join(directory, name), metadata=meta)
+        tags[name] = n
+    return tags
+
+
+@contextlib.contextmanager
+def serve_dtype_env(dtype: str):
+    """Within: ``GORDO_SERVE_DTYPE=dtype`` (and the int8 opt-in)."""
+    saved = {k: os.environ.get(k) for k in ("GORDO_SERVE_DTYPE", "GORDO_SERVE_INT8")}
+    os.environ["GORDO_SERVE_DTYPE"] = dtype
+    if dtype == "int8":
+        os.environ["GORDO_SERVE_INT8"] = "1"
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def fake_quant_leaves(leaves, groups):
+    """``fake_quant`` over every leaf, and its plain version, as two calls."""
+    from gordo_tpu_torch.kernels import fake_quant as fq
+
+    run = lambda: [fq.fake_quant(t, g) for t, g in zip(leaves, groups)]  # noqa: E731
+    plain = lambda: [fq.fake_quant_plain(t, g) for t, g in zip(leaves, groups)]  # noqa: E731
+    return run, plain
+
+
+def phase_precision_kernel_check():
+    """The bf16 instantiations of ``fleet_score`` and ``lstm_layer`` and the
+    ``fake_quant`` kernel against their plain versions on the card."""
+    from gordo_tpu_torch.kernels import fleet_score as fs
+    from gordo_tpu_torch.kernels import lstm_layer as ll
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(SEED + 20)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)  # noqa: E731
+    entries = {}
+
+    def timed(entry, run, plain, reps, plain_reps=2):
+        if DEVICE == "cuda":
+            entry["ms"], entry["host_ms"] = time_ms(run, reps)
+            entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, plain_reps)
+
+    # fleet_score over bf16 storage at the default bucket, and a subset
+    machines, n, tags = KERNEL_SHAPES[0]
+    chain = random_chain(rng, machines, tags)
+    dev = to_device(chain, DEVICE)
+    layers = [(W.to(bf), b.to(bf)) for W, b in dev["layers"]]
+    kw = {k: v if k == "agg_thr" else v.to(bf) for k, v in dev["kw"].items()}
+    x = put(rng.standard_normal((machines, n, tags))).to(bf)
+    run = lambda: fs.fleet_score(x, layers, chain["acts"], **kw)  # noqa: E731
+    plain = lambda: fs.fleet_score_plain(x, layers, chain["acts"], **kw)  # noqa: E731
+    launches0 = fs.bf16_launches
+    got, ref = run(), plain()
+    check(DEVICE != "cuda" or fs.bf16_launches == launches0 + 1, "the bf16 fleet_score launch is counted as bf16")
+    errs, abs_err = compare(ref, got)
+    check(all(e <= TOLERANCE for e in errs.values()), f"bf16 fleet_score within {TOLERANCE}: {errs}")
+    entry = {"shape": [machines, n, tags], "storage": "bfloat16", "max_norm_err": errs, "max_abs_err": abs_err}
+    m_sub = machines // 8
+    idx = np.sort(rng.choice(machines, m_sub, replace=False))[::-1].copy()
+    rows = rng.integers(1, n + 1, m_sub)
+    xs = put(rng.standard_normal((m_sub, n, tags))).to(bf)
+    got_s = fs.fleet_score(xs, layers, chain["acts"], idx=idx, n_rows=rows, **kw)
+    ref_s = fs.fleet_score_plain(xs, layers, chain["acts"], idx=idx, n_rows=rows, **kw)
+    errs_s, abs_s = compare(ref_s, got_s, rows)
+    check(all(e <= TOLERANCE for e in errs_s.values()), f"bf16 fleet_score subset within {TOLERANCE}: {errs_s}")
+    entry["subset"] = {"machines": m_sub, "max_norm_err": errs_s, "max_abs_err": abs_s}
+    entry["max_abs_err"] = max(abs_err, abs_s)
+    # a NaN threshold gives a NaN confidence, as jnp.maximum and the plain
+    # version keep it
+    nan_kw = dict(kw, agg_thr=torch.where(torch.arange(machines, device=DEVICE) == idx[0],
+                                          torch.nan, kw["agg_thr"]))
+    got_n = fs.fleet_score(xs, layers, chain["acts"], idx=idx, n_rows=rows, **nan_kw)["anomaly-confidence"]
+    check(bool(torch.isnan(got_n[0, :rows[0]]).all()) and bool(got_n[1, :rows[1]].isfinite().all()),
+          "a NaN threshold gives a NaN confidence, and only its slot's")
+    timed(entry, run, plain, 20, 5)
+    entry.update(fleet_score_bound(machines, n, chain["dims"], machines, in_bytes=2))
+    entries["fleet_score_bf16"] = entry
+    stacked_ff = [t for layer in layers for t in layer] + [kw[k] for k in ("scale", "offset", "det_scale", "det_offset")]
+    del x, got, ref, xs, got_s, ref_s
+
+    # lstm_layer over bf16 storage: six layers at the bench's LSTM, each fed
+    # what the kernel made for the layer before, then the bf16 head
+    machines, n, tags = LSTM_SHAPE
+    net = random_lstm(rng, machines, tags)
+    x = put(rng.standard_normal((machines, n, tags))).to(bf)
+    scale, offset = put(net["scale"]).to(bf), put(net["offset"]).to(bf)
+    h, layer_entries, stacked_lstm, groups_lstm = x, [], [], []
+    for i, cell in enumerate(net["cells"]):
+        ki, kh, b = (put(a).to(bf) for a in cell)
+        stacked_lstm += [ki, kh, b]
+        groups_lstm += [4, 4, 4]
+        n_in, hidden = int(ki.shape[1]), int(kh.shape[1])
+        first, last = i == 0, i == len(net["cells"]) - 1
+        lkw = dict(lookback=LOOKBACK, act="tanh", last=last,
+                   scale=scale if first else None, offset=offset if first else None)
+        inp = h
+        run = lambda: ll.lstm_layer(inp, ki, kh, b, **lkw)  # noqa: E731
+        plain = lambda: ll.lstm_layer_plain(inp, ki, kh, b, **lkw)  # noqa: E731
+        launches0 = ll.bf16_launches
+        got, ref = run(), plain()
+        check(DEVICE != "cuda" or ll.bf16_launches == launches0 + 1, "a bf16 lstm_layer launch is counted as bf16")
+        check(got.dtype == torch.float32 and bool(got.isfinite().all()), f"bf16 lstm_layer {i}: finite f32")
+        err = norm_err(ref, got)
+        check(err <= LSTM_TOLERANCE["lstm_layer"], f"bf16 lstm_layer {i} within {LSTM_TOLERANCE['lstm_layer']}: {err}")
+        e = {"layer": i, "widths": [n_in, hidden], "max_norm_err": err,
+             "max_abs_err": float((ref.double() - got.double()).abs().max())}
+        del ref
+        timed(e, run, plain, 5)
+        nbytes, ops = lstm_layer_cost(machines, n, n_in, hidden, first, last)
+        # the first layer's rows and every layer's weights are read at 2 bytes
+        weights = machines * 4 * hidden * (n_in + hidden + 1)
+        nbytes -= 2 * (weights + (machines * n * n_in if first else 0))
+        e.update(bound(nbytes, ops))
+        layer_entries.append(e)
+        h = got
+    total = {k: sum(e[k] for e in layer_entries) for k in ("ms", "plain_ms", "bytes", "flops") if k in layer_entries[0]}
+    total.update(bound(total["bytes"], total["flops"]))
+    entries["lstm_layer_bf16"] = {"layers": layer_entries, "storage": "bfloat16", "shape": [machines, n, tags],
+                                  "tolerance": LSTM_TOLERANCE["lstm_layer"],
+                                  "max_abs_err": max(e["max_abs_err"] for e in layer_entries), **total}
+    W, bh = put(net["head"][0]).to(bf), put(net["head"][1]).to(bf)
+    stacked_lstm += [W, bh]
+    groups_lstm += [1, 1]
+    det = dict(det_scale=put(net["det_scale"]).to(bf), det_offset=put(net["det_offset"]).to(bf),
+               y=x, y_offset=LOOKBACK - 1)
+    stacked_lstm += [scale, offset, det["det_scale"], det["det_offset"]]
+    groups_lstm += [1, 1, 1, 1]
+    run = lambda: fs.fleet_score(h, [(W, bh)], ["linear"], **det)  # noqa: E731
+    plain = lambda: fs.fleet_score_plain(h, [(W, bh)], ["linear"], **det)  # noqa: E731
+    got, ref = run(), plain()
+    errs = {k: norm_err(ref[k], got[k]) for k in ref}
+    check(all(e <= LSTM_TOLERANCE["fleet_score"] for e in errs.values()), f"bf16 LSTM head within tolerance: {errs}")
+    nw, hidden = n - LOOKBACK + 1, int(W.shape[1])
+    head = {"shape": [machines, nw, hidden, tags], "storage": "bfloat16", "max_norm_err": errs,
+            "max_abs_err": max(float((ref[k].double() - got[k].double()).abs().max()) for k in ref)}
+    timed(head, run, plain, 20, 5)
+    head.update(bound(4 * machines * nw * hidden + 2 * machines * nw * tags  # f32 states, bf16 targets
+                      + 2 * machines * (hidden * tags + 3 * tags)  # bf16 head and detector stats
+                      + 4 * machines * nw * (2 * tags + 1),  # f32 pred, tags, total
+                      2 * machines * nw * hidden * tags))
+    entries["fleet_score_bf16"]["lstm_head"] = head
+    entries["fleet_score_bf16"]["max_abs_err"] = max(entries["fleet_score_bf16"]["max_abs_err"], head["max_abs_err"])
+    del x, h, got, ref
+
+    # fake_quant: every stacked leaf of the two buckets (stored bf16, one
+    # scale across the machines, as the bucket path quantises), and one
+    # machine's f32 leaves (the per-machine path); bit for bit the plain
+    # version
+    fq_entries = {}
+    for name, leaves, groups in (
+        ("default_bucket", stacked_ff, [1] * len(stacked_ff)),
+        ("lstm_bucket", stacked_lstm, groups_lstm),
+        ("default_machine_f32", [t[:1].float().contiguous() for t in stacked_ff], [1] * len(stacked_ff)),
+    ):
+        run, plain = fake_quant_leaves(leaves, groups)
+        got, ref = run(), plain()
+        worst = 0.0
+        for a, g, r in zip(leaves, got, ref):
+            check(g.dtype == bf and tuple(g.shape) == tuple(a.shape), f"fake_quant {name}: bf16 of the leaf's shape")
+            check(bool(torch.equal(g.view(torch.int16), r.view(torch.int16))),
+                  f"fake_quant {name} bit for bit its plain version")
+            levels = (g.float() / g.float().abs().amax().clamp_min(1e-30) * 127).round().unique().numel()
+            check(levels <= 255, f"fake_quant {name}: at most 255 levels, got {levels}")
+            worst = max(worst, float((g.double() - r.double()).abs().max()))
+        e = {"leaves": len(leaves), "elements": int(sum(t.numel() for t in leaves)),
+             "input": str(leaves[0].dtype).replace("torch.", ""), "max_abs_err": worst}
+        timed(e, run, plain, 20, 5)
+        e.update(bound(sum(t.numel() * (t.element_size() + 2) for t in leaves),
+                       sum(4 * t.numel() for t in leaves)))
+        fq_entries[name] = e
+    entries["fake_quant"] = {**fq_entries["default_bucket"], "variants": fq_entries}
+    emit({"phase": "precision_kernel_check", "kernels": entries})
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return entries
+
+
+def _served_error(ref: dict, got: dict, bounds: dict) -> dict:
+    """Per output, max |ref - got| / max |ref| of one machine's response."""
+    errs = {}
+    for k, tol in bounds.items():
+        if k not in ref:
+            continue
+        r, g = np.asarray(ref[k], np.float64), np.asarray(got[k], np.float64)
+        check(r.shape == g.shape and np.isfinite(g).all(), f"{k}: finite, shape {r.shape}")
+        errs[k] = float(np.abs(r - g).max() / max(np.abs(r).max(), 1e-6))
+    return errs
+
+
+def phase_precision_serve():
+    """The default-detector bucket and the LSTM bucket served at f32, bf16
+    and int8 over HTTP: per-machine, bulk and one-machine-subset requests,
+    each reduced response held to the f32 one with the r12 bounds; device
+    bytes resident per bucket; launches of each kernel while serving."""
+    from gordo_tpu_torch.kernels import fake_quant as fq
+    from gordo_tpu_torch.kernels import fleet_score as fs
+    from gordo_tpu_torch.kernels import lstm_layer as ll
+    from gordo_tpu_torch.serve.server import ModelCollection, make_server
+
+    rng = np.random.default_rng(SEED + 21)
+    out = {"fleet": PRECISION_FLEET, "rows": PRECISION_ROWS, "dtypes": {}}
+    responses = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_prec_") as tmp:
+        tags = write_fleet(tmp, rng, PRECISION_FLEET, window=False)
+        X = {name: rng.standard_normal((PRECISION_ROWS, t)).astype(np.float32) for name, t in tags.items()}
+        singles = ["ff-0", "ff-1", "ff-2", "ff-3", "lstm-0", "lstm-1"]
+        # one machine of each bucket: the subset path of both
+        subset = {name: X[name] for name in (f"ff-{PRECISION_FLEET['default'] - 1}",
+                                             f"lstm-{PRECISION_FLEET['lstm'] - 1}")}
+        for dtype in ("float32", "bfloat16", "int8"):
+            info = {}
+            fq.launches = 0
+            t0 = time.perf_counter()
+            with serve_dtype_env(dtype):
+                collection = ModelCollection.from_directory(
+                    tmp, project="prec", device=None if DEVICE == "cuda" else DEVICE)
+            check(collection.serve_dtype == dtype, f"collection serves at {dtype}, got {collection.serve_dtype}")
+            info["load_seconds"] = time.perf_counter() - t0
+            server = make_server(collection, "127.0.0.1", 0)
+            thread = threading.Thread(target=server.serve_forever, daemon=True)
+            thread.start()
+            base = f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/prec"
+            for mod in (fs, ll):
+                mod.launches = 0
+                mod.bf16_launches = 0
+            got, latencies = {}, []
+            try:
+                for name in singles:
+                    t0 = time.perf_counter()
+                    status, body = _request(f"{base}/{name}/anomaly/prediction", {"X": X[name].tolist()})
+                    latencies.append(time.perf_counter() - t0)
+                    check(status == 200, f"{dtype} {name}: {status} {body}")
+                    got[("machine", name)] = body["data"]
+                t0 = time.perf_counter()
+                status, body = _request(f"{base}/_bulk/anomaly/prediction",
+                                        {"X": {n: a.tolist() for n, a in X.items()}})
+                info["bulk_seconds"] = time.perf_counter() - t0
+                check(status == 200, f"{dtype} bulk: {status}")
+                for name in X:
+                    got[("bulk", name)] = body["data"][name]
+                status, body = _request(f"{base}/_bulk/anomaly/prediction",
+                                        {"X": {n: a.tolist() for n, a in subset.items()}})
+                check(status == 200, f"{dtype} subset: {status}")
+                for name in subset:
+                    got[("subset", name)] = body["data"][name]
+                launches = {"fleet_score": fs.launches, "fleet_score_bf16": fs.bf16_launches,
+                            "lstm_layer": ll.launches, "lstm_layer_bf16": ll.bf16_launches,
+                            "fake_quant": fq.launches}
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(timeout=30)
+            check(not thread.is_alive(), "server thread stopped")
+            # 6 single requests, then one launch per bucket (two) for the
+            # bulk request and for the subset request; each LSTM scoring
+            # runs every LSTM layer
+            reduced = dtype != "float32"
+            n_cells = len(hourglass(LSTM_SHAPE[2])) - 2
+            want = {"fleet_score": 10, "fleet_score_bf16": 10 if reduced else 0,
+                    "lstm_layer": n_cells * 4, "lstm_layer_bf16": n_cells * 4 if reduced else 0}
+            # int8 quantises every float leaf once: each machine's scorer
+            # (every layer's W and b, and the two scalers' stats; an LSTM's
+            # cells' three leaves, its head's two and the four stats), then
+            # each bucket's stacked leaves once
+            ff_leaves = 2 * (len(hourglass(10)) - 1) + 4
+            lstm_leaves = 3 * (len(hourglass(LSTM_SHAPE[2])) - 2) + 2 + 4
+            want["fake_quant"] = ((PRECISION_FLEET["default"] + 1) * ff_leaves
+                                  + (PRECISION_FLEET["lstm"] + 1) * lstm_leaves) if dtype == "int8" else 0
+            if DEVICE == "cuda":
+                check(launches == want, f"{dtype} serving launches {launches}, expected {want}")
+            info["launches"] = launches
+            info["request_seconds_p50"] = float(np.median(latencies))
+            info["resident_bytes"] = {
+                ("default" if b.mode == "none" else "lstm"): b.resident_bytes()
+                for b in collection.fleet_scorer.buckets
+            }
+            responses[dtype] = got
+            out["dtypes"][dtype] = info
+            del collection
+            if DEVICE == "cuda":
+                torch.cuda.empty_cache()
+    worst = {}
+    for dtype in ("bfloat16", "int8"):
+        w = {}
+        for key, ref in responses["float32"].items():
+            errs = _served_error(ref, responses[dtype][key], PRECISION_BOUNDS[dtype])
+            for k, e in errs.items():
+                check(e <= PRECISION_BOUNDS[dtype][k],
+                      f"{dtype} {key} {k}: {e:.4%} of f32, over {PRECISION_BOUNDS[dtype][k]:.0%}")
+                w[f"{key[0]} {k}"] = max(w.get(f"{key[0]} {k}", 0.0), e)
+        worst[dtype] = w
+    f32_bytes = out["dtypes"]["float32"]["resident_bytes"]
+    for dtype in ("bfloat16", "int8"):
+        for bucket, nbytes in out["dtypes"][dtype]["resident_bytes"].items():
+            check(nbytes < 0.55 * f32_bytes[bucket], f"{dtype} {bucket} bucket resident {nbytes} of f32's {f32_bytes[bucket]}")
+    out["max_norm_err_vs_f32"] = worst
+    out["bounds"] = PRECISION_BOUNDS
+    return out
+
+
+def stream_bound(H: int, F: int, W: int, dims, elem: int, lstm: bool):
+    """Least time of one ``stream_step``: the ring read and written, the new
+    row, the chain's weights and stats read once at the storage width (an
+    LSTM's state in f32), the verdict written; the dense stack's FLOPs over
+    the W rows."""
+    weights = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(dims) - 1))
+    fo = dims[-1]
+    nbytes = elem * (2 * H * F + F + weights + (0 if lstm else 2 * F) + 2 * fo) + 4 * (fo + 4)
+    if lstm:
+        nbytes += 4 * W * dims[0]
+    flops = 2 * W * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+    return bound(nbytes, flops)
+
+
+def phase_stream_kernel_check():
+    """``stream_step`` (and its shift alone) against its plain version and,
+    bit for bit, against the request path's kernels over the same rows, for
+    a default detector and an LSTM ae detector, at f32 and over bf16."""
+    from gordo_tpu_torch.kernels import fleet_score as fs
+    from gordo_tpu_torch.kernels import lstm_layer as ll
+    from gordo_tpu_torch.kernels import rolling_median as rm
+    from gordo_tpu_torch.kernels import stream_step as sk
+
+    rng = np.random.default_rng(SEED + 22)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)  # noqa: E731
+    entries = {}
+    W = SMOOTH_WINDOW
+    for kind in ("default", "lstm"):
+        if kind == "default":
+            src = random_chain(rng, 1, 10)
+            layers = [(put(w), put(b)) for w, b in src["layers"]]
+            acts, dims, offset_rows, F = src["acts"], src["dims"], 0, 10
+        else:
+            src = random_lstm(rng, 1, LSTM_SHAPE[2])
+            layers = [(put(src["head"][0]), put(src["head"][1]))]
+            acts, F, offset_rows = ["linear"], LSTM_SHAPE[2], LOOKBACK - 1
+            dims = [src["dims"][-1], F]
+        H = offset_rows + W
+        for dtype in (torch.float32, torch.bfloat16):
+            cast = lambda t: None if t is None else (t if t.dtype != torch.float32 else t.to(dtype))  # noqa: E731
+            lay = [(cast(w), cast(b)) for w, b in layers]
+            st = {k: cast(put(src[k])) for k in ("scale", "offset", "det_scale", "det_offset")}
+            thr = put(src["agg"])
+            cells = [tuple(cast(put(a)) for a in c) for c in src.get("cells", [])]
+            ring = cast(put(rng.standard_normal((H, F))))
+            row = cast(put(rng.standard_normal(F)))
+
+            def score(ring_in, count, x=None, ring_out=None, plain=False):
+                fn = sk.stream_step_plain if plain else sk.stream_step
+                kw = dict(window=W, mode_offset=offset_rows, det_scale=st["det_scale"],
+                          det_offset=st["det_offset"], agg_thr=thr)
+                if kind == "default":
+                    return fn(ring_in, count, lay, acts, scale=st["scale"], offset=st["offset"],
+                              x=x, ring_out=ring_out, **kw)
+                h = ring_in[None]
+                for i, ((ki, kh, b), act) in enumerate(zip(cells, ["tanh"] * len(cells))):
+                    h = ll.lstm_layer(h, ki, kh, b, lookback=LOOKBACK, act=act,
+                                      n_windows=W if i == 0 else None,
+                                      scale=st["scale"] if i == 0 else None,
+                                      offset=st["offset"] if i == 0 else None, last=i == len(cells) - 1)
+                return fn(ring_in, count, lay, acts, h=h[0], **kw)
+
+            e = {"ring": [H, F], "window": W, "storage": str(dtype).replace("torch.", "")}
+            # steady state, and warm-up (count < H: older scores masked)
+            for label, count0 in (("steady", 10 * H), ("warm_up", offset_rows + 3)):
+                count_k = torch.tensor([count0], dtype=torch.int32, device=DEVICE)
+                count_p = count_k.clone()
+                out_k, out_p = torch.empty_like(ring), torch.empty_like(ring)
+                if kind == "default":
+                    got = score(ring, count_k, row, out_k)
+                    ref = score(ring, count_p, row, out_p, plain=True)
+                else:
+                    sk.stream_shift(ring, out_k, count_k, row)
+                    sk.stream_shift_plain(ring, out_p, count_p, row)
+                    got = score(out_k, count_k)
+                    ref = score(out_p, count_p, plain=True)
+                check(bool(torch.equal(out_k, out_p)) and int(count_k) == int(count_p) == count0 + 1,
+                      f"stream_step {kind} {label}: the shifted ring and count equal the plain version's")
+                fin = ~torch.isnan(ref)
+                check(bool(torch.equal(fin, ~torch.isnan(got))), f"stream_step {kind} {label}: NaN where the plain version has it")
+                err = norm_err(ref[fin], got[fin])
+                check(err <= TOLERANCE, f"stream_step {kind} {label} within {TOLERANCE}: {err}")
+                e[label] = {"max_norm_err": err, "max_abs_err": float((ref[fin].double() - got[fin].double()).abs().max())}
+                if label == "steady":
+                    # the request path's kernels over the same H rows
+                    fo = F
+                    kw = dict(det_scale=st["det_scale"], det_offset=st["det_offset"])
+                    if kind == "default":
+                        scored = fs.fleet_score(out_k[None], lay, acts, scale=st["scale"], offset=st["offset"], **kw)
+                    else:
+                        h = out_k[None]
+                        for i, (ki, kh, b) in enumerate(cells):
+                            h = ll.lstm_layer(h, ki, kh, b, lookback=LOOKBACK, act="tanh",
+                                              n_windows=W if i == 0 else None,
+                                              scale=st["scale"] if i == 0 else None,
+                                              offset=st["offset"] if i == 0 else None, last=i == len(cells) - 1)
+                        scored = fs.fleet_score(h, lay, acts, y=out_k[None], y_offset=offset_rows, **kw)
+                    med = rm.rolling_median(scored["tag-anomaly-scores"], scored["total-anomaly-score"], W,
+                                            agg_thr=thr)
+                    want = torch.cat([med["tag-anomaly-scores"][0, -1], med["total-anomaly-score"][0, -1:],
+                                      med["anomaly-confidence"][0, -1:]])
+                    check(bool(torch.equal(got[:fo + 2], want)),
+                          f"stream_step {kind} {str(dtype)}: the verdict is bit for bit the request path's")
+                    check(float(got[fo + 2]) == 1.0, "a steady-state row is valid")
+            e["max_abs_err"] = max(e["steady"]["max_abs_err"], e["warm_up"]["max_abs_err"])
+            count_t = torch.tensor([H], dtype=torch.int32, device=DEVICE)
+            out_t = torch.empty_like(ring)
+            if DEVICE == "cuda":
+                if kind == "default":
+                    run = lambda: score(ring, count_t, row, out_t)  # noqa: E731
+                    plain = lambda: score(ring, count_t.clone(), row, out_t.clone(), plain=True)  # noqa: E731
+                else:
+                    h_fixed = torch.randn((W, dims[0]), device=DEVICE)
+                    skw = dict(window=W, mode_offset=offset_rows, det_scale=st["det_scale"],
+                               det_offset=st["det_offset"], agg_thr=thr, h=h_fixed)
+                    run = lambda: sk.stream_step(out_t, count_t, lay, acts, **skw)  # noqa: E731
+                    plain = lambda: sk.stream_step_plain(out_t, count_t, lay, acts, **skw)  # noqa: E731
+                    e["shift_ms"], e["shift_host_ms"] = time_ms(lambda: sk.stream_shift(ring, out_t, count_t, row), 200)
+                e["ms"], e["host_ms"] = time_ms(run, 200)
+                e["plain_ms"], e["plain_host_ms"] = time_calls_ms(plain, 20)
+            e.update(stream_bound(H, F, W, dims, 2 if dtype == torch.bfloat16 else 4, kind == "lstm"))
+            entries[f"{kind}_{e['storage']}"] = e
+    emit({"phase": "stream_kernel_check", "kernels": {"stream_step": entries}})
+    return entries
+
+
+def _sse_reader(url: str, want_last: list, events: list):
+    """Read SSE frames from ``url`` into ``events`` until an event with id
+    ``want_last[0]`` (set later) has arrived or the server closes."""
+    req = urllib.request.Request(url, headers={"Accept": "text/event-stream"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        frame = {}
+        for raw in resp:
+            line = raw.decode().rstrip("\n")
+            if line.startswith("id: "):
+                frame["id"] = int(line[4:])
+            elif line.startswith("event: "):
+                frame["type"] = line[7:]
+            elif line.startswith("data: "):
+                frame["data"] = json.loads(line[6:])
+            elif line == "" and frame:
+                events.append(frame)
+                frame = {}
+            if want_last[0] is not None and events and events[-1]["id"] >= want_last[0]:
+                return
+
+
+def _stream_breakdown(collection, X: dict, names) -> dict:
+    """Where a streamed row's time goes, per machine of ``names``: on the
+    host clock, a row's ``ingest`` split into the enqueue (the row's cast
+    and copy, the launches) and the wait for the verdict (the card's work
+    and the copy back), over 100 steady-state rows of a throwaway stream;
+    and under ``torch.profiler``, the card's time by kernel over 50 rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from gordo_tpu_torch.serve.stream import MachineStream
+
+    out = {}
+    for name in names:
+        ms = MachineStream(name, collection.get(name).scorer)
+        rows = X[name]
+        for r in rows[:ms.state_rows]:
+            ms.ingest(r)
+        enqueue, wait = [], []
+        for r in rows[ms.state_rows: ms.state_rows + 100]:
+            t0 = time.perf_counter()
+            verdict = ms._advance(np.ascontiguousarray(r))
+            t1 = time.perf_counter()
+            verdict.cpu()
+            enqueue.append(t1 - t0)
+            wait.append(time.perf_counter() - t1)
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for r in rows[:50]:
+                ms.ingest(r)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_kernel = {}
+        for evt in prof.key_averages():
+            ms_dev = evt.self_device_time_total / 1e3
+            if evt.device_type == torch.autograd.DeviceType.CUDA and ms_dev > 0:
+                by_kernel[evt.key.split("(")[0][:60]] = {"ms_per_row": ms_dev / 50, "calls": evt.count}
+        device = sum(v["ms_per_row"] for v in by_kernel.values())
+        out[name] = {"enqueue_ms_p50": 1e3 * float(np.median(enqueue)),
+                     "wait_ms_p50": 1e3 * float(np.median(wait)),
+                     "device_ms_per_row": device, "profiled_ms_per_row": 1e3 * wall / 50,
+                     "busy_share": device / (1e3 * wall / 50), "by_kernel": by_kernel}
+    return out
+
+
+def phase_stream():
+    """64 default and 8 LSTM ae detectors with a window of 144 rows, each
+    fed STREAM_ROWS rows in process, then STREAM_HTTP_ROWS over HTTP with an
+    SSE subscriber and a poller; steady-state verdicts held bit for bit to
+    the request path; a bf16 stream held to its f32 twin."""
+    from gordo_tpu_torch.kernels import fleet_score as fs
+    from gordo_tpu_torch.kernels import lstm_layer as ll
+    from gordo_tpu_torch.kernels import rolling_median as rm
+    from gordo_tpu_torch.kernels import stream_step as sk
+    from gordo_tpu_torch.serve.server import ModelCollection, make_server
+    from gordo_tpu_torch.serve.stream import MachineStream, reference_verdict
+
+    rng = np.random.default_rng(SEED + 23)
+    out = {"fleet": STREAM_FLEET, "rows": STREAM_ROWS, "window": SMOOTH_WINDOW, "lookback": LOOKBACK}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        tags = write_fleet(tmp, rng, STREAM_FLEET, window=True)
+        # a detector that requires thresholds it never derived: 422
+        chain = random_chain(rng, 1, 10)
+        from gordo_tpu_torch import serializer
+        serializer.dump(port_detector(with_window(DEFAULT_MODEL), dense_params(chain, 0), chain, 0,
+                                      thresholds=False), os.path.join(tmp, "no-thresholds"))
+        collection = ModelCollection.from_directory(tmp, project="stream",
+                                                    device=None if DEVICE == "cuda" else DEVICE)
+        hub = collection.stream_hub
+        # each machine's rows: sines with noise, then a burst to cross the threshold
+        X = {}
+        for name, t in tags.items():
+            rows = bench_fleet(rng, 1, STREAM_ROWS + STREAM_HTTP_ROWS, t)[0]
+            rows[STREAM_ROWS - 40: STREAM_ROWS - 30] += 3.0
+            X[name] = rows
+        counters = {"stream_step": (sk, "launches"), "stream_shift": (sk, "shift_launches"),
+                    "lstm_layer": (ll, "launches"), "fleet_score": (fs, "launches"),
+                    "rolling_median": (rm, "launches")}
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        verdicts = {name: {} for name in tags}
+        latency = {"default": [], "lstm": []}
+        t_start = time.perf_counter()
+        for r in range(STREAM_ROWS):
+            for name in tags:
+                scorer = collection.get(name).scorer
+                t0 = time.perf_counter()
+                events = hub.ingest_rows(name, scorer, X[name][r], dtype=collection.serve_dtype)
+                latency["lstm" if name.startswith("lstm") else "default"].append(time.perf_counter() - t0)
+                for ev in events:
+                    if ev["type"] == "verdict":
+                        verdicts[name][ev["data"]["step"]] = ev["data"]
+        drive_seconds = time.perf_counter() - t_start
+        launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        n_ff, n_lstm = STREAM_FLEET["default"], STREAM_FLEET["lstm"]
+        n_cells = len(hourglass(LSTM_SHAPE[2])) - 2
+        want = {"stream_step": (n_ff + n_lstm) * STREAM_ROWS, "stream_shift": n_lstm * STREAM_ROWS,
+                "lstm_layer": n_cells * n_lstm * STREAM_ROWS, "fleet_score": 0, "rolling_median": 0}
+        if DEVICE == "cuda":
+            check(launches == want, f"stream launches {launches}, expected {want}")
+        out["launches"] = launches
+        out["drive_seconds"] = drive_seconds
+        for kind, lat in latency.items():
+            out[f"step_seconds_{kind}"] = {"p50": float(np.percentile(lat, 50)), "p99": float(np.percentile(lat, 99))}
+        # every steady-state verdict of the checked machines, bit for bit
+        checked = 0
+        for name in [f"ff-{i}" for i in range(STREAM_CHECKED)] + [f"lstm-{i}" for i in range(min(STREAM_CHECKED, n_lstm))]:
+            ms = hub.streams[name]
+            H = ms.state_rows
+            check(len(verdicts[name]) == STREAM_ROWS - ms.offset, f"{name}: one verdict per valid row")
+            for t in range(H, STREAM_ROWS + 1):
+                ref = reference_verdict(collection.get(name).scorer, X[name][t - H:t])
+                v = verdicts[name][t]
+                got = {"tag-anomaly-scores": np.asarray(v["tag-anomaly-scores"], np.float32),
+                       "total-anomaly-score": np.float32(v["total-anomaly-score"]),
+                       "anomaly-confidence": np.float32(v["anomaly-confidence"])}
+                for k in ref:
+                    check(np.asarray(got[k], np.float32).tobytes() == np.asarray(ref[k], np.float32).tobytes(),
+                          f"{name} step {t} {k}: the streamed verdict is the request path's bit for bit")
+                checked += 1
+        out["verdicts_checked_bitwise"] = checked
+        thresholds = sum(1 for ev in hub.ring.since(0)[0] if ev["type"] == "threshold")
+        check(thresholds > 0, "the burst crossed some aggregate thresholds")
+        out["threshold_events"] = thresholds
+
+        # a bf16 stream of the checked machines, held to its f32 twin
+        worst = {}
+        for name in [f"ff-{i}" for i in range(STREAM_CHECKED)] + [f"lstm-{i}" for i in range(min(STREAM_CHECKED, n_lstm))]:
+            twin = MachineStream(name, collection.get(name).scorer, dtype="bfloat16")
+            series = {k: [] for k in ("tag-anomaly-scores", "total-anomaly-score", "anomaly-confidence")}
+            ref = {k: [] for k in series}
+            for t in range(1, STREAM_ROWS + 1):
+                v = twin.ingest(X[name][t - 1])
+                if v is None:
+                    continue
+                for k in series:
+                    series[k].append(np.asarray(v[k], np.float64))
+                    f32 = verdicts[name][t][k]
+                    ref[k].append(np.asarray(f32, np.float64))
+            errs = _served_error({k: np.stack(v) for k, v in ref.items()},
+                                 {k: np.stack(v) for k, v in series.items()}, PRECISION_BOUNDS["bfloat16"])
+            for k, e in errs.items():
+                check(e <= PRECISION_BOUNDS["bfloat16"][k], f"bf16 stream {name} {k}: {e:.4%} of f32")
+                worst[k] = max(worst.get(k, 0.0), e)
+        out["bf16_max_norm_err_vs_f32"] = worst
+        if DEVICE == "cuda":
+            out["breakdown"] = _stream_breakdown(collection, X, ["ff-0", "lstm-0"])
+
+        # over HTTP: an SSE subscriber and a poller from the ring's head
+        server = make_server(collection, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/stream"
+        head = hub.ring.last_id
+        sse_events, want_last = [], [None]
+        reader = threading.Thread(target=_sse_reader, args=(f"{base}/stream", want_last, sse_events),
+                                  daemon=True)
+        polled = []
+        try:
+            reader.start()
+            deadline = time.time() + 30
+            while hub.n_subscribers < 1 and time.time() < deadline:
+                time.sleep(0.01)
+            check(hub.n_subscribers == 1, "the SSE subscriber is attached")
+            errors = {
+                "bad body": _request(f"{base}/stream/ingest", {"nope": 1}),
+                "unknown machine": _request(f"{base}/stream/ingest", {"machine": "no-such", "x": [0.0] * 10}),
+                "bad width": _request(f"{base}/stream/ingest", {"machine": "ff-0", "x": [[0.0] * 3]}),
+                "unsupported": _request(f"{base}/stream/ingest", {"machine": "no-thresholds", "x": [[0.0] * 10]}),
+                "bad event id": _request(f"{base}/stream?mode=poll&after=x&timeout=0"),
+                "unknown subscription": _request(f"{base}/stream?machines=no-such&mode=poll&timeout=0"),
+            }
+            statuses = {k: s for k, (s, _) in errors.items()}
+            check(statuses == {"bad body": 400, "unknown machine": 404, "bad width": 400, "unsupported": 422,
+                               "bad event id": 400, "unknown subscription": 404},
+                  f"stream error answers {statuses}")
+            http_events, t_http = 0, []
+            for r in range(STREAM_ROWS, STREAM_ROWS + STREAM_HTTP_ROWS):
+                if r % 2:
+                    body = {"X": {name: [X[name][r].tolist()] for name in tags}}
+                    t0 = time.perf_counter()
+                    status, resp = _request(f"{base}/stream/ingest", body)
+                    t_http.append(time.perf_counter() - t0)
+                    check(status == 200 and resp["accepted"] == len(tags), f"bulk ingest: {status} {resp}")
+                    http_events += resp["events"]
+                else:
+                    for name in tags:
+                        status, resp = _request(f"{base}/stream/ingest", {"machine": name, "x": [X[name][r].tolist()]})
+                        check(status == 200 and resp["accepted"] == 1, f"ingest {name}: {status} {resp}")
+                        http_events += resp["events"]
+            last = hub.ring.last_id
+            check(last - head == http_events, f"the ring gained {last - head} events, the answers report {http_events}")
+            want_last[0] = last
+            cursor = head
+            while cursor < last:
+                status, doc = _request(f"{base}/stream?mode=poll&after={cursor}&timeout=5")
+                check(status == 200 and doc["events"], f"poll after {cursor}: {status}")
+                polled += doc["events"]
+                cursor = doc["last-event-id"]
+        finally:
+            # closing the server ends the SSE writer, and with it the reader
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+            reader.join(timeout=30)
+        check(not thread.is_alive(), "server thread stopped")
+        check(not reader.is_alive(), "the SSE reader ended")
+        ids_sse, ids_poll = [e["id"] for e in sse_events], [e["id"] for e in polled]
+        expected_ids = list(range(head + 1, last + 1))
+        check(ids_sse == expected_ids, f"SSE ids strictly increasing, none lost or repeated ({len(ids_sse)} of {len(expected_ids)})")
+        check(ids_poll == expected_ids, f"poll ids strictly increasing, none lost or repeated ({len(ids_poll)} of {len(expected_ids)})")
+        check([e["data"] for e in sse_events] == [e["data"] for e in polled], "SSE and poll carry the same events")
+        out["http"] = {"rows": STREAM_HTTP_ROWS, "events": http_events,
+                       "verdicts": sum(e["type"] == "verdict" for e in polled),
+                       "ingest_seconds_p50": float(np.median(t_http)) if t_http else None}
+        del collection
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU", file=sys.stderr)
@@ -2526,6 +3317,12 @@ def main() -> int:
     emit({"phase": "ragged_train", **ragged})
     ragged_lstm = phase_ragged_lstm_train()
     emit({"phase": "ragged_lstm_train", **ragged_lstm})
+    precision_kernels = phase_precision_kernel_check()
+    precision = phase_precision_serve()
+    emit({"phase": "precision_serve", **precision})
+    stream_kernels = phase_stream_kernel_check()
+    stream = phase_stream()
+    emit({"phase": "stream", **stream})
     main_shape = shapes[0]
     head = lstm_kernels["fleet_score_lstm_head"]
     summary = [{
@@ -2647,6 +3444,55 @@ def main() -> int:
         "shape": [masked["slots"], masked["rows"], masked["tags"], "row counts 0..nt"],
         "host_ms": masked["host_ms"],
         "plain_host_ms": masked["plain_host_ms"],
+    })
+    # reduced-precision serving: the bf16 instantiations' launches by dtype
+    # (also in fleet_score's and lstm_layer's totals), and fake_quant's at
+    # the int8 load
+    served = {d: precision["dtypes"][d]["launches"] for d in ("float32", "bfloat16", "int8")}
+    for entry in summary:
+        if entry["name"] in ("fleet_score", "lstm_layer"):
+            for d, counts in served.items():
+                entry["launches_by_path"][f"precision_serve_{d}"] = counts[entry["name"]]
+            if entry["name"] == "lstm_layer":
+                entry["launches_by_path"]["stream"] = stream["launches"]["lstm_layer"]
+            entry["launches"] = sum(entry["launches_by_path"].values())
+    from gordo_tpu_torch.kernels import fake_quant as fq
+    from gordo_tpu_torch.kernels import lstm_layer as ll
+    from gordo_tpu_torch.kernels import stream_step as sk
+    for name, mod, entry, shape in (
+        ("fleet_score_bf16", fs, precision_kernels["fleet_score_bf16"], list(KERNEL_SHAPES[0])),
+        ("lstm_layer_bf16", ll, precision_kernels["lstm_layer_bf16"], list(LSTM_SHAPE)),
+    ):
+        by_path = {f"precision_serve_{d}": served[d][name] for d in ("bfloat16", "int8")}
+        summary.append({
+            "name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": entry["max_abs_err"], "ms": entry["ms"], "plain_ms": entry["plain_ms"],
+            "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
+            # no PyTorch call computes over bf16 storage in f32
+            "library_ms": None, "shape": shape, "storage": "bfloat16",
+        })
+    fq_entry = precision_kernels["fake_quant"]
+    summary.append({
+        "name": "fake_quant", "route": "cuda", "source": fq.SOURCE, "replaces": fq.REPLACES,
+        "launches": served["int8"]["fake_quant"], "launches_by_path": {"precision_serve_int8": served["int8"]["fake_quant"]},
+        "max_abs_err": max(v["max_abs_err"] for v in fq_entry["variants"].values()),
+        "ms": fq_entry["ms"], "plain_ms": fq_entry["plain_ms"], "bound_ms": fq_entry["bound_ms"],
+        "bound_by": fq_entry["bound_by"], "library_ms": None,
+        "shape": [PRECISION_FLEET["default"], "stacked leaves of the default bucket", fq_entry["leaves"]],
+    })
+    step = stream_kernels["default_float32"]
+    summary.append({
+        "name": "stream_step", "route": "cuda", "source": sk.SOURCE, "replaces": sk.REPLACES,
+        "launches": stream["launches"]["stream_step"] + stream["launches"]["stream_shift"],
+        "launches_by_path": {"stream": stream["launches"]["stream_step"],
+                             "stream_shift": stream["launches"]["stream_shift"]},
+        "max_abs_err": max(e["max_abs_err"] for e in stream_kernels.values()),
+        "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
+        "bound_by": step["bound_by"], "library_ms": None,
+        "shape": [*step["ring"], "window", step["window"]],
+        "variants": {k: {f: e.get(f) for f in ("ms", "plain_ms", "bound_ms", "shift_ms")}
+                     for k, e in stream_kernels.items()},
     })
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -126,12 +126,12 @@ class DiffBasedAnomalyDetector(ParamsMixin, AnomalyDetectorBase):
     def predict(self, X, device=None) -> np.ndarray:
         from gordo_tpu_torch.serve.scorer import CompiledScorer
 
-        return CompiledScorer(self, device=device).predict(X)
+        return CompiledScorer(self, device=device, dtype="float32").predict(X)
 
     def anomaly(self, X, y=None, device=None) -> Dict[str, np.ndarray]:
         from gordo_tpu_torch.serve.scorer import CompiledScorer
 
-        return CompiledScorer(self, device=device).anomaly_arrays(X, y)
+        return CompiledScorer(self, device=device, dtype="float32").anomaly_arrays(X, y)
 
     def get_metadata(self) -> Dict[str, Any]:
         meta = {

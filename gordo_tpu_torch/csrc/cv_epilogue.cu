@@ -24,6 +24,8 @@
 //
 // NaN follows XLA: a NaN in a window makes its min NaN, and a NaN min makes
 // the max NaN (CUDA's fminf/fmaxf would drop it); max(NaN, 1e-12) stays NaN.
+// The masked epilogue (`masked`, K8) then maps a maximum that is not finite
+// to 0, as `_masked_smoothed_max` does (:193); the exact one (K4) keeps it.
 // The first W-1 rows take the min over the rows that exist (pandas'
 // min_periods=1): the window never reaches before row 0.
 //
@@ -57,6 +59,7 @@ struct CvEpilogueArgs {
   int nt;
   int fo;
   int window;
+  int masked;           // 1: K8, a non-finite maximum of a slot with rows is 0
 };
 
 __device__ __forceinline__ float nan_min(float a, float b) {
@@ -117,6 +120,7 @@ __global__ void __launch_bounds__(CE_THREADS) cv_epilogue_kernel(const CvEpilogu
       __syncthreads();
       if (c < cols && j < ncol && sub == 0) {
         for (int k = 1; k < per; ++k) mx = nan_max(mx, part[0][t + k]);
+        if (a.masked && !isfinite(mx)) mx = 0.f;
         if (j < fo)
           a.feat_max[(size_t)slot * fo + j] = mx;
         else

@@ -42,15 +42,21 @@
 // memory allows (256 rows at 10 tags), work is handed out by walk2d (no
 // division per item), and no lane idles in the epilogue.  Issuing the
 // global reads as cp.async instead of loads made no difference there.
+//
+// Reduced-precision serving (K10, gordo_tpu/serve/precision.py): the rows,
+// weights, biases and the scaler and detector stats may be stored in
+// bf16; the kernel widens each value to f32 as it loads it, and computes,
+// keeps in shared memory and writes f32, as at f32 (the thresholds stay
+// f32).  Template parameters: TX, the type of x (float for an LSTM head,
+// whose input is lstm_layer's f32 state), and T, that of everything else
+// stored.  At bf16 the bytes in halve and the bound falls with them.  The
+// dense stack and the epilogue's arithmetic are dense_rows.cuh's, shared
+// with stream_step.cu.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "activations.cuh"
-
-#define FS_MAX_LAYERS 16
-#define FS_THREADS 256
-#define FS_RPT 4
+#include "dense_rows.cuh"
 
 // The LSTM detectors use it as their head and epilogue: x is the last LSTM
 // layer's final-step state (m, windows, H), the one layer is the `out`
@@ -60,16 +66,15 @@
 // Mirrored field by field by `_Args` in gordo_tpu_torch/kernels/fleet_score.py;
 // fleet_score_args_size() lets the wrapper check the two agree.
 struct FleetScoreArgs {
-  const float* x;           // (m, n, f) raw rows of each dispatch slot
-  const float* y;           // (m, y_n, f_out) targets from row y_row0, or null: y = x
+  const void* x;            // (m, n, f) rows of each dispatch slot, TX
+  const void* y;            // (m, y_n, f_out) targets from row y_row0, T, or null: y = x
   const int* idx;           // (m,) stacked machine of each slot, or null: slot
   const int* n_rows;        // (m,) valid rows of each slot, or null: n
-  const float* scale;       // (M, f) pipeline MinMax, or null: none
-  const float* offset;      // (M, f)
-  const float* w[FS_MAX_LAYERS];  // (M, dims[l], dims[l+1])
-  const float* b[FS_MAX_LAYERS];  // (M, dims[l+1])
-  const float* det_scale;   // (M, f) detector MinMax, or null: prediction only
-  const float* det_offset;  // (M, f)
+  const void* scale;        // (M, f) pipeline MinMax, T, or null: none
+  const void* offset;       // (M, f)
+  DenseChain chain;         // the dense stack, T
+  const void* det_scale;    // (M, f) detector MinMax, T, or null: prediction only
+  const void* det_offset;   // (M, f)
   const float* agg_thr;     // (M,) aggregate thresholds, or null: no confidence
   float* pred;              // (m, n, f_out)
   float* tag;               // (m, n, f_out)  written when det_scale is set
@@ -80,38 +85,16 @@ struct FleetScoreArgs {
   int f;
   int y_n;                  // rows per slot of y
   int y_row0;               // y row of output row 0
-  int n_layers;
-  int dims[FS_MAX_LAYERS + 1];
-  int act[FS_MAX_LAYERS];
-  int rows_per_block;       // R, a multiple of FS_RPT
+  int rows_per_block;       // R, a multiple of DR_RPT
   int max_dim;              // widest of dims[]
-  int weights_resident;     // 1: all layers sit in shared memory at once
   int wbuf_floats;          // all layers' W and b if resident, else the largest layer's
   int smem_bytes;
+  int x_bf16;               // TX is __nv_bfloat16
+  int bf16;                 // T is __nv_bfloat16
 };
 
-// Calls body(q, c) for each pair of [0, nq) x [0, nc) that falls to this
-// thread when the block's threads walk the pairs in row-major order (c
-// fastest, so neighbouring threads touch neighbouring addresses).  The
-// pair advances by FS_THREADS without a division per step.
-template <typename Body>
-__device__ __forceinline__ void walk2d(int nq, int nc, Body body) {
-  int q = threadIdx.x / nc;
-  int c = threadIdx.x - q * nc;
-  const int dq = FS_THREADS / nc;
-  const int dc = FS_THREADS - dq * nc;
-  while (q < nq) {
-    body(q, c);
-    q += dq;
-    c += dc;
-    if (c >= nc) {
-      c -= nc;
-      ++q;
-    }
-  }
-}
-
-__global__ void __launch_bounds__(FS_THREADS)
+template <typename TX, typename T>
+__global__ void __launch_bounds__(DR_THREADS)
 fleet_score_kernel(const FleetScoreArgs a) {
   extern __shared__ float smem[];
   const int slot = blockIdx.y;
@@ -123,7 +106,7 @@ fleet_score_kernel(const FleetScoreArgs a) {
   const int rows = min(R, n_valid - row0);
   const int F = a.f;
   const int D = a.max_dim;
-  const int fo = a.dims[a.n_layers];
+  const int fo = a.chain.dims[a.chain.n_layers];
   const bool det = a.det_scale != nullptr;
 
   float* wbuf = smem;                  // weights: W then b, layer after layer
@@ -134,86 +117,39 @@ fleet_score_kernel(const FleetScoreArgs a) {
 
   // device memory → shared: rows, stats, resident weights
   const size_t row_base = (size_t)slot * a.n + row0;
-  const float* xt = a.x + row_base * F;
-  const float* sc = a.scale ? a.scale + (size_t)mach * F : nullptr;
-  const float* of = a.scale ? a.offset + (size_t)mach * F : nullptr;
+  const TX* xt = static_cast<const TX*>(a.x) + row_base * F;
+  const T* sc = a.scale ? static_cast<const T*>(a.scale) + (size_t)mach * F : nullptr;
+  const T* of = a.scale ? static_cast<const T*>(a.offset) + (size_t)mach * F : nullptr;
   // without y, F == fo and the raw rows are the targets
   const bool y_is_x = det && !a.y;
   walk2d(R, F, [&](int r, int j) {
     float v = 0.f;
     float t = 0.f;
     if (r < rows) {
-      v = __ldg(xt + r * F + j);
+      v = ld(xt + r * F + j);
       t = v;
-      if (sc) v = v * __ldg(sc + j) + __ldg(of + j);
+      if (sc) v = scale_in(v, ld(sc + j), ld(of + j));
     }
     bufa[r * D + j] = v;
     if (y_is_x) yraw[r * fo + j] = t;
   });
   if (det && a.y) {
-    const float* yt = a.y + ((size_t)slot * a.y_n + a.y_row0 + row0) * fo;
+    const T* yt = static_cast<const T*>(a.y) + ((size_t)slot * a.y_n + a.y_row0 + row0) * fo;
     walk2d(R, fo, [&](int r, int j) {
-      yraw[r * fo + j] = r < rows ? __ldg(yt + r * fo + j) : 0.f;
+      yraw[r * fo + j] = r < rows ? ld(yt + r * fo + j) : 0.f;
     });
   }
   if (det) {
-    for (int j = threadIdx.x; j < fo; j += FS_THREADS) {
-      sdet[j] = __ldg(a.det_scale + (size_t)mach * fo + j);
-      sdet[fo + j] = __ldg(a.det_offset + (size_t)mach * fo + j);
+    const T* ds = static_cast<const T*>(a.det_scale) + (size_t)mach * fo;
+    const T* dof = static_cast<const T*>(a.det_offset) + (size_t)mach * fo;
+    for (int j = threadIdx.x; j < fo; j += DR_THREADS) {
+      sdet[j] = ld(ds + j);
+      sdet[fo + j] = ld(dof + j);
     }
   }
-  if (a.weights_resident) {
-    int off = 0;
-    for (int l = 0; l < a.n_layers; ++l) {
-      const int nw = a.dims[l] * a.dims[l + 1];
-      const int nb = a.dims[l + 1];
-      const float* W = a.w[l] + (size_t)mach * nw;
-      const float* B = a.b[l] + (size_t)mach * nb;
-#pragma unroll 4
-      for (int e = threadIdx.x; e < nw; e += FS_THREADS) wbuf[off + e] = __ldg(W + e);
-      for (int e = threadIdx.x; e < nb; e += FS_THREADS) wbuf[off + nw + e] = __ldg(B + e);
-      off += nw + nb;
-    }
-  }
+  if (a.chain.weights_resident) dense_load_resident<T>(a.chain, mach, wbuf);
 
-  float* in = bufa;
-  float* out = bufb;
-  const int groups = R / FS_RPT;
-  int woff = 0;
-  for (int l = 0; l < a.n_layers; ++l) {
-    const int din = a.dims[l];
-    const int dout = a.dims[l + 1];
-    const int code = a.act[l];
-    __syncthreads();  // `in` written; streamed: earlier readers of wbuf done
-    if (!a.weights_resident) {
-      const float* W = a.w[l] + (size_t)mach * din * dout;
-      const float* B = a.b[l] + (size_t)mach * dout;
-#pragma unroll 4
-      for (int e = threadIdx.x; e < din * dout; e += FS_THREADS) wbuf[e] = __ldg(W + e);
-      for (int e = threadIdx.x; e < dout; e += FS_THREADS) wbuf[din * dout + e] = __ldg(B + e);
-      __syncthreads();
-    }
-    const float* wl = wbuf + woff;
-    walk2d(groups, dout, [&](int g, int j) {
-      const float* arow = in + g * FS_RPT * D;
-      float acc[FS_RPT];
-#pragma unroll
-      for (int r = 0; r < FS_RPT; ++r) acc[r] = 0.f;
-      for (int k = 0; k < din; ++k) {
-        const float w = wl[k * dout + j];
-#pragma unroll
-        for (int r = 0; r < FS_RPT; ++r) acc[r] = fmaf(arow[r * D + k], w, acc[r]);
-      }
-      const float bj = wl[din * dout + j];
-      float* orow = out + g * FS_RPT * D;
-#pragma unroll
-      for (int r = 0; r < FS_RPT; ++r) orow[r * D + j] = act_fn(code, acc[r] + bj);
-    });
-    if (a.weights_resident) woff += din * dout + dout;
-    float* t = in;
-    in = out;
-    out = t;
-  }
+  const float* in = dense_rows<T>(a.chain, mach, wbuf, bufa, bufb, R, D);
   __syncthreads();
 
   // epilogue from shared memory, elementwise over every lane; `in` holds
@@ -223,9 +159,7 @@ fleet_score_kernel(const FleetScoreArgs a) {
     const size_t o = (row_base + r) * fo + j;
     a.pred[o] = p;
     if (det) {
-      const float s = sdet[j];
-      const float c = sdet[fo + j];
-      const float t = fabsf((p * s + c) - (yraw[r * fo + j] * s + c));
+      const float t = tag_score(p, yraw[r * fo + j], sdet[j], sdet[fo + j]);
       a.tag[o] = t;
       yraw[r * fo + j] = t * t;
     }
@@ -233,20 +167,10 @@ fleet_score_kernel(const FleetScoreArgs a) {
   if (det) {
     __syncthreads();
     // the L2 norm over tags: one thread per row
-    for (int r = threadIdx.x; r < rows; r += FS_THREADS) {
-      // each row starts at another tag, so neighbouring rows read
-      // different banks; the start follows the row's index in the slot,
-      // not in the tile, so a row's sum does not depend on the row tile
-      // (which the launch plan sizes by the number of slots)
-      float sq = 0.f;
-      int j = (row0 + r) % fo;
-      for (int n = 0; n < fo; ++n) {
-        sq += yraw[r * fo + j];
-        if (++j == fo) j = 0;
-      }
-      const float total = sqrtf(sq);
+    for (int r = threadIdx.x; r < rows; r += DR_THREADS) {
+      const float total = row_l2(yraw + r * fo, fo, row0 + r);
       a.total[row_base + r] = total;
-      if (a.agg_thr) a.conf[row_base + r] = total / fmaxf(__ldg(a.agg_thr + mach), 1e-12f);
+      if (a.agg_thr) a.conf[row_base + r] = total / conf_divisor(__ldg(a.agg_thr + mach));
     }
   }
 }
@@ -257,14 +181,24 @@ extern "C" const char* fleet_score_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches on `stream` without synchronising; returns cudaGetLastError().
-extern "C" int fleet_score_launch(const FleetScoreArgs* a, void* stream) {
+template <typename TX, typename T>
+static int launch(const FleetScoreArgs* a, cudaStream_t stream) {
   if (a->smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        fleet_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem_bytes);
+        fleet_score_kernel<TX, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((a->n + a->rows_per_block - 1) / a->rows_per_block, a->m);
-  fleet_score_kernel<<<grid, FS_THREADS, a->smem_bytes, (cudaStream_t)stream>>>(*a);
+  fleet_score_kernel<TX, T><<<grid, DR_THREADS, a->smem_bytes, stream>>>(*a);
   return (int)cudaGetLastError();
+}
+
+// Launches on `stream` without synchronising; returns cudaGetLastError().
+// Instantiations: f32 throughout; bf16 storage; f32 x (an LSTM head's
+// state) over bf16 storage.
+extern "C" int fleet_score_launch(const FleetScoreArgs* a, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (!a->bf16) return launch<float, float>(a, s);
+  if (a->x_bf16) return launch<__nv_bfloat16, __nv_bfloat16>(a, s);
+  return launch<float, __nv_bfloat16>(a, s);
 }

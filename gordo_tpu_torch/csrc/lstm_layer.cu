@@ -45,11 +45,18 @@
 // (after their sigmoid / tanh) and c go to `gates` and `cell`, which is
 // all the backward (lstm_layer_bwd.cu) needs: it recomputes h = o *
 // tanh(c) bit for bit.  The weights are the slot's own (no idx).
+//
+// Reduced-precision serving (K10): the weights, the bias, the pipeline
+// stats and the first layer's rows may be stored in bf16 (T); they are
+// widened to f32 as they are loaded into shared memory, and the gates,
+// c, h and the output stay f32, as the JAX module computes its LSTM in
+// f32 from bf16-cast params.  Training mode is f32 only.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "activations.cuh"
+#include "storage.cuh"
 
 #define LL_THREADS 512
 #define LL_WPT 4
@@ -57,12 +64,12 @@
 // Mirrored field by field by `_Args` in gordo_tpu_torch/kernels/lstm_layer.py;
 // lstm_layer_args_size() lets the wrapper check the two agree.
 struct LstmLayerArgs {
-  const float* x;          // rows_input: (m, n, in) raw rows; else (m, nw, L, in)
-  const float* scale;      // (M, in) pipeline MinMax, or null (rows_input only)
-  const float* offset;     // (M, in)
-  const float* w_i;        // (M, in, 4H)
-  const float* w_h;        // (M, H, 4H)
-  const float* bias;       // (M, 4H)
+  const void* x;           // rows_input: (m, n, in) raw rows, T; else (m, nw, L, in) float
+  const void* scale;       // (M, in) pipeline MinMax, T, or null (rows_input only)
+  const void* offset;      // (M, in)
+  const void* w_i;         // (M, in, 4H), T
+  const void* w_h;         // (M, H, 4H), T
+  const void* bias;        // (M, 4H), T
   const int* idx;          // (m,) stacked machine of each slot, or null: slot
   const int* n_windows;    // (m,) valid windows of each slot, or null: nw
   float* out;              // last: (m, nw, H); else (m, nw, L, H)
@@ -85,11 +92,13 @@ struct LstmLayerArgs {
   int in_pad;
   int h_pad;
   int smem_bytes;
+  int bf16;                // T is __nv_bfloat16 (serving only)
 };
 
 // TRAIN: the training mode (minibatch windows by id, saves); a template
-// parameter, so the serving instantiation carries none of it.
-template <bool TRAIN>
+// parameter, so the serving instantiation carries none of it.  T: the
+// storage type of the weights, stats and first-layer rows.
+template <bool TRAIN, typename T>
 __global__ void __launch_bounds__(LL_THREADS)
 lstm_layer_kernel(const LstmLayerArgs a) {
   extern __shared__ float4 smem4[];
@@ -115,24 +124,25 @@ lstm_layer_kernel(const LstmLayerArgs a) {
   float* hbuf = xbuf + 2 * Tw * IP;    // 2 x Tw x HP
 
   // weights, transposed, zero in the padding
-  const float* Wi = a.w_i + (size_t)mach * IN * H4;
-  const float* Wh = a.w_h + (size_t)mach * H * H4;
+  const T* Wi = static_cast<const T*>(a.w_i) + (size_t)mach * IN * H4;
+  const T* Wh = static_cast<const T*>(a.w_h) + (size_t)mach * H * H4;
+  const T* Bs = static_cast<const T*>(a.bias) + (size_t)mach * H4;
   for (int e = threadIdx.x; e < H4 * IP; e += blockDim.x) {
     const int c = e / IP;
     const int k = e - c * IP;
-    wi_t[e] = k < IN ? __ldg(Wi + (size_t)k * H4 + c) : 0.f;
+    wi_t[e] = k < IN ? ld(Wi + (size_t)k * H4 + c) : 0.f;
   }
   for (int e = threadIdx.x; e < H4 * HP; e += blockDim.x) {
     const int c = e / HP;
     const int k = e - c * HP;
-    wh_t[e] = k < H ? __ldg(Wh + (size_t)k * H4 + c) : 0.f;
+    wh_t[e] = k < H ? ld(Wh + (size_t)k * H4 + c) : 0.f;
   }
-  for (int e = threadIdx.x; e < H4; e += blockDim.x) sb[e] = __ldg(a.bias + (size_t)mach * H4 + e);
+  for (int e = threadIdx.x; e < H4; e += blockDim.x) sb[e] = ld(Bs + e);
   for (int e = threadIdx.x; e < 2 * Tw * HP; e += blockDim.x) hbuf[e] = 0.f;
 
   const int xm = TRAIN ? a.x_mach[slot] : slot;
-  const float* sc = (a.rows_input && a.scale) ? a.scale + (size_t)mach * IN : nullptr;
-  const float* of = (a.rows_input && a.scale) ? a.offset + (size_t)mach * IN : nullptr;
+  const T* sc = (a.rows_input && a.scale) ? static_cast<const T*>(a.scale) + (size_t)mach * IN : nullptr;
+  const T* of = (a.rows_input && a.scale) ? static_cast<const T*>(a.offset) + (size_t)mach * IN : nullptr;
 
   const int j = threadIdx.x % H;
   const int g = threadIdx.x / H;
@@ -154,10 +164,10 @@ lstm_layer_kernel(const LstmLayerArgs a) {
           const size_t row =
               TRAIN ? (size_t)xm * a.n + a.rows[a.row_off[slot] + a.win[(size_t)slot * a.nw + w0 + wl] + t]
                     : (size_t)slot * a.n + w0 + wl + t;
-          v = __ldg(a.x + row * IN + k);
-          if (sc) v = __fadd_rn(__fmul_rn(v, __ldg(sc + k)), __ldg(of + k));
+          v = ld(static_cast<const T*>(a.x) + row * IN + k);
+          if (sc) v = __fadd_rn(__fmul_rn(v, ld(sc + k)), ld(of + k));
         } else {
-          v = __ldg(a.x + (((size_t)slot * a.nw + w0 + wl) * L + t) * IN + k);
+          v = __ldg(static_cast<const float*>(a.x) + (((size_t)slot * a.nw + w0 + wl) * L + t) * IN + k);
         }
       }
       xb[e] = v;
@@ -257,22 +267,25 @@ extern "C" const char* lstm_layer_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-template <bool TRAIN>
+template <bool TRAIN, typename T>
 static int launch(const LstmLayerArgs* a, cudaStream_t stream) {
   if (a->smem_bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        lstm_layer_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem_bytes);
+        lstm_layer_kernel<TRAIN, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem_bytes);
     if (err != cudaSuccess) return (int)err;
   }
   const int tw = a->groups * LL_WPT;
   dim3 grid((a->nw + tw - 1) / tw, a->m);
-  lstm_layer_kernel<TRAIN><<<grid, a->groups * a->hidden, a->smem_bytes, stream>>>(*a);
+  lstm_layer_kernel<TRAIN, T><<<grid, a->groups * a->hidden, a->smem_bytes, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 // Training mode when `win` is set (`win`, `rows`, `row_off`, `x_mach`,
-// `gates` and `cell` all set, `idx` null).
+// `gates` and `cell` all set, `idx` null; f32 only); serving at f32 or,
+// with `bf16`, over bf16 storage.
 extern "C" int lstm_layer_launch(const LstmLayerArgs* a, void* stream) {
-  return a->win ? launch<true>(a, (cudaStream_t)stream) : launch<false>(a, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a->win) return launch<true, float>(a, s);
+  return a->bf16 ? launch<false, __nv_bfloat16>(a, s) : launch<false, float>(a, s);
 }

@@ -50,12 +50,15 @@ def to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
 def resolve_compute_dtype(compute_dtype="auto") -> torch.dtype:
     """``"auto"`` → float32 (what the reference resolves to off a TPU).
 
-    Reduced-precision compute is ROADMAP queue 1 item 7 (serving
-    precision, K10) and raises until it lands.
+    This is the model factories' compute dtype, a matter of training;
+    serving precision is ``serve/precision.py``'s.  Reduced-precision
+    compute in training is ROADMAP queue 1 item 2 and raises until it
+    lands.
     """
     if compute_dtype in ("auto", "float32", torch.float32):
         return torch.float32
     raise NotImplementedError(
-        f"compute_dtype={compute_dtype!r}: only float32 is ported; reduced "
-        "precision waits for ROADMAP queue 1 item 7 (serving precision, K10)"
+        f"compute_dtype={compute_dtype!r}: only float32 is ported; reduced-"
+        "precision training waits for ROADMAP queue 1 item 2 (training "
+        "breadth); serving precision is GORDO_SERVE_DTYPE"
     )

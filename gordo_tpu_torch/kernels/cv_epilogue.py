@@ -68,6 +68,7 @@ class _Args(ctypes.Structure):
         ("nt", ctypes.c_int),
         ("fo", ctypes.c_int),
         ("window", ctypes.c_int),
+        ("masked", ctypes.c_int),
     ]
 
 
@@ -124,15 +125,19 @@ def cv_epilogue(
     y: torch.Tensor,
     n_rows=None,
     window: int = SMOOTHING_WINDOW,
+    masked: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Per slot: ``feature_max`` (S, fo) and ``total_max`` (S,), the
     smoothed maxima of ``tag`` (S, nt, fo) and ``total`` (S, nt), and the
     four metrics (S,) of ``pred`` against ``y`` (S, nt, fo), over the
     first ``n_rows[s]`` rows of each slot (host ints in [0, nt]; default
     nt), and ``has`` (S,), 1 where a slot has a row and 0 where it has
-    none (whose maxima are 0, explained variance and r2 1, mse and mae 0)."""
+    none (whose maxima are 0, explained variance and r2 1, mse and mae 0).
+    ``masked``: the pad-up build's epilogue (K8), which maps a maximum that
+    is not finite to 0, as ``_masked_smoothed_max`` does; the exact one
+    (K4) keeps NaN and inf."""
     if tag.device.type == "cpu":
-        return cv_epilogue_plain(tag, total, pred, y, n_rows, window)
+        return cv_epilogue_plain(tag, total, pred, y, n_rows, window, masked)
     if tag.device.type != "cuda":
         raise ValueError(f"cv_epilogue runs on cuda or cpu tensors, got {tag.device}")
     rows = _validate(tag, total, pred, y, n_rows)
@@ -153,6 +158,7 @@ def cv_epilogue(
     )
     args.has = has.data_ptr()
     args.s, args.nt, args.fo, args.window = S, nt, fo, int(window)
+    args.masked = int(masked)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -184,6 +190,7 @@ def cv_epilogue_plain(
     y: torch.Tensor,
     n_rows=None,
     window: int = SMOOTHING_WINDOW,
+    masked: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """:func:`cv_epilogue` in plain PyTorch (``gordo_tpu_torch.ops.metrics``
     for the metrics); slots of equal row counts go together."""
@@ -202,4 +209,8 @@ def cv_epilogue_plain(
         out["total_max"][sel] = smoothed_max(pick(total)[..., None], window)[:, 0]
         for name in METRIC_NAMES:
             out[name][sel] = getattr(tmetrics, name)(pick(y), pick(pred))
+    if masked:
+        for key in ("feature_max", "total_max"):
+            v = out[key]
+            out[key] = torch.where(torch.isfinite(v), v, torch.zeros_like(v))
     return out

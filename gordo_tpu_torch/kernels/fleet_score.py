@@ -14,7 +14,8 @@ plain PyTorch.
 
 :func:`fleet_score` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises, and adds one to
-:data:`launches` per launch.
+:data:`launches` per launch (and to :data:`bf16_launches` for one over
+bf16 storage).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from __future__ import annotations
 import ctypes
 import math
 import threading
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -51,11 +52,37 @@ RESIDENT_WEIGHT_BYTES = 32 * 1024
 #: grid rows are ``blockIdx.y``
 MAX_SLOTS = 65535
 
-#: kernel launches so far (the CPU path never counts)
+#: kernel launches so far (the CPU path never counts), and those of them
+#: over bf16 storage
 launches = 0
+bf16_launches = 0
 _launches_lock = threading.Lock()
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+
+
+class DenseChain(ctypes.Structure):
+    """Mirror of ``struct DenseChain`` in ``csrc/dense_rows.cuh``."""
+
+    _fields_ = [
+        ("w", ctypes.c_void_p * MAX_LAYERS),
+        ("b", ctypes.c_void_p * MAX_LAYERS),
+        ("n_layers", ctypes.c_int),
+        ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
+        ("act", ctypes.c_int * MAX_LAYERS),
+        ("weights_resident", ctypes.c_int),
+    ]
+
+    def fill(self, layers: "Layers", acts: Sequence[Optional[str]], dims: Sequence[int],
+             resident: bool) -> None:
+        for i, (W, b) in enumerate(layers):
+            self.w[i], self.b[i] = W.data_ptr(), b.data_ptr()
+        self.n_layers = len(layers)
+        for i, d in enumerate(dims):
+            self.dims[i] = d
+        for i, a in enumerate(acts):
+            self.act[i] = ACT_CODES[a]
+        self.weights_resident = int(resident)
 
 
 class _Args(ctypes.Structure):
@@ -68,8 +95,7 @@ class _Args(ctypes.Structure):
         ("n_rows", ctypes.c_void_p),
         ("scale", ctypes.c_void_p),
         ("offset", ctypes.c_void_p),
-        ("w", ctypes.c_void_p * MAX_LAYERS),
-        ("b", ctypes.c_void_p * MAX_LAYERS),
+        ("chain", DenseChain),
         ("det_scale", ctypes.c_void_p),
         ("det_offset", ctypes.c_void_p),
         ("agg_thr", ctypes.c_void_p),
@@ -82,14 +108,12 @@ class _Args(ctypes.Structure):
         ("f", ctypes.c_int),
         ("y_n", ctypes.c_int),
         ("y_row0", ctypes.c_int),
-        ("n_layers", ctypes.c_int),
-        ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
-        ("act", ctypes.c_int * MAX_LAYERS),
         ("rows_per_block", ctypes.c_int),
         ("max_dim", ctypes.c_int),
-        ("weights_resident", ctypes.c_int),
         ("wbuf_floats", ctypes.c_int),
         ("smem_bytes", ctypes.c_int),
+        ("x_bf16", ctypes.c_int),
+        ("bf16", ctypes.c_int),
     ]
 
 
@@ -125,6 +149,15 @@ class LaunchPlan(NamedTuple):
     wbuf_floats: int
 
 
+def weight_buffer(dims: Sequence[int]):
+    """``(resident, wbuf_floats, layer_sizes)`` of a dense chain of widths
+    ``dims`` in shared memory (``csrc/dense_rows.cuh``): all layers at once
+    when they take at most ``RESIDENT_WEIGHT_BYTES``, else one at a time."""
+    sizes = [dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(dims) - 1)]
+    resident = 4 * sum(sizes) <= RESIDENT_WEIGHT_BYTES
+    return resident, sum(sizes) if resident else max(sizes), sizes
+
+
 def launch_plan(
     dims: Sequence[int], m: int, n: int, sm_count: int, with_detector: bool = True
 ) -> LaunchPlan:
@@ -135,9 +168,7 @@ def launch_plan(
     shared memory fits, halved (down to 16 rows) while the grid has fewer
     blocks than SMs.  Raises ``ValueError`` for widths whose largest layer
     does not fit."""
-    sizes = [dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(dims) - 1)]
-    resident = 4 * sum(sizes) <= RESIDENT_WEIGHT_BYTES
-    wbuf = sum(sizes) if resident else max(sizes)
+    resident, wbuf, sizes = weight_buffer(dims)
     fixed = wbuf + 2 * dims[-1]
     per_row = 2 * max(dims) + (dims[-1] if with_detector else 0)
     for rows in _ROW_TILES:
@@ -177,11 +208,28 @@ def slot_ints(values, name: str, lo: int, hi: int, device) -> torch.Tensor:
     return to_device(_host_ints(values, name, lo, hi), device)
 
 
-def _check(t: Optional[torch.Tensor], name: str, shape: Tuple[int, ...], device) -> None:
+#: the storage types the serving kernels take (float32, and bfloat16 for
+#: reduced-precision serving)
+STORAGE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def storage_of(t: torch.Tensor) -> torch.dtype:
+    """The storage type of a chain's stacked leaf ``t``; raises for others."""
+    if t.dtype not in STORAGE_DTYPES:
+        raise TypeError(f"serving tensors are float32 or bfloat16, got {t.dtype}")
+    return t.dtype
+
+
+def _check(
+    t: Optional[torch.Tensor], name: str, shape: Tuple[int, ...], device,
+    dtype: Union[torch.dtype, Tuple[torch.dtype, ...]] = torch.float32,
+) -> None:
     if t is None:
         return
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    allowed = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in allowed:
+        names = " or ".join(str(d).replace("torch.", "") for d in allowed)
+        raise TypeError(f"{name} must be {names}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
     if tuple(t.shape) != shape:
@@ -224,6 +272,11 @@ def fleet_score(
     ``y`` row ``y_offset + r`` (default ``x``, which then needs f_out ==
     f).  The LSTM detectors pass their last layer's final states as ``x``
     and the raw request rows as ``y``, from the model's offset on.
+
+    Storage: the layers, the stats and ``y`` are all float32, or all
+    bfloat16 (reduced-precision serving; ``x`` is then bfloat16 rows, or
+    an LSTM head's float32 states); ``agg_thr`` is float32.  Outputs are
+    float32 either way.
     """
     if x.device.type == "cpu":
         return fleet_score_plain(
@@ -248,21 +301,22 @@ def fleet_score(
         if a not in ACT_CODES:
             raise ValueError(f"activation {a!r} has no kernel code")
     M = int(layers[0][0].shape[0])
+    store = storage_of(layers[0][0])
     dims = [f]
     for i, (W, b) in enumerate(layers):
         if W.dim() != 3:
             raise ValueError(f"layer {i} weight must be (M, in, out), got {tuple(W.shape)}")
-        _check(W, f"layer {i} weight", (M, dims[-1], int(W.shape[2])), device)
-        _check(b, f"layer {i} bias", (M, int(W.shape[2])), device)
+        _check(W, f"layer {i} weight", (M, dims[-1], int(W.shape[2])), device, store)
+        _check(b, f"layer {i} bias", (M, int(W.shape[2])), device, store)
         dims.append(int(W.shape[2]))
     if min(dims) < 1:
         raise ValueError(f"every layer needs a width >= 1, got {dims}")
     fo = dims[-1]
-    _check(x, "x", (m, n, f), device)
+    _check(x, "x", (m, n, f), device, (torch.float32, store))
     if (scale is None) != (offset is None):
         raise ValueError("scale and offset come together")
-    _check(scale, "scale", (M, f), device)
-    _check(offset, "offset", (M, f), device)
+    _check(scale, "scale", (M, f), device, store)
+    _check(offset, "offset", (M, f), device, store)
     if (det_scale is None) != (det_offset is None):
         raise ValueError("det_scale and det_offset come together")
     if det_scale is None and (agg_thr is not None or y is not None):
@@ -271,8 +325,8 @@ def fleet_score(
         raise ValueError(
             f"anomaly scoring against x needs as many outputs as inputs ({fo} != {f})"
         )
-    _check(det_scale, "det_scale", (M, fo), device)
-    _check(det_offset, "det_offset", (M, fo), device)
+    _check(det_scale, "det_scale", (M, fo), device, store)
+    _check(det_offset, "det_offset", (M, fo), device, store)
     _check(agg_thr, "agg_thr", (M,), device)
     y_n = n
     if y is not None:
@@ -282,7 +336,7 @@ def fleet_score(
                 f"y needs rows {y_offset}..{y_offset + n - 1} of each slot, got "
                 f"shape {tuple(y.shape)}"
             )
-        _check(y, "y", (m, y_n, fo), device)
+        _check(y, "y", (m, y_n, fo), device, store)
     if idx is None:
         if m != M:
             raise ValueError(f"without idx, x needs one slot per machine ({m} != {M})")
@@ -313,24 +367,20 @@ def fleet_score(
     args.x, args.y = _ptr(x), _ptr(y)
     args.idx, args.n_rows = _ptr(idx_dev), _ptr(rows_dev)
     args.scale, args.offset = _ptr(scale), _ptr(offset)
-    for i, (W, b) in enumerate(layers):
-        args.w[i], args.b[i] = W.data_ptr(), b.data_ptr()
+    args.chain.fill(layers, acts, dims, plan.weights_resident)
     args.det_scale, args.det_offset = _ptr(det_scale), _ptr(det_offset)
     args.agg_thr = _ptr(agg_thr)
     args.pred, args.tag, args.total, args.conf = (
         _ptr(pred), _ptr(tag), _ptr(total), _ptr(conf)
     )
-    args.m, args.n, args.f, args.n_layers = m, n, f, len(layers)
+    args.m, args.n, args.f = m, n, f
     args.y_n, args.y_row0 = y_n, y_offset
-    for i, d in enumerate(dims):
-        args.dims[i] = d
-    for i, a in enumerate(acts):
-        args.act[i] = ACT_CODES[a]
     args.rows_per_block = plan.rows_per_block
     args.max_dim = max(dims)
-    args.weights_resident = int(plan.weights_resident)
     args.wbuf_floats = plan.wbuf_floats
     args.smem_bytes = plan.smem_bytes
+    args.x_bf16 = int(x.dtype == torch.bfloat16)
+    args.bf16 = int(store == torch.bfloat16)
 
     lib = _library()
     with torch.cuda.device(device):
@@ -340,9 +390,10 @@ def fleet_score(
         raise RuntimeError(
             f"fleet_score launch failed: {lib.fleet_score_error_string(rc).decode()}"
         )
-    global launches
+    global launches, bf16_launches
     with _launches_lock:
         launches += 1
+        bf16_launches += args.bf16
     return out
 
 
@@ -364,7 +415,11 @@ def fleet_score_plain(
     """:func:`fleet_score` in plain PyTorch, in the JAX program's op order.
 
     ``n_rows`` only marks which output rows are meaningful; every row is
-    computed."""
+    computed.  bfloat16 inputs are widened to float32 first, as the kernel
+    widens them as it loads."""
+    wide = lambda t: None if t is None else t.float()  # noqa: E731
+    x, y, scale, offset, det_scale, det_offset = map(wide, (x, y, scale, offset, det_scale, det_offset))
+    layers = [(W.float(), b.float()) for W, b in layers]
     if idx is not None:
         take = torch.as_tensor(np.asarray(idx, np.int64), device=x.device)
 

@@ -38,6 +38,7 @@ from gordo_tpu_torch.kernels.fleet_score import (
     _check,
     _ptr,
     slot_ints,
+    storage_of,
 )
 from gordo_tpu_torch.models.factories.feedforward import ACTIVATIONS
 from gordo_tpu_torch.ops.windows import make_windows
@@ -54,6 +55,8 @@ WINDOWS_PER_THREAD = 4
 #: (:func:`lstm_layer`) and training mode (:func:`lstm_layer_train`)
 launches = 0
 train_launches = 0
+#: serving launches over bf16 storage (also in :data:`launches`)
+bf16_launches = 0
 _launches_lock = threading.Lock()
 
 
@@ -89,6 +92,7 @@ class _Args(ctypes.Structure):
         ("in_pad", ctypes.c_int),
         ("h_pad", ctypes.c_int),
         ("smem_bytes", ctypes.c_int),
+        ("bf16", ctypes.c_int),
     ]
 
 
@@ -203,6 +207,11 @@ def lstm_layer(
     slot (default all); outputs past them are unspecified.  Returns
     ``act(h)`` for every step (m, nw, lookback, H), or for the last step
     only (m, nw, H) when ``last``.
+
+    Storage: the weights, bias, ``scale``/``offset`` and the first layer's
+    rows are all float32 or all bfloat16 (reduced-precision serving; a
+    later layer's input is the float32 output of the one before); the
+    output is float32 either way.
     """
     if x.device.type == "cpu":
         return lstm_layer_plain(
@@ -224,16 +233,17 @@ def lstm_layer(
     if kernel_i.dim() != 3 or kernel_h.dim() != 3:
         raise ValueError("kernel_i and kernel_h must be (M, in, 4H) and (M, H, 4H)")
     M, H = int(kernel_h.shape[0]), int(kernel_h.shape[1])
-    _check(x, "x", tuple(x.shape), device)
-    _check(kernel_i, "kernel_i", (M, n_in, 4 * H), device)
-    _check(kernel_h, "kernel_h", (M, H, 4 * H), device)
-    _check(bias, "bias", (M, 4 * H), device)
+    store = storage_of(kernel_i)
+    _check(x, "x", tuple(x.shape), device, store if rows_input else torch.float32)
+    _check(kernel_i, "kernel_i", (M, n_in, 4 * H), device, store)
+    _check(kernel_h, "kernel_h", (M, H, 4 * H), device, store)
+    _check(bias, "bias", (M, 4 * H), device, store)
     if (scale is None) != (offset is None):
         raise ValueError("scale and offset come together")
     if scale is not None and not rows_input:
         raise ValueError("the pipeline scaler applies to the first layer's rows only")
-    _check(scale, "scale", (M, n_in), device)
-    _check(offset, "offset", (M, n_in), device)
+    _check(scale, "scale", (M, n_in), device, store)
+    _check(offset, "offset", (M, n_in), device, store)
     if idx is None:
         if m != M:
             raise ValueError(f"without idx, x needs one slot per machine ({m} != {M})")
@@ -261,6 +271,7 @@ def lstm_layer(
     args.rows_input, args.last, args.act = int(rows_input), int(last), ACT_CODES[act]
     args.groups, args.in_pad, args.h_pad = plan.groups, plan.in_pad, plan.h_pad
     args.smem_bytes = plan.smem_bytes
+    args.bf16 = int(store == torch.bfloat16)
 
     _launch(args, device)
     return out
@@ -273,12 +284,13 @@ def _launch(args: _Args, device) -> None:
         rc = lib.lstm_layer_launch(ctypes.byref(args), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"lstm_layer launch failed: {lib.lstm_layer_error_string(rc).decode()}")
-    global launches, train_launches
+    global launches, train_launches, bf16_launches
     with _launches_lock:
         if args.win:
             train_launches += 1
         else:
             launches += 1
+            bf16_launches += args.bf16
 
 
 def lstm_layer_plain(
@@ -297,7 +309,12 @@ def lstm_layer_plain(
 ) -> torch.Tensor:
     """:func:`lstm_layer` in plain PyTorch, in ``_fused_lstm_layer``'s op
     order: the input product of every step first, then per step
-    ``(h @ kernel_h + bias) + xp_t``.  Every window is computed."""
+    ``(h @ kernel_h + bias) + xp_t``.  Every window is computed.
+    bfloat16 inputs are widened to float32 first, as the kernel widens
+    them as it loads."""
+    x, kernel_i, kernel_h, bias = (t.float() for t in (x, kernel_i, kernel_h, bias))
+    if scale is not None:
+        scale, offset = scale.float(), offset.float()
     if idx is not None:
         take = torch.as_tensor(np.asarray(idx, np.int64), device=x.device)
         kernel_i, kernel_h, bias = (t.index_select(0, take) for t in (kernel_i, kernel_h, bias))

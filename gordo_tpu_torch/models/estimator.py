@@ -113,7 +113,7 @@ class _Estimator(ParamsMixin):
         fewer rows than ``X``)."""
         from gordo_tpu_torch.serve.scorer import CompiledScorer
 
-        return CompiledScorer(self, device=device).predict(X)
+        return CompiledScorer(self, device=device, dtype="float32").predict(X)
 
 
 class AutoEncoder(_Estimator):

@@ -351,8 +351,10 @@ def _fleet_program(spec, X, y, folds, final, draws, route, params0, lens) -> Dic
         )
         y_true = y_oof
     pred = scored["model-output"]
+    # pad-up groups take the masked epilogue (K8), exact groups K4
     epi = cv_epilogue(
-        scored["tag-anomaly-scores"], scored["total-anomaly-score"], pred, y_true, n_out
+        scored["tag-anomaly-scores"], scored["total-anomaly-score"], pred, y_true, n_out,
+        masked=lens is not None,
     )
     has = epi["has"].reshape(M, K)
     out.update(

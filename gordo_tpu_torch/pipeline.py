@@ -57,7 +57,7 @@ class Pipeline(ParamsMixin):
         """Model output for ``X`` through the fused serving kernel."""
         from gordo_tpu_torch.serve.scorer import CompiledScorer
 
-        return CompiledScorer(self, device=device).predict(X)
+        return CompiledScorer(self, device=device, dtype="float32").predict(X)
 
     def state_arrays(self) -> Dict[str, np.ndarray]:
         out: Dict[str, np.ndarray] = {}

@@ -13,6 +13,12 @@ positions to every kernel (``idx``) instead of gathering their
 parameters; ragged row counts pass as per-slot row counts (``n_rows``,
 windows per slot ``n_rows - offset``) instead of repeat-last padding.
 Used by ``POST .../_bulk/anomaly/prediction``.
+
+At reduced precision a bucket stores its stacked leaves in bf16 and, at
+int8, quantises each stacked leaf with one scale across its machines, as
+the reference's full-bucket program does.  The reference's subset program
+quantises the gathered subset's leaves instead (a scale over the machines
+requested); the port keeps the bucket's, quantised once at load.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from gordo_tpu_torch.device import resolve_device
+from gordo_tpu_torch.serve import precision
 from gordo_tpu_torch.serve.scorer import (
     CompiledScorer,
     _Stack,
@@ -46,17 +53,20 @@ def _signature(chain: Dict[str, Any]) -> Optional[Tuple]:
         chain["cell_acts"],
         tuple(W.shape for W, _ in chain["layers"]),
         chain["acts"],
-        chain["scale"] is not None,
+        len(chain["scalers"]),
         det["window"],
         det["feature_thresholds"] is not None,
     )
 
 
 class _Bucket(_Stack):
-    """One structurally identical group of machines, stacked on the device."""
+    """One structurally identical group of machines, stacked on the device
+    at the storage dtype of the serving precision ``dtype`` (bf16 halves
+    its residency)."""
 
-    def __init__(self, names: List[str], chains: List[Dict[str, Any]], device):
-        super().__init__(chains, device)
+    def __init__(self, names: List[str], chains: List[Dict[str, Any]], device,
+                 dtype: str = "float32"):
+        super().__init__(chains, device, dtype, stacked=True)
         self.names = names
         self.position = {n: i for i, n in enumerate(names)}
 
@@ -91,26 +101,33 @@ class FleetScorer:
     reports the same per-machine error the single-machine route does.
     """
 
-    def __init__(self, device):
+    def __init__(self, device, dtype: str = "float32"):
         self.device = device
+        self.dtype = dtype
         self.buckets: List[_Bucket] = []
         self.fallbacks: Dict[str, CompiledScorer] = {}
 
     @classmethod
-    def from_models(cls, models: Dict[str, Any], device=None) -> "FleetScorer":
-        self = cls(resolve_device(device))
+    def from_models(cls, models: Dict[str, Any], device=None,
+                    dtype: Optional[str] = None) -> "FleetScorer":
+        """``dtype``: the serving precision of every bucket and fallback
+        scorer (``None`` resolves ``GORDO_SERVE_DTYPE``): one fleet, one
+        precision."""
+        self = cls(resolve_device(device), precision.resolve(dtype))
         groups: Dict[Tuple, Tuple[List[str], List[Dict]]] = {}
         for name, model in sorted(models.items()):
             chain = _extract_chain(model)
             sig = _signature(chain)
             if sig is None:
-                self.fallbacks[name] = CompiledScorer(model, device=self.device, machine=name)
+                self.fallbacks[name] = CompiledScorer(
+                    model, device=self.device, machine=name, dtype=self.dtype
+                )
                 continue
             names, chains = groups.setdefault(sig, ([], []))
             names.append(name)
             chains.append(chain)
         for names, chains in groups.values():
-            self.buckets.append(_Bucket(names, chains, self.device))
+            self.buckets.append(_Bucket(names, chains, self.device, self.dtype))
         return self
 
     def score_all(self, X_by_name: Dict[str, Any]) -> Dict[str, Dict[str, Any]]:

@@ -15,6 +15,12 @@ the fleet scorer's buckets extend), and a request runs:
   smooths the tag and total scores and computes the confidence from the
   smoothed total.
 
+The serving precision (``dtype``, :mod:`gordo_tpu_torch.serve.precision`)
+is resolved when a scorer is made: at ``bfloat16`` and ``int8`` the stack
+is stored in bf16 (int8: fake-quantised by ``fake_quant`` as it loads),
+request rows are cast to bf16 on the host before the copy, and the
+kernels' bf16 instantiations run; outputs are float32 at every dtype.
+
 The JAX scorer pads request rows to power-of-two buckets to keep its jit
 cache small; the windows and the trailing median only look back, and
 nothing here compiles per shape, so the port scores exactly the rows it
@@ -40,6 +46,7 @@ from gordo_tpu_torch.kernels.rolling_median import MAX_WINDOW, rolling_median
 from gordo_tpu_torch.models.estimator import AutoEncoder, LSTMAutoEncoder, LSTMForecast
 from gordo_tpu_torch.ops.scalers import MinMaxScaler
 from gordo_tpu_torch.pipeline import Pipeline
+from gordo_tpu_torch.serve import precision
 
 _REQUIRE_THRESHOLDS_MESSAGE = (
     "DiffBasedAnomalyDetector.anomaly called with require_thresholds=True "
@@ -91,12 +98,9 @@ def _extract_chain(model) -> Dict[str, Any]:
         detector = model
         base = model.base_estimator
 
-    scale = offset = None
+    scalers = []
     if isinstance(base, Pipeline):
-        for _, step in base.steps[:-1]:
-            s, o = _minmax_stats(step, "pipeline step")
-            # consecutive affine maps fold into one
-            scale, offset = (s, o) if scale is None else (scale * s, offset * s + o)
+        scalers = [_minmax_stats(step, "pipeline step") for _, step in base.steps[:-1]]
         est = base._final
     else:
         est = base
@@ -135,8 +139,8 @@ def _extract_chain(model) -> Dict[str, Any]:
         # the dense stack; an LSTM's head alone
         "layers": [(host(lin.weight).T.copy(), host(lin.bias)) for lin, _ in dense],
         "acts": tuple(act for _, act in dense),
-        "scale": scale,
-        "offset": offset,
+        # each scaler's (scale, offset); _Stack folds them into one map
+        "scalers": scalers,
         "detector": None,
     }
     if detector is not None:
@@ -155,10 +159,27 @@ def _extract_chain(model) -> Dict[str, Any]:
 
 class _Stack:
     """The chains of M structurally identical machines, stacked along a
-    leading machine axis and resident on ``device``."""
+    leading machine axis and resident on ``device`` at the storage dtype
+    of serving precision ``dtype``.
 
-    def __init__(self, chains: List[Dict[str, Any]], device: torch.device):
+    ``stacked``: a bucket of the fleet scorer.  The reference's bucket path
+    stores its stacked leaves in bf16 and quantises each (int8) with one
+    scale across its machines; the per-machine path quantises the float32
+    leaf.  Consecutive pipeline scalers fold into one affine map, each
+    scaler's stats cast (quantised) first, as the reference casts each
+    leaf; the fold is taken in f32 and its result stored at the storage
+    dtype (at reduced precision with two or more scalers, one more bf16
+    rounding than the reference's)."""
+
+    def __init__(
+        self,
+        chains: List[Dict[str, Any]],
+        device: torch.device,
+        dtype: str = "float32",
+        stacked: bool = False,
+    ):
         self.device = device
+        self.dtype = precision.canonical(dtype)
         c0 = chains[0]
         self.n_features = c0["n_features"]
         self.mode = c0["mode"]
@@ -168,11 +189,15 @@ class _Stack:
         self.cell_acts = c0["cell_acts"]
         self.window = c0["detector"]["window"] if c0["detector"] else 0
 
-        def put(arrays):
-            return torch.from_numpy(np.ascontiguousarray(np.stack(arrays), np.float32)).to(device)
+        def put(arrays, groups=1):
+            t = torch.from_numpy(np.ascontiguousarray(np.stack(arrays), np.float32)).to(device)
+            if stacked:
+                t = precision.cast_storage(t, self.dtype)
+            return precision.cast_params(t, self.dtype, groups)
 
+        # an LSTM cell's four gate blocks are separate leaves of the reference
         self.cells = [
-            tuple(put([c["cells"][i][k] for c in chains]) for k in range(3))
+            tuple(put([c["cells"][i][k] for c in chains], groups=4) for k in range(3))
             for i in range(len(c0["cells"]))
         ]
         self.layers = [
@@ -180,9 +205,17 @@ class _Stack:
             for i in range(len(c0["layers"]))
         ]
         self.scale = self.offset = None
-        if c0["scale"] is not None:
-            self.scale = put([c["scale"] for c in chains])
-            self.offset = put([c["offset"] for c in chains])
+        for i in range(len(c0["scalers"])):
+            s = put([c["scalers"][i][0] for c in chains])
+            o = put([c["scalers"][i][1] for c in chains])
+            if self.scale is None:
+                self.scale, self.offset = s, o
+            else:  # x * s1 * s2 + (o1 * s2 + o2), in f32
+                s = s.float()
+                self.scale, self.offset = self.scale.float() * s, self.offset.float() * s + o.float()
+        if self.scale is not None:
+            self.scale = precision.cast_storage(self.scale, self.dtype)
+            self.offset = precision.cast_storage(self.offset, self.dtype)
         self.det_scale = self.det_offset = self.agg_thr = None
         self.thresholds_np = self.agg_thresholds_np = None
         self.with_thresholds = False
@@ -200,6 +233,18 @@ class _Stack:
                 )
                 self.agg_thr = torch.from_numpy(self.agg_thresholds_np).to(device)
 
+    def resident_bytes(self) -> int:
+        """Device bytes of the stacked parameters, stats and thresholds."""
+        tensors = [t for cell in self.cells for t in cell]
+        tensors += [t for layer in self.layers for t in layer]
+        tensors += [self.scale, self.offset, self.det_scale, self.det_offset, self.agg_thr]
+        return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+    def put_rows(self, X: np.ndarray) -> torch.Tensor:
+        """Host rows (float32) on the device at the storage dtype, cast on
+        the host before the copy."""
+        return precision.cast_input(torch.from_numpy(X), self.dtype).to(self.device)
+
     def score(
         self,
         X: np.ndarray,
@@ -211,8 +256,8 @@ class _Stack:
         """Score ``X`` (m, n, f) float32, each slot's first ``n_rows``
         rows (default all; each more than the offset); host outputs of
         ``n - offset`` rows per slot, valid up to ``n_rows - offset``."""
-        targets = None if y is None else torch.from_numpy(y).to(self.device)
-        out = self.run(torch.from_numpy(X).to(self.device), with_anomaly, idx, n_rows, targets)
+        targets = None if y is None else self.put_rows(y)
+        out = self.run(self.put_rows(X), with_anomaly, idx, n_rows, targets)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
     def run(
@@ -276,17 +321,21 @@ class CompiledScorer:
     ``device``: where the chain lives and the kernel runs; ``None`` is the
     current CUDA device and raises without CUDA (``"cpu"`` runs the
     kernel's plain twin).  ``machine``: the machine name it serves, when
-    known.
+    known.  ``dtype``: the serving precision (``None`` resolves
+    ``GORDO_SERVE_DTYPE`` now; collections pass theirs, so that a fleet
+    serves at one precision).
     """
 
-    def __init__(self, model, device=None, machine: Optional[str] = None):
+    def __init__(self, model, device=None, machine: Optional[str] = None,
+                 dtype: Optional[str] = None):
         self.model = model
         self.device = resolve_device(device)
+        self.dtype = precision.resolve(dtype)
         self.chain = _extract_chain(model)
         self.is_anomaly = isinstance(model, AnomalyDetectorBase)
         self.offset = getattr(model, "offset", 0)
         self.machine = machine
-        self._stack = _Stack([self.chain], self.device)
+        self._stack = _Stack([self.chain], self.device, self.dtype)
 
     def _rows(self, X, name: str = "X") -> np.ndarray:
         X = np.ascontiguousarray(X, dtype=np.float32)

@@ -9,13 +9,17 @@ Counterpart of ``gordo_tpu/serve/server.py`` on the standard library's
 - ``POST {p}/{machine}/prediction``
 - ``POST {p}/{machine}/anomaly/prediction``
 - ``POST {p}/_bulk/anomaly/prediction``
+- ``POST {p}/stream/ingest`` and ``GET {p}/stream`` (SSE, or ``?mode=poll``)
 
 with ``{p} = /gordo/v0/<project>``.  Every scoring route goes through the
 hand-written kernels (``serve/scorer.py``): per request on the per-machine
 routes and per bucket on the bulk route, one ``fleet_score`` launch,
 after one ``lstm_layer`` launch per layer for an LSTM model, and before
-one ``rolling_median`` launch for a detector with a window.  Time-index columns, msgpack,
-coalescing, streaming and ``/metrics`` are ROADMAP queue 1 item 9.
+one ``rolling_median`` launch for a detector with a window.  The streaming
+routes feed ``serve/stream.py``'s hub (one ``stream_step`` launch per row
+of a feedforward chain).  Every scorer and stream of a collection serves
+at its ``serve_dtype``.  Time-index columns, msgpack, coalescing and
+``/metrics`` are ROADMAP queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -27,26 +31,31 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, Tuple
+from urllib.parse import parse_qs
 
 import numpy as np
 
 import gordo_tpu_torch
 from gordo_tpu_torch import serializer
 from gordo_tpu_torch.device import resolve_device
+from gordo_tpu_torch.serve import precision
 from gordo_tpu_torch.serve.fleet_scorer import FleetScorer
 from gordo_tpu_torch.serve.scorer import CompiledScorer
+from gordo_tpu_torch.serve import stream as stream_mod
+from gordo_tpu_torch.serve.stream import StreamHub
 
 logger = logging.getLogger(__name__)
 
 class ModelEntry:
-    """One served machine: its model, metadata and scorer."""
+    """One served machine: its model, metadata and scorer (at the
+    collection's serving precision ``dtype``)."""
 
-    def __init__(self, name: str, directory: str, device):
+    def __init__(self, name: str, directory: str, device, dtype: Optional[str] = None):
         self.name = name
         self.directory = directory
         self.model = serializer.load(directory)
         self.metadata = serializer.load_metadata(directory)
-        self.scorer = CompiledScorer(self.model, device=device, machine=name)
+        self.scorer = CompiledScorer(self.model, device=device, machine=name, dtype=dtype)
 
     @property
     def tags(self) -> List[str]:
@@ -55,22 +64,29 @@ class ModelEntry:
 
 
 class ModelCollection:
-    """All machines this server hosts: ``{name: ModelEntry}``."""
+    """All machines this server hosts: ``{name: ModelEntry}``, every scorer
+    at one serving precision, :attr:`serve_dtype`."""
 
-    def __init__(self, entries: Dict[str, ModelEntry], project: str, device):
+    def __init__(self, entries: Dict[str, ModelEntry], project: str, device,
+                 serve_dtype: Optional[str] = None):
         self.entries = entries
         self.project = project
         self.device = device
+        self.serve_dtype = precision.resolve(serve_dtype)
         self._fleet: Optional[FleetScorer] = None
         self._fleet_lock = threading.Lock()
+        self.stream_hub = StreamHub(self)
 
     @classmethod
     def from_directory(
-        cls, model_dir: str, project: str = "project", device=None
+        cls, model_dir: str, project: str = "project", device=None,
+        serve_dtype: Optional[str] = None,
     ) -> "ModelCollection":
         """One machine's artifact dir, or a project dir holding one artifact
-        dir per machine."""
+        dir per machine.  ``serve_dtype``: the serving precision (``None``
+        resolves ``GORDO_SERVE_DTYPE``)."""
         device = resolve_device(device)
+        serve_dtype = precision.resolve(serve_dtype)
         model_dir = os.path.abspath(model_dir)
         if serializer.is_artifact_dir(model_dir):
             dirs = {os.path.basename(model_dir): model_dir}
@@ -80,8 +96,8 @@ class ModelCollection:
                 for name in sorted(os.listdir(model_dir))
                 if serializer.is_artifact_dir(os.path.join(model_dir, name))
             }
-        entries = {name: ModelEntry(name, d, device) for name, d in dirs.items()}
-        return cls(entries, project, device)
+        entries = {name: ModelEntry(name, d, device, serve_dtype) for name, d in dirs.items()}
+        return cls(entries, project, device, serve_dtype)
 
     def get(self, name: str) -> Optional[ModelEntry]:
         return self.entries.get(name)
@@ -91,7 +107,8 @@ class ModelCollection:
         with self._fleet_lock:
             if self._fleet is None:
                 self._fleet = FleetScorer.from_models(
-                    {n: e.model for n, e in self.entries.items()}, device=self.device
+                    {n: e.model for n, e in self.entries.items()}, device=self.device,
+                    dtype=self.serve_dtype,
                 )
             return self._fleet
 
@@ -143,6 +160,14 @@ def _jsonable(obj: Any) -> Any:
 
 
 Response = Tuple[int, Any]
+
+
+class _HTTPError(Exception):
+    """An error answer of a handler: ``status`` and its body."""
+
+    def __init__(self, status: int, body: Any):
+        super().__init__(status, body)
+        self.status, self.body = status, body
 
 
 class _Routes:
@@ -237,6 +262,80 @@ class _Routes:
         return 200, {"data": data, "time-seconds": round(time.perf_counter() - t0, 6)}
 
 
+    # -- streaming plane (serve/stream.py) ------------------------------------
+
+    def _entry_or_404(self, name: str) -> ModelEntry:
+        entry = self.collection.get(name)
+        if entry is None:
+            raise _HTTPError(404, f"Machine {name!r} not found")
+        return entry
+
+    def stream_after(self, headers, query: Dict[str, str]) -> int:
+        """The resume cursor: ``Last-Event-ID``, then ``?after=``, else the
+        ring head (a fresh subscriber tails live events only)."""
+        hub = self.collection.stream_hub
+        raw = headers.get("Last-Event-ID") or query.get("after")
+        if raw is None:
+            return hub.ring.last_id
+        try:
+            return int(raw)
+        except ValueError:
+            raise _HTTPError(400, {"error": f"bad event id {raw!r}"})
+
+    def stream_ingest(self, body: bytes) -> Response:
+        """``{"machine": m, "x": row-or-rows}`` or ``{"X": {machine: rows}}``
+        → ``{"accepted", "events", "last-event-id"}``."""
+        collection = self.collection
+        hub = collection.stream_hub
+        try:
+            payload = json.loads(body)
+        except ValueError:
+            return 400, {"error": "body must be a JSON object"}
+        if not isinstance(payload, dict):
+            return 400, {"error": "body must be a JSON object"}
+        try:
+            if isinstance(payload.get("X"), dict):
+                batches = list(payload["X"].items())
+            elif payload.get("machine"):
+                batches = [(payload["machine"], payload.get("x"))]
+            else:
+                raise ValueError('need {"machine": ..., "x": ...} or {"X": {machine: rows}}')
+            parsed = []
+            for name, rows in batches:
+                entry = self._entry_or_404(name)
+                X = parse_X({"X": rows}, entry.tags)
+                _validate_width(X, entry)
+                parsed.append((name, entry, X))
+        except ValueError as exc:
+            return 400, {"error": str(exc)}
+        accepted = published = 0
+        for name, entry, X in parsed:
+            try:
+                events = hub.ingest_rows(name, entry.scorer, X, dtype=collection.serve_dtype)
+            except stream_mod.StreamUnsupported as exc:
+                return 422, {"error": str(exc)}
+            accepted += int(X.shape[0])
+            published += len(events)
+        return 200, {"accepted": accepted, "events": published, "last-event-id": hub.ring.last_id}
+
+    def stream_query(self, headers, query: Dict[str, str]):
+        """``(machines, after)`` of ``GET {p}/stream``; unknown machines 404."""
+        machines = None
+        if query.get("machines"):
+            machines = [m for m in query["machines"].split(",") if m]
+            for name in machines:
+                self._entry_or_404(name)
+        return machines, self.stream_after(headers, query)
+
+    def stream_poll(self, machines, after: int, query: Dict[str, str]) -> Response:
+        try:
+            timeout = min(float(query.get("timeout", "1e9")), stream_mod.poll_timeout_seconds())
+        except ValueError:
+            timeout = stream_mod.poll_timeout_seconds()
+        hub = self.collection.stream_hub
+        return 200, stream_mod.poll_events(hub, set(machines) if machines else None, after, timeout)
+
+
 class _Handler(BaseHTTPRequestHandler):
     server: "GordoHTTPServer"
     protocol_version = "HTTP/1.1"
@@ -255,16 +354,58 @@ class _Handler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(body)
 
+    def _stream(self, query: Dict[str, str]) -> None:
+        """``GET {p}/stream``: the long poll (``?mode=poll``) or SSE frames
+        until the subscriber dies or the peer goes away."""
+        routes = self.server.routes
+        machines, after = routes.stream_query(self.headers, query)
+        if query.get("mode") == "poll":
+            self._send(*routes.stream_poll(machines, after, query))
+            return
+        hub = routes.collection.stream_hub
+        sub = hub.subscribe(machines)
+        self.close_connection = True  # the body ends when the connection does
+        self.send_response(200)
+        self.send_header("Content-Type", "text/event-stream")
+        self.send_header("Cache-Control", "no-cache")
+        self.send_header("X-Accel-Buffering", "no")
+        self.send_header("Connection", "close")
+        self.end_headers()
+
+        def write(frame: bytes) -> None:
+            self.wfile.write(frame)
+            self.wfile.flush()
+
+        try:
+            stream_mod.run_sse(write, hub, sub, after)
+        except (BrokenPipeError, ConnectionError):
+            pass  # the peer went away; run_sse unsubscribed
+
     def _dispatch(self, method: str) -> None:
         length = int(self.headers.get("Content-Length") or 0)
         body = self.rfile.read(length) if length else b""
-        parts = self.path.split("?", 1)[0].strip("/").split("/")
+        path, _, qs = self.path.partition("?")
+        query = {k: v[-1] for k, v in parse_qs(qs).items()}
+        parts = path.strip("/").split("/")
         # gordo / v0 / <project> / <route...>
-        if len(parts) < 5 or parts[0] != "gordo" or parts[1] != "v0":
+        if len(parts) < 4 or parts[0] != "gordo" or parts[1] != "v0":
             self._send(404, "404: Not Found")
             return
         route = parts[3:]
         routes = self.server.routes
+        try:
+            if method == "POST" and route == ["stream", "ingest"]:
+                self._send(*routes.stream_ingest(body))
+                return
+            if method == "GET" and route == ["stream"]:
+                self._stream(query)
+                return
+        except _HTTPError as exc:
+            self._send(exc.status, exc.body)
+            return
+        if len(route) < 2:
+            self._send(404, "404: Not Found")
+            return
         if method == "POST" and route == ["_bulk", "anomaly", "prediction"]:
             self._send(*routes.bulk_anomaly_prediction(body))
             return
@@ -297,6 +438,11 @@ class GordoHTTPServer(ThreadingHTTPServer):
     def __init__(self, collection: ModelCollection, host: str, port: int):
         self.routes = _Routes(collection)
         super().__init__((host, port), _Handler)
+
+    def server_close(self) -> None:
+        # wake and end the SSE writers before the socket closes
+        self.routes.collection.stream_hub.close()
+        super().server_close()
 
 
 def make_server(collection: ModelCollection, host: str = "127.0.0.1", port: int = 0) -> GordoHTTPServer:

@@ -72,6 +72,10 @@ def test_every_port_module_imports_with_jax_and_gordo_tpu_blocked():
         "gordo_tpu_torch.kernels.rolling_median",
         "gordo_tpu_torch.models.factories.lstm",
         "gordo_tpu_torch.ops.windows",
+        "gordo_tpu_torch.serve.precision",
+        "gordo_tpu_torch.serve.stream",
+        "gordo_tpu_torch.kernels.fake_quant",
+        "gordo_tpu_torch.kernels.stream_step",
     ):
         assert expected in result["modules"]
 

@@ -207,3 +207,37 @@ def test_all_padding_minibatch_takes_a_zero_gradient_adam_step(monkeypatch):
         torch.testing.assert_close(new_p[1], want, rtol=0, atol=0)
         assert not torch.equal(new_p[1], param[1])
     assert torch.isfinite(history).all()
+
+
+@pytest.mark.parametrize("masked", [True, False], ids=["K8-masked", "K4-exact"])
+def test_non_finite_maximum_matches_jax(masked):
+    """A pad-up fit that diverges (a too high learning rate) gives NaN
+    errors on real rows: the masked epilogue (K8) maps such a slot's
+    non-finite maximum to 0, as ``_masked_smoothed_max`` does, and the
+    exact one (K4) keeps NaN, as ``_smoothed_max`` does.  Held exactly (a
+    min and a max, no arithmetic): measured 0 difference."""
+    from gordo_tpu.parallel.anomaly import SMOOTHING_WINDOW, _masked_smoothed_max, _smoothed_max
+
+    rng = np.random.default_rng(9)
+    S, nt = 4, 30
+    y = rng.standard_normal((S, nt, TAGS)).astype(np.float32)
+    p = (y + 0.2 * rng.standard_normal(y.shape)).astype(np.float32)
+    p[0, 3:20] = np.nan  # every window of every tag reaches a NaN row
+    p[1, :, 1] = np.nan  # one tag NaN throughout
+    p[2, 4, 2] = np.inf
+    tag = np.abs(p - y)
+    total = np.sqrt((tag * tag).sum(-1)).astype(np.float32)
+    counts = np.array([nt, 12, nt, 7]) if masked else np.full(S, nt)
+    epi = ce.cv_epilogue_plain(*(torch.from_numpy(a) for a in (tag, total, p, y)), counts, masked=masked)
+    for s in range(S):
+        if masked:
+            mask = (np.arange(nt) < counts[s]).astype(np.float32)
+            ref_f = _masked_smoothed_max(tag[s], mask)
+            ref_t = _masked_smoothed_max(total[s][:, None], mask)[0]
+        else:
+            ref_f = _smoothed_max(tag[s], SMOOTHING_WINDOW)
+            ref_t = _smoothed_max(total[s][:, None], SMOOTHING_WINDOW)[0]
+        np.testing.assert_array_equal(epi["feature_max"][s].numpy(), np.asarray(ref_f))
+        np.testing.assert_array_equal(epi["total_max"][s].numpy(), np.asarray(ref_t))
+    assert bool(np.isnan(epi["feature_max"][0].numpy()).all()) != masked
+    assert (float(epi["total_max"][1]) == 0.0) == masked
