@@ -149,9 +149,32 @@ itself.  Phases, each printing one JSON line:
    each checkpoint save and load, the launches (set to 0 just before).
 20. ``fleet_api``: ``fleet_stage`` → ``fleet_dispatch`` → ``collect`` of
    512 machines × 449–576 rows × 10 tags (``stack_rows``), then
-   ``fleet_apply`` of the result: seconds of each stage, models/h, one
-   launch of each kernel, held to the same calls through the plain
-   versions on the card.
+   ``fleet_apply`` of the result: seconds of each stage (``fleet_stage``
+   draws every seed in one ``fleet_init`` launch), models/h, one launch
+   of each kernel, held to the same calls through the plain versions on
+   the card.
+21. ``fleet_init_kernel_check``: K11 (``fleet_init``) against its plain
+   version on the card: 512 seeds of the 10-tag hourglass with the
+   permutations of the four fits of 576 rows under TimeSeriesSplit(3) and
+   batch 256 over 10 epochs, one seed of the bench's LSTM and one
+   permutation of a year of 10-minute rows (52,560, sorted in global
+   scratch); every leaf's raw bits (its key and fold-in) and every
+   permutation bit for bit, the draws within FLEET_INIT_ULP, the
+   orthogonal kernels after their QR within FLEET_INIT_QR_TOLERANCE;
+   times of the kernel, its plain version and ``torch.randperm`` over the
+   same permutations, and the bound.
+22. ``build_project``: ``builder.build_project`` of a 512-machine
+   RandomDataset project YAML (10 tags, 576 rows, the default model,
+   TrainConfig and TimeSeriesSplit(3)) on the card: seconds, models/h,
+   the stage split, the launches (one ``fleet_init``, ``fleet_fit``,
+   ``fleet_score`` and ``cv_epilogue``, two ``scaler_stats``); a second
+   run that hits the cache and launches nothing; the output directory
+   served over HTTP, one bulk request of every machine through one
+   ``fleet_score`` launch, held to the plain scorer on the CPU.
+
+Every build of phases 6 to 22 draws its initial params and permutations
+through ``fleet_init`` (one launch a length group), counted with the
+build's kernels.
 
 Then the ``kernels`` summary line (``cv_epilogue``'s launches in pad-up
 groups are listed under ``cv_epilogue_masked``, K8; those in exact groups
@@ -422,7 +445,7 @@ def phase_build():
     t0 = time.perf_counter()
     paths = build.build("fleet_score", "fleet_fit", "scaler_stats", "cv_epilogue",
                         "lstm_layer", "rolling_median", "lstm_layer_bwd", "lstm_head_fit",
-                        "fleet_adam", "fake_quant", "stream_step", "fleet_apply")
+                        "fleet_adam", "fake_quant", "stream_step", "fleet_apply", "fleet_init")
     seconds = time.perf_counter() - t0
     ptxas = []
     for p in paths:
@@ -651,11 +674,13 @@ def fleet_fit_bound(fits, dims, machines: int, rows: int, epochs: int, counts=No
 def _ff_counters():
     from gordo_tpu_torch.kernels import cv_epilogue as ce
     from gordo_tpu_torch.kernels import fleet_fit as ff
+    from gordo_tpu_torch.kernels import fleet_init as fi
     from gordo_tpu_torch.kernels import fleet_score as fs
     from gordo_tpu_torch.kernels import scaler_stats as ss
 
     return {"fleet_fit": (ff, "launches"), "scaler_stats": (ss, "launches"),
-            "fleet_score": (fs, "launches"), "cv_epilogue": (ce, "launches")}
+            "fleet_score": (fs, "launches"), "cv_epilogue": (ce, "launches"),
+            "fleet_init": (fi, "launches")}
 
 
 def _lstm_counters():
@@ -672,8 +697,8 @@ def _lstm_counters():
 
 def _expected_launches(spec, pending) -> dict:
     """Launches of the build ``pending`` (a ``PendingFleetBuild``): per
-    group it launched 2 stats, 1 out-of-fold scoring, 1 epilogue, and 1
-    fleet_fit or, for an LSTM, per lockstep step each layer forward and
+    group it launched 1 fleet_init (its seed's draws), 2 stats, 1
+    out-of-fold scoring, 1 epilogue, and 1 fleet_fit or, for an LSTM, per lockstep step each layer forward and
     backward, the head and Adam, then each layer once out of fold."""
     from gordo_tpu_torch.parallel.anomaly import chain_dims
     from gordo_tpu_torch.train.lstm_fit import window_fit
@@ -681,6 +706,7 @@ def _expected_launches(spec, pending) -> dict:
     lstm = spec.window_mode != "none"
     out = dict.fromkeys(_lstm_counters() if lstm else _ff_counters(), 0)
     for g in pending.groups:
+        out["fleet_init"] += 1
         out["scaler_stats"] += 2
         out["fleet_score"] += 1
         out["cv_epilogue"] += 1
@@ -2147,12 +2173,41 @@ def _detector_arrays(det) -> dict:
     return {k: np.asarray(v, np.float64) for k, v in out.items()}
 
 
-def _hold_to_plain_program(spec, builder, pending, detectors) -> dict:
+def one_ulp_up(params):
+    """Initial params with every kernel one float32 ulp higher (biases,
+    drawn as zeros, kept): the conditioning probe of a fit."""
+    up = lambda t: torch.nextafter(t, torch.full_like(t, math.inf))  # noqa: E731
+    if isinstance(params, tuple):  # an LSTM chain's (cells, head)
+        cells, (W, b) = params
+        return [(up(ki), up(kh), bias) for ki, kh, bias in cells], (up(W), b)
+    return [(up(W), b) for W, b in params]
+
+
+def one_ulp_up_draws(device):
+    """The default draws (``fleet_init`` on ``device``) with their kernels
+    one ulp higher, as a ``draws=`` source."""
+    from gordo_tpu_torch.parallel import fleet
+
+    def draws(seed, dims, n_totals, epochs):
+        params, perms = fleet.draw_fleet([seed], dims, n_totals, epochs, device)
+        return fleet._host(one_ulp_up(params)), {n: p[0].cpu().numpy() for n, p in perms.items()}
+    return draws
+
+
+def _hold_to_plain_program(spec, builder, pending, detectors, tolerance: dict):
     """Each group of the build ``pending`` again, on the rows, folds and
     warm params it launched, through its program with every kernel's plain
     version on the card (the LSTM fit's plain lockstep loop), held per
-    machine to the built detectors.  Returns the worst normalised error by
-    kind; a reference of zeros is held exactly."""
+    machine to the built detectors within ``tolerance`` by kind; a
+    reference of zeros is held exactly.
+
+    A fit can be ill-conditioned: the plain version itself then moves by
+    more than the tolerance when its initial params move by one ulp.  A
+    machine's array that misses the tolerance is held instead to that
+    movement (the same program from params one ulp higher,
+    ``one_ulp_up``), which it must not exceed.  Returns ``(worst, admitted)``:
+    the worst normalised error by kind over the arrays held to the
+    tolerance, and each array held to its one-ulp movement."""
     from gordo_tpu_torch.parallel.anomaly import (
         chain_dims,
         exact_fleet_program,
@@ -2160,23 +2215,20 @@ def _hold_to_plain_program(spec, builder, pending, detectors) -> dict:
         lstm_slot_state,
         padded_fleet_program,
     )
-    from gordo_tpu_torch.parallel.fleet import stack_warm_params
+    from gordo_tpu_torch.parallel.fleet import fleet_draws, stack_warm_params
 
-    worst = {}
-    for g in pending.groups:
-        X = torch.from_numpy(g.X).to(builder.device)
-        y = X if g.y is g.X else torch.from_numpy(g.y).to(builder.device)
-        params0 = None
-        if g.warm is not None:
-            params0 = stack_warm_params(g.warm, chain_dims(spec, g.X.shape[2], g.y.shape[2]), builder.device)
+    host = lambda t: t.cpu().numpy()  # noqa: E731
+
+    def plain_arrays(g, X, y, params0, draws):
+        """The plain program's arrays of each machine of group ``g``."""
         with torch.no_grad(), plain_kernels():
             if g.pad_built:
-                out = padded_fleet_program(spec, X, y, g.lens, g.folds, route="plain", params0=params0)
+                out = padded_fleet_program(spec, X, y, g.lens, g.folds, draws=draws, route="plain",
+                                           params0=params0)
             else:
-                out = exact_fleet_program(spec, X, y, g.folds, final=True, route="plain", params0=params0)
+                out = exact_fleet_program(spec, X, y, g.folds, final=True, draws=draws, route="plain",
+                                          params0=params0)
         K = len(g.folds)
-        idxs = g.indices
-        host = lambda t: t.cpu().numpy()  # noqa: E731
         if "cells" in out:
             cells = [tuple(host(t) for t in c) for c in out["cells"]]
             head = tuple(host(t) for t in out["head"])
@@ -2184,8 +2236,8 @@ def _hold_to_plain_program(spec, builder, pending, detectors) -> dict:
         else:
             layers = [(host(W), host(b)) for W, b in out["layers"]]
             state = lambda j: layer_state(layers, j, K)  # noqa: E731
-        for j, i in enumerate(idxs):
-            got = _detector_arrays(detectors[i])
+        arrays = []
+        for j in range(len(g.indices)):
             ref = {f"params/{k}": v for k, v in state(j).items()}
             ref["history"] = host(out["history"][j, K])
             ref["thresholds"] = np.append(host(out["feature_thresholds"][j]),
@@ -2195,16 +2247,42 @@ def _hold_to_plain_program(spec, builder, pending, detectors) -> dict:
             for k in ("scale", "offset"):
                 ref[f"scaler/{k}"] = host(out[k][j, K])
                 ref[f"detector/{k}"] = host(out[f"det_{k}"][j])
-            for key, r in ref.items():
+            arrays.append(ref)
+        return arrays
+
+    def r12(r, other):
+        return float(np.abs(np.asarray(r, np.float64) - other).max() / np.abs(r).max())
+
+    worst, admitted = {}, []
+    for g in pending.groups:
+        X = torch.from_numpy(g.X).to(builder.device)
+        y = X if g.y is g.X else torch.from_numpy(g.y).to(builder.device)
+        params0 = None
+        if g.warm is not None:
+            params0 = stack_warm_params(g.warm, chain_dims(spec, g.X.shape[2], g.y.shape[2]), builder.device)
+        refs = plain_arrays(g, X, y, params0, fleet_draws)
+        nudged = None  # the one-ulp probe, run for a group only where needed
+        for j, i in enumerate(g.indices):
+            got = _detector_arrays(detectors[i])
+            for key, r in refs[j].items():
                 got_k = got[key]
                 check(bool(np.isfinite(got_k).all()), f"{key} of machine {i} is finite")
                 if not np.any(r):
                     check(not np.any(got_k), f"{key} of machine {i} is zero as the plain version's")
                     continue
                 kind = key.split("/")[0]
-                err = float(np.abs(np.asarray(r, np.float64) - got_k).max() / np.abs(r).max())
-                worst[kind] = max(worst.get(kind, 0.0), err)
-    return worst
+                err = r12(r, got_k)
+                if err <= tolerance[kind]:
+                    worst[kind] = max(worst.get(kind, 0.0), err)
+                    continue
+                if nudged is None:
+                    nudged = (plain_arrays(g, X, y, one_ulp_up(params0), fleet_draws) if params0 is not None
+                              else plain_arrays(g, X, y, None, one_ulp_up_draws(builder.device)))
+                movement = r12(r, nudged[j][key])
+                check(err <= movement, f"machine {i} {key}: {err} off its plain version, beyond "
+                                       f"{tolerance[kind]} and the plain version's one-ulp movement {movement}")
+                admitted.append({"machine": int(i), "array": key, "err": err, "one_ulp_movement": movement})
+    return worst, admitted
 
 
 def _check_worst(worst: dict, tolerance: dict, what: str) -> None:
@@ -2382,11 +2460,35 @@ def phase_ragged_kernel_check():
     (layers, hist), (layers_p, hist_p) = run(), plain()
     pairs = {f"layer{i}.{k}": (p, g) for i, ((gw, gb), (pw, pb)) in enumerate(zip(layers, layers_p))
              for k, p, g in (("kernel", pw, gw), ("bias", pb, gb))}
-    errs, abs_err = errors(pairs, TRAIN_TOLERANCE["fleet_fit"], "fleet_fit ragged")
+    # a fit the plain version itself moves by more than the tolerance when
+    # its initial params move by one ulp is held to that movement instead
+    # (the held slots are listed): the conditioning probe runs where needed
+    tol = TRAIN_TOLERANCE["fleet_fit"]
+    over = {k for k, (p, g) in pairs.items() if norm_err(p, g) > tol}
+    held, held_pairs = [], {}
+    if over:
+        nudged = ff.fleet_fit_plain(X, X, fits, scale, offset, one_ulp_up(params0), perms,
+                                    np.zeros(machines, np.int64), acts, cfg.epochs, hp, counts=fit_counts)[0]
+        moved = {f"layer{i}.{k}": m for i, (mw, mb) in enumerate(nudged) for k, m in (("kernel", mw), ("bias", mb))}
+        for key in sorted(over):
+            p, g = held_pairs[key] = pairs.pop(key)
+            scale_k = p.double().abs().max()
+            off = (g.double() - p.double()).abs().reshape(machines, len(fits), -1).amax(-1) / scale_k
+            move = (moved[key].double() - p.double()).abs().reshape(machines, len(fits), -1).amax(-1) / scale_k
+            bad = (off > tol) & (off > move)
+            check(not bool(bad.any()), f"fleet_fit ragged {key}: slots beyond {tol} and their one-ulp movement")
+            for m, gi in (off > tol).nonzero().tolist():
+                held.append({"array": key, "slot": [m, gi], "count": int(fit_counts[m, gi]),
+                             "err": float(off[m, gi]), "one_ulp_movement": float(move[m, gi])})
+    errs, abs_err = errors(pairs, tol, "fleet_fit ragged")
+    for key, (p, g) in held_pairs.items():
+        errs[key] = norm_err(p, g)
+        abs_err = max(abs_err, float((p.double() - g.double()).abs().max()))
     herr, habs = errors({"history": (hist_p, hist)}, TRAIN_TOLERANCE["fleet_fit_history"], "fleet_fit ragged")
     entry = {"max_norm_err": {**errs, **herr}, "max_abs_err": max(abs_err, habs),
              "tolerance": {"params": TRAIN_TOLERANCE["fleet_fit"], "history": TRAIN_TOLERANCE["fleet_fit_history"]},
              "all_padding_minibatches": empty_batches, "real_rows": int(fit_counts.sum()),
+             "held_to_one_ulp_movement": held,
              **fleet_fit_bound(fits, dims, machines, rows, cfg.epochs, fit_counts)}
     timed(entry, run, plain, 3, 2)
     entries["fleet_fit_ragged"] = entry
@@ -2522,8 +2624,8 @@ def phase_ragged_train():
     padded, padded_info, pending = _build_counted(spec, padded_builder, Xs, counters)
     exact, exact_info, _ = _build_counted(spec, exact_builder, Xs, counters)
     check(all(getattr(d, "pad_built_", False) for d in padded), "every machine pad-built")
-    worst = _hold_to_plain_program(spec, padded_builder, pending, padded)
-    emit({"phase": "ragged_train_vs_plain", "max_norm_err": worst})
+    worst, admitted = _hold_to_plain_program(spec, padded_builder, pending, padded, RAGGED_TOLERANCE)
+    emit({"phase": "ragged_train_vs_plain", "max_norm_err": worst, "held_to_one_ulp_movement": admitted})
     _check_worst(worst, RAGGED_TOLERANCE, "ragged pad-up build vs its plain version")
     full = [i for i, n in enumerate(lens) if n == rows]
     same = _bitwise_equal(padded, exact, full, "padded vs exact build")
@@ -2532,13 +2634,15 @@ def phase_ragged_train():
     Xw = [base[i, : n + RAGGED_EXTEND] for i, n in enumerate(lens)]
     warm = [d.base_estimator._final.state_arrays() for d in padded]
     warm_dets, warm_info, pending = _build_counted(spec, padded_builder, Xw, counters, warm)
-    warm_worst = _hold_to_plain_program(spec, padded_builder, pending, warm_dets)
+    warm_worst, warm_admitted = _hold_to_plain_program(spec, padded_builder, pending, warm_dets,
+                                                       RAGGED_TOLERANCE)
     _check_worst(warm_worst, RAGGED_TOLERANCE, "warm pad-up build vs its plain version")
     return {"machines": machines, "tags": tags, "lengths": [int(lens.min()), int(lens.max())],
             "distinct_lengths": len(set(lens.tolist())), "pad_lengths": RAGGED_PAD,
             "padded": padded_info, "exact": exact_info, "vs_plain_max_norm_err": worst,
+            "vs_plain_held_to_one_ulp_movement": admitted,
             "bitwise_equal_full_length_machines": same, "warm": warm_info,
-            "warm_vs_plain_max_norm_err": warm_worst}
+            "warm_vs_plain_max_norm_err": warm_worst, "warm_held_to_one_ulp_movement": warm_admitted}
 
 
 def phase_ragged_lstm_train():
@@ -2564,20 +2668,23 @@ def phase_ragged_lstm_train():
     padded, padded_info, pending = _build_counted(spec, padded_builder, Xs, counters)
     exact, exact_info, _ = _build_counted(spec, exact_builder, Xs, counters)
     check(all(getattr(d, "pad_built_", False) for d in padded), "every LSTM machine pad-built")
-    worst = _hold_to_plain_program(spec, padded_builder, pending, padded)
-    emit({"phase": "ragged_lstm_train_vs_plain", "max_norm_err": worst})
+    worst, admitted = _hold_to_plain_program(spec, padded_builder, pending, padded, LSTM_RAGGED_TOLERANCE)
+    emit({"phase": "ragged_lstm_train_vs_plain", "max_norm_err": worst, "held_to_one_ulp_movement": admitted})
     _check_worst(worst, LSTM_RAGGED_TOLERANCE, "ragged LSTM pad-up build vs its plain version")
     full = [i for i, n in enumerate(lens) if n == rows]
     same = _bitwise_equal(padded, exact, full, "padded vs exact LSTM build")
 
     warm = [d.base_estimator._final.state_arrays() for d in padded]
     warm_dets, warm_info, pending = _build_counted(spec, exact_builder, Xs, counters, warm)
-    warm_worst = _hold_to_plain_program(spec, exact_builder, pending, warm_dets)
+    warm_worst, warm_admitted = _hold_to_plain_program(spec, exact_builder, pending, warm_dets,
+                                                       LSTM_RAGGED_TOLERANCE)
     _check_worst(warm_worst, LSTM_RAGGED_TOLERANCE, "warm exact LSTM build vs its plain version")
     return {"machines": machines, "tags": tags, "lengths": sorted(set(lens.tolist())),
             "pad_lengths": RAGGED_PAD, "padded": padded_info, "exact": exact_info,
-            "vs_plain_max_norm_err": worst, "bitwise_equal_full_length_machines": same,
-            "warm": warm_info, "warm_vs_plain_max_norm_err": warm_worst}
+            "vs_plain_max_norm_err": worst, "vs_plain_held_to_one_ulp_movement": admitted,
+            "bitwise_equal_full_length_machines": same,
+            "warm": warm_info, "warm_vs_plain_max_norm_err": warm_worst,
+            "warm_held_to_one_ulp_movement": warm_admitted}
 
 
 # -- reduced-precision serving (K10) and the streaming plane (K9) ------------
@@ -3545,7 +3652,7 @@ def phase_resume():
     }
     counters = {"fleet_fit": (ff, "launches"), **_lstm_counters()}
     counters = {k: counters[k] for k in ("fleet_fit", "lstm_layer_train", "lstm_layer_bwd",
-                                         "lstm_head_fit", "fleet_adam")}
+                                         "lstm_head_fit", "fleet_adam", "fleet_init")}
     out = {}
     for name, (cls, kwargs, X) in cases.items():
         epochs = kwargs.get("epochs", 10)
@@ -3607,6 +3714,7 @@ def phase_fleet_api():
     from gordo_tpu_torch import parallel
     from gordo_tpu_torch.kernels import fleet_apply as fa
     from gordo_tpu_torch.kernels import fleet_fit as ff
+    from gordo_tpu_torch.kernels import fleet_init as fi
     from gordo_tpu_torch.parallel import fleet
     from gordo_tpu_torch.registry import lookup_factory
     from gordo_tpu_torch.train.fit import TrainConfig
@@ -3619,9 +3727,11 @@ def phase_fleet_api():
     check(np.array_equal(got_lengths, lengths), "stack_rows lengths")
     module = lookup_factory("AutoEncoder", "feedforward_hourglass")(n_features=tags, n_features_out=tags)
     cfg = TrainConfig()
-    ff.launches = fa.launches = 0
+    ff.launches = fa.launches = fi.launches = 0
     t0 = time.perf_counter()
     staged = parallel.fleet_stage(module, X, X, w, cfg, device=device)
+    if DEVICE == "cuda":  # the draws' launch has finished: stage's time is its own
+        torch.cuda.synchronize()
     t1 = time.perf_counter()
     result = parallel.fleet_dispatch(module, staged, cfg)
     t2 = time.perf_counter()
@@ -3630,20 +3740,21 @@ def phase_fleet_api():
     pred = parallel.fleet_apply(module, result.params, X, device=device)
     pred_host = pred.cpu().numpy()
     t4 = time.perf_counter()
-    launches = {"fleet_fit": ff.launches, "fleet_apply": fa.launches}
+    launches = {"fleet_fit": ff.launches, "fleet_apply": fa.launches, "fleet_init": fi.launches}
     if DEVICE == "cuda":
-        check(launches == {"fleet_fit": 1, "fleet_apply": 1}, f"fleet API launches {launches}")
+        check(launches == {"fleet_fit": 1, "fleet_apply": 1, "fleet_init": 1}, f"fleet API launches {launches}")
     check(result.history.shape == (machines, cfg.epochs) and bool(np.isfinite(result.history).all()),
           "fleet_fit history")
     check(pred_host.shape == (machines, rows, tags) and bool(np.isfinite(pred_host).all()), "fleet_apply output")
     # the same calls through the plain versions on the card
-    saved = fleet._fleet_fit_kernel, fleet._fleet_apply_kernel
-    fleet._fleet_fit_kernel, fleet._fleet_apply_kernel = ff.fleet_fit_plain, fa.fleet_apply_plain
+    saved = fleet._fleet_fit_kernel, fleet._fleet_apply_kernel, fleet._fleet_init_kernel
+    fleet._fleet_fit_kernel, fleet._fleet_apply_kernel, fleet._fleet_init_kernel = (
+        ff.fleet_fit_plain, fa.fleet_apply_plain, fi.fleet_init_reference)
     try:
         plain = parallel.fleet_fit(module, X, X, w, cfg, device=device)
         plain_pred = parallel.fleet_apply(module, result.params, X, device=device)
     finally:
-        fleet._fleet_fit_kernel, fleet._fleet_apply_kernel = saved
+        fleet._fleet_fit_kernel, fleet._fleet_apply_kernel, fleet._fleet_init_kernel = saved
     worst = {"params": 0.0, "history": norm_err(torch.from_numpy(plain.history), torch.from_numpy(result.history))}
     for (W, b), (Wp, bp) in zip(result.params, plain.params):
         worst["params"] = max(worst["params"], norm_err(Wp, W), norm_err(bp, b) if bool(bp.any()) else 0.0)
@@ -3658,6 +3769,240 @@ def phase_fleet_api():
         "collect_seconds": t3 - t2, "apply_seconds": t4 - t3, "fit_seconds": seconds,
         "models_per_hour": machines / seconds * 3600, "launches": launches,
         "plain_max_norm_err": worst, "tolerance": tol,
+    }
+
+
+# -- fleet init (K11) and build-project ----------------------------------
+
+#: K11's normals against their plain version and the JAX package's, in
+#: ulp of float32 (log1pf on the card against XLA's own log1p and
+#: PyTorch's; tests/test_torch_fleet_init.py measures the same bound
+#: against JAX on the CPU); keys, bits and permutations are bit for bit
+FLEET_INIT_ULP = 4
+#: an orthogonal kernel_h after its QR (torch.linalg.qr of the two sets of
+#: normals), r12
+FLEET_INIT_QR_TOLERANCE = 1e-5
+#: fleet_stage's seeds of TRAIN_SHAPE's bucket; one seed of the bench's
+#: LSTM; one permutation of a year of 10-minute rows (global scratch)
+FLEET_INIT_YEAR = 52_560
+#: the build-project phase: TRAIN_SHAPE's project (RandomDataset, the
+#: default model and TrainConfig), its bulk request's rows per machine
+#: and the machines held to the plain scorer on the CPU
+BUILD_PROJECT_REQUEST_ROWS = 64
+BUILD_PROJECT_CHECKED = 4
+
+
+def _ulp_err(ref: torch.Tensor, got: torch.Tensor) -> int:
+    """Max distance in float32 ulps (same-sign values; 0 for equal bits)."""
+    a = ref.contiguous().view(torch.int32).to(torch.int64)
+    b = got.contiguous().view(torch.int32).to(torch.int64)
+    a = torch.where(a < 0, -(a & 0x7FFFFFFF), a)
+    b = torch.where(b < 0, -(b & 0x7FFFFFFF), b)
+    return int((a - b).abs().max()) if a.numel() else 0
+
+
+def _fleet_init_cases():
+    """(name, seeds, leaves, n_totals, epochs) of the K11 check: every
+    drawn leaf also as its raw bits (held bit for bit)."""
+    from gordo_tpu_torch.kernels import fleet_init as fi
+    from gordo_tpu_torch.kernels.fleet_fit import geometry
+    from gordo_tpu_torch.parallel.fleet import chain_leaves, lstm_chain_of
+    from gordo_tpu_torch.registry import lookup_factory
+    from gordo_tpu_torch.train.fit import TrainConfig
+    from gordo_tpu_torch.train.lstm_fit import window_fit
+    from gordo_tpu_torch.train.cv import build_splitter
+
+    machines, rows, tags = TRAIN_SHAPE
+    cfg = TrainConfig()
+    fit_rows = [tr for tr, _ in build_splitter(None).split(np.empty((rows, 1)))] + [np.arange(rows)]
+    n_totals = sorted({geometry(r, cfg.batch_size).n_total for r in fit_rows})
+
+    def with_raw(leaves):
+        return leaves + [fi.Leaf(leaf.path, leaf.shape, fi.RAW) for leaf in leaves]
+
+    _, lrows, ltags = LSTM_TRAIN_SHAPE
+    lstm_kwargs = dict(LSTM_TRAIN_MODEL["gordo_tpu.anomaly.diff.DiffBasedAnomalyDetector"]["base_estimator"][
+        "gordo_tpu.pipeline.Pipeline"]["steps"][1]["gordo_tpu.models.estimator.LSTMAutoEncoder"])
+    module = lookup_factory("LSTMAutoEncoder", lstm_kwargs["kind"])(
+        n_features=ltags, n_features_out=ltags, lookback_window=LOOKBACK)
+    ldims = lstm_chain_of(module)[0]
+    lstm_total = window_fit(np.arange(lrows), lstm_kwargs["batch_size"], LOOKBACK - 1).n_total
+    return [
+        ("hourglass_bucket", np.arange(machines), with_raw(chain_leaves(hourglass(tags))), n_totals,
+         cfg.epochs),
+        ("lstm_hourglass", np.array([SEED % 2 ** 32]), with_raw(chain_leaves(ldims)), [lstm_total],
+         lstm_kwargs["epochs"]),
+        ("year_permutation", np.array([7]), [], [FLEET_INIT_YEAR], 1),
+    ], ldims
+
+
+def phase_fleet_init_kernel_check():
+    """K11 against its plain version on the card: the raw bits (keys,
+    fold-ins) and the permutations bit for bit, the lecun-normal and
+    normal draws within FLEET_INIT_ULP, the orthogonal kernels after their
+    QR within FLEET_INIT_QR_TOLERANCE; the kernel, its plain version and
+    ``torch.randperm`` over the same permutations timed at the bench's
+    bucket, and the bound."""
+    from gordo_tpu_torch.kernels import fleet_init as fi
+    from gordo_tpu_torch.parallel.fleet import _orthogonal
+
+    cases, ldims = _fleet_init_cases()
+    out = {}
+    for name, seeds_np, leaves, n_totals, epochs in cases:
+        seeds = torch.from_numpy(seeds_np.astype(np.int64)).to(DEVICE)
+        got_v, got_p = fi.fleet_init(seeds, leaves, n_totals, epochs)
+        ref_v, ref_p = fi.fleet_init_reference(seeds, leaves, n_totals, epochs)
+        if DEVICE == "cuda":
+            torch.cuda.synchronize()
+        entry = {"seeds": int(seeds.shape[0]), "leaves": len(leaves), "n_totals": list(n_totals),
+                 "epochs": epochs, "values": int(got_v.shape[1])}
+        for n, g, r in zip(n_totals, got_p, ref_p):
+            check(bool(torch.equal(g, r)), f"fleet_init {name}: permutations of {n} bit for bit")
+            check(bool((torch.sort(g, dim=-1).values
+                        == torch.arange(n, device=g.device, dtype=g.dtype)).all()),
+                  f"fleet_init {name}: each row of {n} is a permutation")
+        ulp, abs_err, off = 0, 0.0, 0
+        normals = {}
+        for leaf in leaves:
+            g, r = (v[:, off: off + leaf.size] for v in (got_v, ref_v))
+            off += leaf.size
+            if leaf.kind == fi.RAW:
+                check(bool(torch.equal(g.view(torch.int32), r.view(torch.int32))),
+                      f"fleet_init {name}: raw bits of {'/'.join(leaf.path)} bit for bit")
+                continue
+            ulp = max(ulp, _ulp_err(r, g))
+            abs_err = max(abs_err, float((r.double() - g.double()).abs().max()))
+            if leaf.kind == fi.NORMAL:
+                normals.setdefault(leaf.path[0], []).append(
+                    (g.reshape(-1, *leaf.shape), r.reshape(-1, *leaf.shape)))
+        check(ulp <= FLEET_INIT_ULP, f"fleet_init {name}: draws within {FLEET_INIT_ULP} ulp, got {ulp}")
+        qr = 0.0
+        for gates in normals.values():
+            q_got = _orthogonal(torch.stack([g for g, _ in gates], 1))
+            q_ref = _orthogonal(torch.stack([r for _, r in gates], 1))
+            qr = max(qr, norm_err(q_ref, q_got))
+        check(qr <= FLEET_INIT_QR_TOLERANCE, f"fleet_init {name}: kernel_h after QR {qr}")
+        entry.update({"max_ulp": ulp, "max_abs_err": abs_err, "kernel_h_max_norm_err": qr})
+        if DEVICE == "cuda":  # timed on the path's work: the raw-bit leaves are the check's
+            path_leaves = [leaf for leaf in leaves if leaf.kind != fi.RAW]
+            run = lambda: fi.fleet_init(seeds, path_leaves, n_totals, epochs)  # noqa: E731
+            entry["ms"], entry["host_ms"] = time_ms(run, 20)
+            entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(
+                lambda: fi.fleet_init_reference(seeds, path_leaves, n_totals, epochs), 2)
+            d = int(seeds.shape[0])
+
+            def randperms():
+                for n in n_totals:
+                    for _ in range(d * epochs):
+                        torch.randperm(n, device=DEVICE)
+            entry["library_ms"], entry["library_host_ms"] = time_calls_ms(randperms, 1)
+            drawn = sum(leaf.size for leaf in path_leaves)
+            entry.update(bound(fi.bound_bytes(d, drawn, n_totals, epochs),
+                               fi.bound_ops(d, drawn, n_totals, epochs)))
+        out[name] = entry
+        del got_v, got_p, ref_v, ref_p
+    out["tolerance"] = {"ulp": FLEET_INIT_ULP, "kernel_h": FLEET_INIT_QR_TOLERANCE}
+    out["lstm_dims"] = list(ldims)
+    emit({"phase": "fleet_init_kernel_check", **out})
+    return out
+
+
+def phase_build_project():
+    """``build_project`` on the card, as ``python -m gordo_tpu_torch.cli
+    build-project`` runs it: TRAIN_SHAPE's RandomDataset project (the
+    default model, TrainConfig and TimeSeriesSplit(3); a YAML of
+    ``gordo_tpu_torch.bench.project_config``) built into a model directory
+    with a registry (seconds, models/h, the stage split, launches of every
+    kernel set to 0 just before), then built again (every machine a cache
+    hit, no launch), then served over HTTP (the server of ``run-server``):
+    one bulk request of every machine, one ``fleet_score`` launch, held to
+    the plain scorer on the CPU for a few machines."""
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.bench import project_config
+    from gordo_tpu_torch.builder.fleet_build import build_project
+    from gordo_tpu_torch.dataset.base import GordoBaseDataset
+    from gordo_tpu_torch.kernels import fleet_score as fs
+    from gordo_tpu_torch.serve.server import ModelCollection, make_server
+    from gordo_tpu_torch.workflow.config import NormalizedConfig
+
+    machines, rows, tags = TRAIN_SHAPE
+    device = None if DEVICE == "cuda" else DEVICE
+    counters = _ff_counters()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_project_") as tmp:
+        out_dir, registry = os.path.join(tmp, "models"), os.path.join(tmp, "registry")
+        t0 = time.perf_counter()
+        config = NormalizedConfig.from_source(project_config(machines, tags, rows), "smoke")
+        config_seconds = time.perf_counter() - t0
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        result = build_project(config.machines, out_dir, model_register_dir=registry, device=device)
+        launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        check(not result.failed and len(result.fleet_built) == machines,
+              f"build_project built {len(result.fleet_built)} of {machines}: {result.failed}")
+        if DEVICE == "cuda":
+            want = {"fleet_fit": 1, "scaler_stats": 2, "fleet_score": 1, "cv_epilogue": 1, "fleet_init": 1}
+            check(launches == want, f"build_project launches {launches}, expected {want}")
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t1 = time.perf_counter()
+        again = build_project(config.machines, out_dir, model_register_dir=registry, device=device)
+        cached_seconds = time.perf_counter() - t1
+        cached_launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        check(len(again.cached) == machines and not again.fleet_built and not again.single_built,
+              f"the second build hits the cache: {again.summary()}")
+        check(not any(cached_launches.values()), f"a cached build launches nothing: {cached_launches}")
+        written = sorted(n for n in os.listdir(out_dir) if serializer.is_artifact_dir(os.path.join(out_dir, n)))
+        check(len(written) == machines, f"{len(written)} artifacts written")
+
+        names = [m.name for m in config.machines]
+        data = {m.name: np.asarray(GordoBaseDataset.from_dict(dict(m.dataset)).get_data()[0], np.float32)
+                for m in config.machines}
+        collection = ModelCollection.from_directory(out_dir, project="smoke", device=device)
+        server = make_server(collection, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        fs.launches = 0
+        try:
+            payload = {"X": {n: data[n][:BUILD_PROJECT_REQUEST_ROWS].tolist() for n in names}}
+            t2 = time.perf_counter()
+            status, body = _request(
+                f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/smoke/_bulk/anomaly/prediction",
+                payload,
+            )
+            request_seconds = time.perf_counter() - t2
+            serve_launches = fs.launches
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        check(not thread.is_alive(), "server thread stopped")
+        check(status == 200, f"bulk request on the built project: {status}")
+        if DEVICE == "cuda":
+            check(serve_launches == 1, f"bulk request launched fleet_score {serve_launches} times")
+        served = {}
+        for n in names[:BUILD_PROJECT_CHECKED]:
+            ref = serializer.load(os.path.join(out_dir, n)).anomaly(
+                data[n][:BUILD_PROJECT_REQUEST_ROWS], device="cpu")
+            for k in OUTPUTS:
+                got = np.asarray(body["data"][n][k], np.float64)
+                check(got.shape == np.shape(ref[k]) and np.isfinite(got).all(), f"served {k} of {n}")
+                err = float(np.abs(got - ref[k]).max() / max(np.abs(ref[k]).max(), 1e-30))
+                served[k] = max(served.get(k, 0.0), err)
+        check(all(v <= TOLERANCE for v in served.values()), f"served project within {TOLERANCE}: {served}")
+        meta = serializer.load_metadata(os.path.join(out_dir, names[0]))
+        check(meta.get("cache_key") and meta["model"].get("fleet_built") is True, "artifact metadata")
+    stages = dict(result.stage_seconds)
+    stages["config"] += config_seconds
+    seconds = result.seconds + config_seconds
+    return {
+        "machines": machines, "rows": rows, "tags": tags, "build_seconds": seconds,
+        "models_per_hour": machines / seconds * 3600, "stage_seconds": stages,
+        "device_idle_seconds": result.device_idle_seconds, "peak_loaded": result.peak_loaded,
+        "artifacts_written": len(written), "launches": launches,
+        "cached_build_seconds": cached_seconds, "cached": len(again.cached),
+        "cached_launches": cached_launches, "served_machines": len(names),
+        "request_rows": BUILD_PROJECT_REQUEST_ROWS, "request_seconds": request_seconds,
+        "serve_launches": serve_launches, "served_max_norm_err": served,
     }
 
 
@@ -3704,6 +4049,9 @@ def main() -> int:
     emit({"phase": "resume", **resume})
     fleet_api = phase_fleet_api()
     emit({"phase": "fleet_api", **fleet_api})
+    fleet_init_kernels = phase_fleet_init_kernel_check()
+    project = phase_build_project()
+    emit({"phase": "build_project", **project})
     main_shape = shapes[0]
     head = lstm_kernels["fleet_score_lstm_head"]
     summary = [{
@@ -3786,6 +4134,28 @@ def main() -> int:
             "library_ms": entry.get("library_ms"),
             "shape": [*LSTM_TRAIN_SHAPE, "one lockstep step of every slot"],
         })
+    # fleet init (K11): each build's groups draw through it
+    from gordo_tpu_torch.kernels import fleet_init as fi
+    init_entry = fleet_init_kernels["hourglass_bucket"]
+    summary.append({
+        "name": "fleet_init", "route": "cuda", "source": fi.SOURCE, "replaces": fi.REPLACES,
+        "launches": 0,
+        "launches_by_path": {"train": train["launches"]["fleet_init"],
+                             "lstm_train": lstm_train["launches"]["fleet_init"]},
+        "max_abs_err": max(e["max_abs_err"] for k, e in fleet_init_kernels.items() if isinstance(e, dict)
+                           and "max_abs_err" in e),
+        "max_ulp": max(e["max_ulp"] for k, e in fleet_init_kernels.items() if isinstance(e, dict)
+                       and "max_ulp" in e),
+        "ms": init_entry["ms"], "plain_ms": init_entry["plain_ms"], "bound_ms": init_entry["bound_ms"],
+        "bound_by": init_entry["bound_by"],
+        # torch.randperm over the same permutations (the port never calls it)
+        "library_ms": init_entry["library_ms"],
+        "shape": [init_entry["seeds"], "seeds", init_entry["values"] // 2, "values",
+                  init_entry["n_totals"], "x", init_entry["epochs"], "epochs"],
+        "shapes": {k: {f: e.get(f) for f in ("seeds", "n_totals", "epochs", "ms", "plain_ms", "bound_ms",
+                                              "bound_by", "library_ms", "max_ulp")}
+                   for k, e in fleet_init_kernels.items() if isinstance(e, dict) and "seeds" in e},
+    })
     # the ragged paths: the launches of cv_epilogue in the builds' pad-up
     # groups are the masked epilogue's (K8), the rest K4's
     ragged_paths = {
@@ -3899,6 +4269,16 @@ def main() -> int:
             "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"], "library_ms": None,
             "shape": shape,
         })
+    # the build-project and generic fleet API paths
+    for entry in summary:
+        name = entry["name"]
+        if name in project["launches"]:
+            entry["launches_by_path"]["build_project"] = project["launches"][name] + (
+                project["serve_launches"] if name == "fleet_score" else 0)
+        if name == "fleet_init":
+            entry["launches_by_path"]["resume"] = sum(r["launches"]["fleet_init"] for r in resume.values())
+            entry["launches_by_path"]["fleet_api"] = fleet_api["launches"]["fleet_init"]
+        entry["launches"] = sum(entry["launches_by_path"].values())
     apply_entry = resume_kernels["fleet_apply"]
     summary.append({
         "name": "fleet_apply", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,

@@ -107,6 +107,22 @@ class FleetSpec:
     #: rows of a series before its first prediction
     offset: int = 0
 
+    @property
+    def signature(self) -> Tuple:
+        """Bucket key: machines with equal signatures build together (the
+        JAX package's ``FleetSpec.signature``)."""
+        return (
+            type(self.detector_proto).__name__,
+            self.detector_proto.window,
+            tuple((type(s).__name__, tuple(s.feature_range)) for s in self.scaler_protos),
+            (type(self.detector_proto.scaler).__name__,
+             tuple(self.detector_proto.scaler.feature_range)),
+            type(self.estimator_proto).__name__,
+            self.estimator_proto.kind,
+            self.train_cfg,
+            tuple(sorted((k, repr(v)) for k, v in self.factory_kwargs.items())),
+        )
+
 
 def analyze_definition(model) -> Optional[FleetSpec]:
     """Return a :class:`FleetSpec` if ``model`` (a built-but-unfitted

@@ -12,19 +12,18 @@ JAX fits take windows (M, N, L, F) (item 19), raise
 Host-side pieces of the fleet builds:
 
 - :func:`stack_rows`: per-machine arrays stacked along a machine axis;
-- :func:`fleet_draws`, the port's ``fleet_keys``/``fleet_init``: each
-  machine's initial params (flax ``lecun_normal`` kernels: a normal of
-  stddev ``sqrt(1 / fan_in) / 0.87962566`` truncated at two stddevs; zero
-  biases; for an LSTM chain (:class:`LSTMDims`) each gate's ``kernel_i``
-  lecun-normal and its ``kernel_h`` orthogonal, as ``_FusedLSTMCellParams``
-  draws them, then the ``out`` Dense) and per-epoch row permutations,
-  drawn from ``torch.Generator``\\ s seeded by the machine's seed alone
-  (and the fit's row count), so a machine gets the same model whether it
-  is built alone or in a fleet.
-
-JAX draws from threefry keys, which the port does not reproduce: the two
-agree in distribution, not in bits.  The tests hand the port JAX's draws
-through a function of the same signature as :func:`fleet_draws`.
+- :func:`fleet_keys`, :func:`fleet_init`, :func:`fleet_draws`: the
+  JAX package's ``fleet_keys``/``fleet_init`` and epoch permutations,
+  drawn by the ``fleet_init`` kernel (K11, ``kernels/fleet_init.py``) on
+  the caller's device, or by its plain version on the CPU, from the same
+  threefry keys: each machine's initial params (flax ``lecun_normal``
+  kernels and zero biases; for an LSTM chain (:class:`LSTMDims`) each
+  gate's ``kernel_i`` lecun-normal and its ``kernel_h`` orthogonal, as
+  ``_FusedLSTMCellParams`` draws them, then the ``out`` Dense) and the
+  per-epoch row permutations of a fit of ``n_total`` padded rows.  Keys
+  and permutations are JAX's bit for bit, the params within a few ulp
+  (``kernel_h`` after its QR within 1e-5).  :func:`draw_fleet` draws any
+  number of seeds in one launch.
 
 - :func:`stack_warm_params`, the port's ``_stack_warm_params``
   (``gordo_tpu/parallel/anomaly.py:317``): a warm build's per-machine
@@ -36,7 +35,6 @@ through a function of the same signature as :func:`fleet_draws`.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,12 +44,11 @@ from gordo_tpu_torch.device import resolve_device, to_device
 from gordo_tpu_torch.kernels.fleet_apply import fleet_apply as _fleet_apply_kernel
 from gordo_tpu_torch.kernels.fleet_fit import fleet_fit as _fleet_fit_kernel
 from gordo_tpu_torch.kernels.fleet_fit import geometry, pack_perms
+from gordo_tpu_torch.kernels.fleet_init import NORMAL, TRUNCATED, Leaf, init_and_fit_keys
+from gordo_tpu_torch.kernels.fleet_init import fleet_init as _fleet_init_kernel
 from gordo_tpu_torch.models.factories.feedforward import layer_names
 from gordo_tpu_torch.models.factories.lstm import LSTMAutoEncoderModule, cell_names
 from gordo_tpu_torch.train.fit import TrainConfig, adam_hparams
-
-#: flax's variance_scaling constant for a normal truncated at 2 stddevs
-_TRUNC_STDDEV = 0.87962566103423978
 
 Params = List[Tuple[np.ndarray, np.ndarray]]
 #: ``(seed, dims, n_totals, epochs) -> (params, {n_total: (epochs, n_total)
@@ -89,57 +86,121 @@ def stack_rows(arrays: Sequence[np.ndarray]) -> Tuple[np.ndarray, np.ndarray, np
     return out, w, lengths
 
 
-def init_params(dims: Sequence[int], seed: int) -> Params:
+def chain_leaves(dims) -> List[Leaf]:
+    """The drawn kernels of a chain of widths ``dims``, in flax's order:
+    ``dense_{i}``/``out`` kernels, or for an :class:`LSTMDims` each cell's
+    ``i{c}`` input kernels and ``h{c}`` recurrent kernels (c in ``ifgo``),
+    then the ``out`` head."""
+    if isinstance(dims, LSTMDims):
+        leaves = []
+        for name, n_in, h in zip(cell_names(len(dims) - 2), dims[:-2], dims[1:-1]):
+            leaves += [Leaf((name, f"i{c}"), (n_in, h), TRUNCATED) for c in "ifgo"]
+            leaves += [Leaf((name, f"h{c}"), (h, h), NORMAL) for c in "ifgo"]
+        return leaves + [Leaf(("out",), (dims[-2], dims[-1]), TRUNCATED)]
+    names = layer_names(len(dims) - 1)
+    return [Leaf((name,), (a, b), TRUNCATED) for name, a, b in zip(names, dims[:-1], dims[1:])]
+
+
+def _orthogonal(z: torch.Tensor) -> torch.Tensor:
+    """``jax.random.orthogonal``'s map of square normals ``z`` (..., H, H):
+    ``q * sign(diag(r))`` of their QR (``torch.linalg.qr`` on the device, as
+    JAX leaves it to XLA's and LAPACK's QR)."""
+    q, r = torch.linalg.qr(z)
+    return q * torch.sign(torch.diagonal(r, dim1=-2, dim2=-1)).unsqueeze(-2)
+
+
+def draw_fleet(seeds, dims, n_totals: Sequence[int], epochs: int, device=None):
+    """The draws of every seed in ``seeds`` in one ``fleet_init`` launch
+    on ``device`` (as ``resolve_device``): ``(params, {n_total: (D,
+    epochs, n_total) int32 permutations})``, the params stacked over the
+    seeds: ``[(W (D, in, out), b (D, out)), ...]``, or for an
+    :class:`LSTMDims` ``([(kernel_i (D, in, 4H), kernel_h (D, H, 4H), bias
+    (D, 4H)), ...], (W (D, H, n_out), b (D, n_out)))``."""
+    dev = resolve_device(device)
+    seeds = to_device(np.asarray(seeds, np.int64).reshape(-1), dev)
+    leaves = chain_leaves(dims)
+    lengths = sorted({int(n) for n in n_totals})
+    values, perms = _fleet_init_kernel(seeds, leaves, lengths, epochs)
+    d = int(seeds.shape[0])
+    drawn, off = [], 0
+    for leaf in leaves:
+        drawn.append(values[:, off: off + leaf.size].reshape(d, *leaf.shape))
+        off += leaf.size
+
+    def zeros(n):
+        return torch.zeros((d, n), dtype=torch.float32, device=dev)
+
+    if isinstance(dims, LSTMDims):
+        cells = []
+        for i, h in enumerate(dims[1:-1]):
+            gates = drawn[8 * i: 8 * i + 8]
+            kh = _orthogonal(torch.stack(gates[4:], dim=1))  # (D, 4, H, H)
+            cells.append((torch.cat(gates[:4], dim=-1).contiguous(),
+                          torch.cat(list(kh.unbind(1)), dim=-1).contiguous(), zeros(4 * h)))
+        params = (cells, (drawn[-1].contiguous(), zeros(dims[-1])))
+    else:
+        params = [(W.contiguous(), zeros(b)) for W, b in zip(drawn, dims[1:])]
+    return params, dict(zip(lengths, perms))
+
+
+def fleet_keys(seeds) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-machine ``(init_key, fit_key)`` data, each (M, 2) uint32: the
+    split of ``PRNGKey(seed)``, as the JAX package's ``fleet_keys``."""
+    init_key, fit_key = init_and_fit_keys(torch.as_tensor(np.asarray(seeds, np.int64).reshape(-1)))
+    return tuple(np.stack([k0.numpy(), k1.numpy()], axis=-1).astype(np.uint32)
+                 for k0, k1 in (init_key, fit_key))
+
+
+def fleet_init(module, seeds, device=None):
+    """The initial params of a factory's ``module`` (dense or LSTM chain)
+    for every seed, stacked (the JAX package's ``fleet_init`` of
+    ``fleet_keys(seeds)``'s init keys): one ``fleet_init`` launch."""
+    dims = lstm_chain_of(module)[0] if isinstance(module, LSTMAutoEncoderModule) else chain_of(module)[0]
+    return draw_fleet(seeds, dims, [], 0, device)[0]
+
+
+def _host(params, i: int = 0):
+    """Draw ``i`` of :func:`draw_fleet`'s params as host arrays, in the
+    layout of :data:`Draws`."""
+    if isinstance(params, tuple):
+        cells, (W, b) = params
+        return ([tuple(a[i].cpu().numpy() for a in cell) for cell in cells],
+                (W[i].cpu().numpy(), b[i].cpu().numpy()))
+    return [(W[i].cpu().numpy(), b[i].cpu().numpy()) for W, b in params]
+
+
+def init_params(dims: Sequence[int], seed: int, device="cpu") -> Params:
     """``[(kernel (in, out), bias (out,)), ...]`` of a dense chain of widths
-    ``dims``, drawn from a generator seeded by ``seed``."""
-    gen = torch.Generator().manual_seed(int(seed))
-    params = []
-    for fan_in, fan_out in zip(dims[:-1], dims[1:]):
-        params.append((_lecun_normal(fan_in, fan_out, gen).numpy(), np.zeros(fan_out, np.float32)))
-    return params
+    ``dims``: ``module.init`` of ``split(PRNGKey(seed))[0]``."""
+    return _host(draw_fleet([seed], dims, [], 0, device)[0])
 
 
-def _lecun_normal(fan_in: int, fan_out: int, gen: torch.Generator) -> torch.Tensor:
-    std = math.sqrt(1.0 / fan_in) / _TRUNC_STDDEV
-    kernel = torch.empty((fan_in, fan_out), dtype=torch.float32)
-    return torch.nn.init.trunc_normal_(kernel, std=std, a=-2 * std, b=2 * std, generator=gen)
-
-
-def init_lstm_params(dims: Sequence[int], seed: int):
+def init_lstm_params(dims: Sequence[int], seed: int, device="cpu"):
     """``([(kernel_i (in, 4H), kernel_h (H, 4H), bias (4H,)), ...], (out
-    kernel (H, n_out), out bias))`` of an LSTM chain of widths ``dims``,
-    drawn from a generator seeded by ``seed``: per gate i, f, g, o a
-    lecun-normal input kernel and an orthogonal recurrent one, zero biases
-    (flax's ``_FusedLSTMCellParams``), and a lecun-normal head."""
-    gen = torch.Generator().manual_seed(int(seed))
-    cells = []
-    for n_in, h in zip(dims[:-2], dims[1:-1]):
-        ki = torch.cat([_lecun_normal(n_in, h, gen) for _ in range(4)], dim=1)
-        kh = torch.cat([
-            torch.nn.init.orthogonal_(torch.empty((h, h), dtype=torch.float32), generator=gen)
-            for _ in range(4)
-        ], dim=1)
-        cells.append((ki.numpy(), kh.numpy(), np.zeros(4 * h, np.float32)))
-    head = (_lecun_normal(dims[-2], dims[-1], gen).numpy(), np.zeros(dims[-1], np.float32))
-    return cells, head
+    kernel (H, n_out), out bias))`` of an LSTM chain of widths ``dims``: per
+    gate i, f, g, o a lecun-normal input kernel and an orthogonal recurrent
+    one, zero biases (flax's ``_FusedLSTMCellParams``), and a lecun-normal
+    head, from ``split(PRNGKey(seed))[0]``."""
+    return _host(draw_fleet([seed], LSTMDims(dims), [], 0, device)[0])
 
 
-def epoch_permutations(seed: int, n_total: int, epochs: int) -> np.ndarray:
-    """(epochs, n_total) row permutations of a fit of ``n_total`` padded rows."""
-    state = np.random.SeedSequence([int(seed), int(n_total)]).generate_state(1, np.uint64)[0]
-    gen = torch.Generator().manual_seed(int(state))
-    return np.stack([torch.randperm(n_total, generator=gen).numpy() for _ in range(epochs)])
+def epoch_permutations(seed: int, n_total: int, epochs: int, device="cpu") -> np.ndarray:
+    """(epochs, n_total) row permutations of a fit of ``n_total`` padded
+    rows: ``permutation(k, n_total)`` of each of ``split(fit_key,
+    epochs)``."""
+    seeds = to_device(np.asarray([seed], np.int64), resolve_device(device))
+    _, (perms,) = _fleet_init_kernel(seeds, [], [int(n_total)], epochs)
+    return perms[0].cpu().numpy()
 
 
 def fleet_draws(
-    seed: int, dims: Sequence[int], n_totals: Sequence[int], epochs: int
+    seed: int, dims: Sequence[int], n_totals: Sequence[int], epochs: int, device="cpu"
 ) -> Tuple[Params, Dict[int, np.ndarray]]:
     """The default source of draws: ``(initial params, {n_total: (epochs,
-    n_total) permutations})`` of one seed."""
-    perms = {int(n): epoch_permutations(seed, n, epochs) for n in sorted(set(n_totals))}
-    if isinstance(dims, LSTMDims):
-        return init_lstm_params(dims, seed), perms
-    return init_params(dims, seed), perms
+    n_total) permutations})`` of one seed, as host arrays (the builders
+    draw through :func:`draw_fleet` on their device instead)."""
+    params, perms = draw_fleet([seed], dims, n_totals, epochs, device)
+    return _host(params), {n: p[0].cpu().numpy() for n, p in perms.items()}
 
 
 def chain_of(module) -> Tuple[List[int], Tuple]:
@@ -162,7 +223,12 @@ def lstm_chain_of(module) -> Tuple[LSTMDims, Tuple, Any]:
 def put_draws(
     draws: Draws, seed: int, dims, fits, epochs: int, device
 ) -> Tuple[List[Tuple[torch.Tensor, torch.Tensor]], torch.Tensor]:
-    """One seed's draws for ``fits`` as the kernel's device inputs."""
+    """One seed's draws for ``fits`` as the kernel's device inputs (the
+    default :func:`fleet_draws` drawn on ``device`` by one launch)."""
+    if draws is fleet_draws:
+        params0, perms = draw_fleet([seed], dims, [fg.n_total for fg in fits], epochs, device)
+        packed = torch.cat([perms[fg.n_total].reshape(1, -1) for fg in fits], dim=1)
+        return params0, packed.contiguous()
     params, perms = draws(seed, dims, [fg.n_total for fg in fits], epochs)
     params0 = [
         (torch.from_numpy(np.array(W, np.float32)[None]).to(device),
@@ -177,6 +243,10 @@ def put_lstm_draws(draws: Draws, seed: int, dims: LSTMDims, fits, epochs: int, d
     """One seed's LSTM draws for ``fits``: ``((cells, head), perms)``, the
     params on ``device`` with a leading draw axis of 1, the permutations
     per fit as host ints (1, epochs, n_total)."""
+    if draws is fleet_draws:
+        params0, perms = draw_fleet([seed], dims, [fg.n_total for fg in fits], epochs, device)
+        host = {n: p.cpu().numpy() for n, p in perms.items()}
+        return params0, [host[fg.n_total] for fg in fits]
     (cells, head), perms = draws(seed, dims, [fg.n_total for fg in fits], epochs)
 
     def put(a):
@@ -373,25 +443,32 @@ def fleet_stage(
                 f"including mesh padding), got {seeds.shape[0]}"
             )
     fit = geometry(np.arange(n), cfg.batch_size)
-    drawn = [draws(int(s), dims, [fit.n_total], cfg.epochs) for s in seeds]
-    perms = pack_perms([np.stack([np.asarray(p[fit.n_total]) for _, p in drawn])])
-    if params is None:
-        params = [
-            tuple(np.stack([np.asarray(d[0][i][k], np.float32) for d in drawn]) for k in (0, 1))
-            for i in range(len(dims) - 1)
-        ]
-    else:
+    if params is not None:
         _validate_fleet_params(params, m, m_pad, dims)
     dev = resolve_device(device)
+    if draws is fleet_draws:  # every seed in one fleet_init launch
+        drawn, perm_sets = draw_fleet(seeds, dims, [fit.n_total], cfg.epochs, dev)
+        perms = perm_sets[fit.n_total].reshape(len(seeds), -1)
+        params = drawn if params is None else params
+    else:
+        drawn = [draws(int(s), dims, [fit.n_total], cfg.epochs) for s in seeds]
+        perms = pack_perms([np.stack([np.asarray(p[fit.n_total]) for _, p in drawn])])
+        if params is None:
+            params = [
+                tuple(np.stack([np.asarray(d[0][i][k], np.float32) for d in drawn]) for k in (0, 1))
+                for i in range(len(dims) - 1)
+            ]
 
     def put(a):  # a private copy: the caller's params stay theirs
         if isinstance(a, torch.Tensor):
             return a.detach().to(dev, torch.float32).clone().contiguous()
         return to_device(np.array(a, np.float32), dev)
 
+    if not isinstance(perms, torch.Tensor):
+        perms = to_device(perms, dev)
     return StagedFleetFit(
         params=[(put(W), put(b)) for W, b in params], X=to_device(X, dev), y=to_device(y, dev),
-        w=to_device(w, dev), perms=to_device(perms, dev), n_models=m, steps=fit.steps, bs=fit.bs,
+        w=to_device(w, dev), perms=perms, n_models=m, steps=fit.steps, bs=fit.bs,
     )
 
 

@@ -74,6 +74,19 @@ ALIASES: Dict[str, str] = {
     "gordo_components.model.models.KerasLSTMForecast": _LSTM_FORECAST,
     "gordo_components.model.anomaly.diff.DiffBasedAnomalyDetector": _DETECTOR,
 }
+# datasets and data providers, by the JAX package's and the reference's paths
+for _name in ("TimeSeriesDataset", "RandomDataset"):
+    for _prefix in ("gordo_tpu.dataset.datasets", "gordo_components.dataset.datasets"):
+        ALIASES[f"{_prefix}.{_name}"] = f"gordo_tpu_torch.dataset.datasets.{_name}"
+for _name in (
+    "RandomDataProvider", "FileSystemTagProvider", "IrocBundleProvider",
+    "InfluxDataProvider", "DataLakeProvider",
+):
+    for _prefix in (
+        "gordo_tpu.dataset.data_provider.providers",
+        "gordo_components.dataset.data_provider.providers",
+    ):
+        ALIASES[f"{_prefix}.{_name}"] = f"gordo_tpu_torch.dataset.data_provider.providers.{_name}"
 
 _ITEM_TRAINING = (
     "ROADMAP queue 1 item 2 (training: the other scalers and pipeline "

@@ -20,9 +20,9 @@ kernel launches over every fit of a fleet build at once
 (``gordo_tpu_torch/train/lstm_fit.py``); it shares the loss and Adam's
 arithmetic (:func:`adam_step`) with this module.
 
-The initial params and the per-epoch permutations are inputs: the JAX
-package draws them from threefry keys, and the tests hand the port the
-same draws.  Other losses and optimizers raise ``NotImplementedError``.
+The initial params and the per-epoch permutations are inputs, drawn from
+the JAX package's threefry keys by the ``fleet_init`` kernel
+(``parallel/fleet.py``).  Other losses and optimizers raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

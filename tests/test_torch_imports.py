@@ -78,6 +78,18 @@ def test_every_port_module_imports_with_jax_and_gordo_tpu_blocked():
         "gordo_tpu_torch.kernels.stream_step",
         "gordo_tpu_torch.train.checkpoint",
         "gordo_tpu_torch.kernels.fleet_apply",
+        "gordo_tpu_torch.kernels.fleet_init",
+        "gordo_tpu_torch.workflow.config",
+        "gordo_tpu_torch.dataset.sensor_tag",
+        "gordo_tpu_torch.dataset.filter_rows",
+        "gordo_tpu_torch.dataset.base",
+        "gordo_tpu_torch.dataset.datasets",
+        "gordo_tpu_torch.dataset.data_provider.base",
+        "gordo_tpu_torch.dataset.data_provider.providers",
+        "gordo_tpu_torch.utils.disk_registry",
+        "gordo_tpu_torch.builder.build_model",
+        "gordo_tpu_torch.builder.fleet_build",
+        "gordo_tpu_torch.bench",
     ):
         assert expected in result["modules"]
 
@@ -206,9 +218,11 @@ def test_entry_points_refuse_the_cpu_unless_asked(no_cuda, tmp_path):
 
 
 def test_training_entry_points_refuse_the_cpu_unless_asked(no_cuda):
+    from gordo_tpu_torch.builder.fleet_build import build_project
     from gordo_tpu_torch.models.estimator import AutoEncoder
     from gordo_tpu_torch.ops.scalers import MinMaxScaler
     from gordo_tpu_torch.parallel.anomaly import FleetDiffBuilder, analyze_definition
+    from gordo_tpu_torch.parallel.fleet import draw_fleet
 
     X = np.random.default_rng(0).standard_normal((40, 3)).astype(np.float32)
     detector = _tiny_detector().clone()
@@ -220,6 +234,8 @@ def test_training_entry_points_refuse_the_cpu_unless_asked(no_cuda):
         lambda: detector.clone().fit(X),
         lambda: detector.clone().cross_validate(X),
         lambda: FleetDiffBuilder(spec),
+        lambda: build_project([], "unused"),
+        lambda: draw_fleet([0], [3, 2, 3], [8], 1),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train()
