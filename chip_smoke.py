@@ -172,7 +172,30 @@ itself.  Phases, each printing one JSON line:
    served over HTTP, one bulk request of every machine through one
    ``fleet_score`` launch, held to the plain scorer on the CPU.
 
-Every build of phases 6 to 22 draws its initial params and permutations
+23. ``scaler_kernel_check``: K3's Standard statistic (``scaler_stats``)
+   and Robust statistic (``scaler_quantiles``) against their plain
+   versions on the card at 512 × 576 × 10 over the 4 row lists of
+   ``TimeSeriesSplit(3)`` and the full series, on NaN-padded ragged rows
+   (449–576), as the second step of the chains Standard → MinMax and
+   MinMax (to (1, -1)) → Robust, and Robust on a year of 10-minute rows
+   (52,560 × 10); times, bounds, and ``torch.nanquantile`` (one call a row
+   list) beside Robust.
+24. ``scaler_build``: ``FleetDiffBuilder.build`` of 512 × 576 × 10
+   detectors with a ``RobustScaler`` pipeline step and a
+   ``StandardScaler`` detector scaler (seconds, models/h, launches by
+   kernel set to 0 just before), held per machine to the same program
+   through the plain versions on the card; 64 of them served over HTTP
+   (one bulk request, one ``fleet_score`` launch, held to the plain scorer
+   on the CPU) and 24 rows streamed into four (one ``stream_step`` a row,
+   every verdict the request path's bit for bit).
+
+The holds of a build to its plain program (phases 12, 13 and 24) and of
+the ragged ``fleet_fit`` (phase 11) admit an array that misses its bound
+only within the smaller of the plain version's movements from initial
+params one ulp up and one ulp down, and at most ``ONE_ULP_ADMITTED``
+arrays and machines a hold.
+
+Every build of phases 6 to 22 and 24 draws its initial params and permutations
 through ``fleet_init`` (one launch a length group), counted with the
 build's kernels.
 
@@ -183,7 +206,9 @@ are the bf16 instantiations, whose launches are also in ``fleet_score``'s
 and ``lstm_layer``'s; ``stream_step`` counts the scoring launches and the
 LSTM rows' shifts; ``fleet_fit_stateful`` and ``fleet_fit_weighted``
 are ``fleet_fit`` resumed and with row weights, whose launches are not in
-``fleet_fit``'s) and, last, ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero without a result; so does
+``fleet_fit``'s; ``scaler_stats_standard`` is ``scaler_stats``' Standard
+statistic, whose launches are also in ``scaler_stats``') and, last,
+``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero without a result; so does
 a run without CUDA or outside a checkout of the repository.
 """
 
@@ -445,7 +470,8 @@ def phase_build():
     t0 = time.perf_counter()
     paths = build.build("fleet_score", "fleet_fit", "scaler_stats", "cv_epilogue",
                         "lstm_layer", "rolling_median", "lstm_layer_bwd", "lstm_head_fit",
-                        "fleet_adam", "fake_quant", "stream_step", "fleet_apply", "fleet_init")
+                        "fleet_adam", "fake_quant", "stream_step", "fleet_apply", "fleet_init",
+                        "scaler_quantiles")
     seconds = time.perf_counter() - t0
     ptxas = []
     for p in paths:
@@ -676,9 +702,11 @@ def _ff_counters():
     from gordo_tpu_torch.kernels import fleet_fit as ff
     from gordo_tpu_torch.kernels import fleet_init as fi
     from gordo_tpu_torch.kernels import fleet_score as fs
+    from gordo_tpu_torch.kernels import scaler_quantiles as sq
     from gordo_tpu_torch.kernels import scaler_stats as ss
 
     return {"fleet_fit": (ff, "launches"), "scaler_stats": (ss, "launches"),
+            "scaler_stats_standard": (ss, "standard_launches"), "scaler_quantiles": (sq, "launches"),
             "fleet_score": (fs, "launches"), "cv_epilogue": (ce, "launches"),
             "fleet_init": (fi, "launches")}
 
@@ -697,7 +725,9 @@ def _lstm_counters():
 
 def _expected_launches(spec, pending) -> dict:
     """Launches of the build ``pending`` (a ``PendingFleetBuild``): per
-    group it launched 1 fleet_init (its seed's draws), 2 stats, 1
+    group it launched 1 fleet_init (its seed's draws), 1 stats launch per
+    pipeline scaler step and 1 for the detector scaler (``scaler_stats``
+    for MinMax and Standard, ``scaler_quantiles`` for Robust), 1
     out-of-fold scoring, 1 epilogue, and 1 fleet_fit or, for an LSTM, per lockstep step each layer forward and
     backward, the head and Adam, then each layer once out of fold."""
     from gordo_tpu_torch.parallel.anomaly import chain_dims
@@ -705,9 +735,14 @@ def _expected_launches(spec, pending) -> dict:
 
     lstm = spec.window_mode != "none"
     out = dict.fromkeys(_lstm_counters() if lstm else _ff_counters(), 0)
+    from gordo_tpu_torch.ops.scalers import RobustScaler, StandardScaler
+
+    scalers = [*spec.scaler_protos, spec.detector_proto.scaler]
     for g in pending.groups:
         out["fleet_init"] += 1
-        out["scaler_stats"] += 2
+        for sc in scalers:
+            out["scaler_quantiles" if isinstance(sc, RobustScaler) else "scaler_stats"] += 1
+            out["scaler_stats_standard"] += isinstance(sc, StandardScaler)
         out["fleet_score"] += 1
         out["cv_epilogue"] += 1
         if not lstm:
@@ -2090,6 +2125,10 @@ RAGGED_LSTM_STEP, RAGGED_LSTM_SPREAD = 16, 4
 RAGGED_TOLERANCE = {"params": TRAIN_TOLERANCE["fleet_fit"], "history": TRAIN_TOLERANCE["fleet_fit_history"],
                     "scaler": 1e-6, "detector": 1e-6, **BUILD_TOLERANCE}
 LSTM_RAGGED_TOLERANCE = {"scaler": 1e-6, "detector": 1e-6, **LSTM_BUILD_TOLERANCE}
+#: the most arrays, and machines (or slots), one hold of a fit to its plain
+#: version admits at their one-ulp movement (``_check_admitted``): PR 9's
+#: final run admitted one array of one machine or slot in each hold
+ONE_ULP_ADMITTED = {"arrays": 4, "machines": 2}
 #: the masked epilogue (K8) and the suffix-weighted metrics it stands for,
 #: held to one another on the card: the same function, summed in another
 #: order (the tolerances of tests/test_torch_padded_build.py)
@@ -2106,23 +2145,27 @@ def plain_kernels():
     from gordo_tpu_torch.kernels import fleet_fit as ff
     from gordo_tpu_torch.kernels import fleet_score as fs
     from gordo_tpu_torch.kernels import lstm_layer as ll
+    from gordo_tpu_torch.kernels import scaler_quantiles as sq
     from gordo_tpu_torch.kernels import scaler_stats as ss
+    from gordo_tpu_torch.ops import scalers
     from gordo_tpu_torch.parallel import anomaly
 
     def lstm_layer_plain(*args, slot_windows=None, **kwargs):
         return ll.lstm_layer_plain(*args, **kwargs)
 
-    plain = {"scaler_stats": ss.scaler_stats_plain, "fleet_fit": ff.fleet_fit_plain,
-             "fleet_score": fs.fleet_score_plain, "cv_epilogue": ce.cv_epilogue_plain,
-             "lstm_layer": lstm_layer_plain}
-    saved = {name: getattr(anomaly, name) for name in plain}
-    for name, fn in plain.items():
-        setattr(anomaly, name, fn)
+    plain = {(anomaly, "fleet_fit"): ff.fleet_fit_plain, (anomaly, "fleet_score"): fs.fleet_score_plain,
+             (anomaly, "cv_epilogue"): ce.cv_epilogue_plain, (anomaly, "lstm_layer"): lstm_layer_plain,
+             # the scalers' stats (the chain's steps and the detector scaler)
+             (scalers, "scaler_stats"): ss.scaler_stats_plain,
+             (scalers, "scaler_quantiles"): sq.scaler_quantiles_plain}
+    saved = {key: getattr(*key) for key in plain}
+    for (mod, name), fn in plain.items():
+        setattr(mod, name, fn)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(anomaly, name, fn)
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
 
 
 def ragged_lengths(rows: int, machines: int, spread: int, step: int = 1) -> np.ndarray:
@@ -2166,32 +2209,43 @@ def _detector_arrays(det) -> dict:
     out["thresholds"] = np.append(det.feature_thresholds_, det.aggregate_threshold_)
     for name, v in det.cv_metadata_["scores"].items():
         out[name] = np.asarray(v["folds"])
-    for k, v in det.base_estimator.steps[0][1].stats_.items():
-        out[f"scaler/{k}"] = v
+    for i, (_, step) in enumerate(det.base_estimator.steps[:-1]):
+        for k, v in step.stats_.items():
+            out[f"scaler/{i}/{k}"] = v
     for k, v in det.scaler.stats_.items():
         out[f"detector/{k}"] = v
     return {k: np.asarray(v, np.float64) for k, v in out.items()}
 
 
-def one_ulp_up(params):
-    """Initial params with every kernel one float32 ulp higher (biases,
-    drawn as zeros, kept): the conditioning probe of a fit."""
-    up = lambda t: torch.nextafter(t, torch.full_like(t, math.inf))  # noqa: E731
+def one_ulp(params, direction: int):
+    """Initial params with every kernel one float32 ulp higher (``direction``
+    1) or lower (-1) (biases, drawn as zeros, kept): the conditioning probe
+    of a fit."""
+    step = lambda t: torch.nextafter(t, torch.full_like(t, direction * math.inf))  # noqa: E731
     if isinstance(params, tuple):  # an LSTM chain's (cells, head)
         cells, (W, b) = params
-        return [(up(ki), up(kh), bias) for ki, kh, bias in cells], (up(W), b)
-    return [(up(W), b) for W, b in params]
+        return [(step(ki), step(kh), bias) for ki, kh, bias in cells], (step(W), b)
+    return [(step(W), b) for W, b in params]
 
 
-def one_ulp_up_draws(device):
+def one_ulp_draws(device, direction: int):
     """The default draws (``fleet_init`` on ``device``) with their kernels
-    one ulp higher, as a ``draws=`` source."""
+    one ulp higher or lower, as a ``draws=`` source."""
     from gordo_tpu_torch.parallel import fleet
 
     def draws(seed, dims, n_totals, epochs):
         params, perms = fleet.draw_fleet([seed], dims, n_totals, epochs, device)
-        return fleet._host(one_ulp_up(params)), {n: p[0].cpu().numpy() for n, p in perms.items()}
+        return fleet._host(one_ulp(params, direction)), {n: p[0].cpu().numpy() for n, p in perms.items()}
     return draws
+
+
+def _check_admitted(admitted: list, what: str) -> None:
+    """At most ``ONE_ULP_ADMITTED`` arrays and machines (slots) of one hold
+    are admitted at their one-ulp movement."""
+    units = {a.get("machine", tuple(a.get("slot", ()))) for a in admitted}
+    check(len(admitted) <= ONE_ULP_ADMITTED["arrays"] and len(units) <= ONE_ULP_ADMITTED["machines"],
+          f"{what}: {len(admitted)} arrays of {len(units)} machines admitted at their one-ulp "
+          f"movement, more than {ONE_ULP_ADMITTED}")
 
 
 def _hold_to_plain_program(spec, builder, pending, detectors, tolerance: dict):
@@ -2204,10 +2258,12 @@ def _hold_to_plain_program(spec, builder, pending, detectors, tolerance: dict):
     A fit can be ill-conditioned: the plain version itself then moves by
     more than the tolerance when its initial params move by one ulp.  A
     machine's array that misses the tolerance is held instead to that
-    movement (the same program from params one ulp higher,
-    ``one_ulp_up``), which it must not exceed.  Returns ``(worst, admitted)``:
-    the worst normalised error by kind over the arrays held to the
-    tolerance, and each array held to its one-ulp movement."""
+    movement, the smaller of the same program's from params one ulp higher
+    and one ulp lower (``one_ulp``), which it must not exceed; at most
+    ``ONE_ULP_ADMITTED`` arrays and machines are admitted so.  Returns
+    ``(worst, admitted)``: the worst normalised error by kind over the
+    arrays held to the tolerance, and each array held to its one-ulp
+    movement."""
     from gordo_tpu_torch.parallel.anomaly import (
         chain_dims,
         exact_fleet_program,
@@ -2244,9 +2300,11 @@ def _hold_to_plain_program(spec, builder, pending, detectors, tolerance: dict):
                                           host(out["aggregate_threshold"][j]))
             for name, v in out["metrics"].items():
                 ref[name] = host(v[j])
-            for k in ("scale", "offset"):
-                ref[f"scaler/{k}"] = host(out[k][j, K])
-                ref[f"detector/{k}"] = host(out[f"det_{k}"][j])
+            for i, (proto, leaves) in enumerate(zip(spec.scaler_protos, out["steps"])):
+                for k, t in zip(proto.STAT_KEYS, leaves):
+                    ref[f"scaler/{i}/{k}"] = host(t[j, K])
+            for k, t in zip(spec.detector_proto.scaler.STAT_KEYS, out["det_stats"]):
+                ref[f"detector/{k}"] = host(t[j])
             arrays.append(ref)
         return arrays
 
@@ -2276,12 +2334,14 @@ def _hold_to_plain_program(spec, builder, pending, detectors, tolerance: dict):
                     worst[kind] = max(worst.get(kind, 0.0), err)
                     continue
                 if nudged is None:
-                    nudged = (plain_arrays(g, X, y, one_ulp_up(params0), fleet_draws) if params0 is not None
-                              else plain_arrays(g, X, y, None, one_ulp_up_draws(builder.device)))
-                movement = r12(r, nudged[j][key])
+                    nudged = [plain_arrays(g, X, y, one_ulp(params0, d), fleet_draws) if params0 is not None
+                              else plain_arrays(g, X, y, None, one_ulp_draws(builder.device, d))
+                              for d in (1, -1)]
+                movement = min(r12(r, n[j][key]) for n in nudged)
                 check(err <= movement, f"machine {i} {key}: {err} off its plain version, beyond "
                                        f"{tolerance[kind]} and the plain version's one-ulp movement {movement}")
                 admitted.append({"machine": int(i), "array": key, "err": err, "one_ulp_movement": movement})
+    _check_admitted(admitted, "hold to the plain program")
     return worst, admitted
 
 
@@ -2467,19 +2527,25 @@ def phase_ragged_kernel_check():
     over = {k for k, (p, g) in pairs.items() if norm_err(p, g) > tol}
     held, held_pairs = [], {}
     if over:
-        nudged = ff.fleet_fit_plain(X, X, fits, scale, offset, one_ulp_up(params0), perms,
-                                    np.zeros(machines, np.int64), acts, cfg.epochs, hp, counts=fit_counts)[0]
-        moved = {f"layer{i}.{k}": m for i, (mw, mb) in enumerate(nudged) for k, m in (("kernel", mw), ("bias", mb))}
+        moved = []
+        for d in (1, -1):
+            nudged = ff.fleet_fit_plain(X, X, fits, scale, offset, one_ulp(params0, d), perms,
+                                        np.zeros(machines, np.int64), acts, cfg.epochs, hp, counts=fit_counts)[0]
+            moved.append({f"layer{i}.{k}": m for i, (mw, mb) in enumerate(nudged)
+                          for k, m in (("kernel", mw), ("bias", mb))})
         for key in sorted(over):
             p, g = held_pairs[key] = pairs.pop(key)
             scale_k = p.double().abs().max()
             off = (g.double() - p.double()).abs().reshape(machines, len(fits), -1).amax(-1) / scale_k
-            move = (moved[key].double() - p.double()).abs().reshape(machines, len(fits), -1).amax(-1) / scale_k
+            # the smaller of the movements one ulp up and one ulp down
+            move = torch.minimum(*[(m[key].double() - p.double()).abs().reshape(machines, len(fits), -1).amax(-1)
+                                   / scale_k for m in moved])
             bad = (off > tol) & (off > move)
             check(not bool(bad.any()), f"fleet_fit ragged {key}: slots beyond {tol} and their one-ulp movement")
             for m, gi in (off > tol).nonzero().tolist():
                 held.append({"array": key, "slot": [m, gi], "count": int(fit_counts[m, gi]),
                              "err": float(off[m, gi]), "one_ulp_movement": float(move[m, gi])})
+    _check_admitted(held, "fleet_fit ragged")
     errs, abs_err = errors(pairs, tol, "fleet_fit ragged")
     for key, (p, g) in held_pairs.items():
         errs[key] = norm_err(p, g)
@@ -3940,7 +4006,8 @@ def phase_build_project():
         check(not result.failed and len(result.fleet_built) == machines,
               f"build_project built {len(result.fleet_built)} of {machines}: {result.failed}")
         if DEVICE == "cuda":
-            want = {"fleet_fit": 1, "scaler_stats": 2, "fleet_score": 1, "cv_epilogue": 1, "fleet_init": 1}
+            want = {"fleet_fit": 1, "scaler_stats": 2, "scaler_stats_standard": 0, "scaler_quantiles": 0,
+                    "fleet_score": 1, "cv_epilogue": 1, "fleet_init": 1}
             check(launches == want, f"build_project launches {launches}, expected {want}")
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
@@ -4006,6 +4073,242 @@ def phase_build_project():
     }
 
 
+SCALER_YEAR = 52_560
+#: the Standard and Robust statistics against their plain versions on the
+#: card, max |kernel - plain| / max |plain| per output: the Standard sums
+#: run in another order (each thread strides its column, then a tree);
+#: Robust's selection is exact and its interpolation and chain prefix
+#: round as the plain version's separate operations do (expected 0)
+SCALER_TOLERANCE = {"standard": 1e-5, "robust": 1e-6, "minmax": TRAIN_TOLERANCE["scaler_stats"]}
+#: ``DiffBasedAnomalyDetector(scaler=StandardScaler,
+#: base_estimator=Pipeline[RobustScaler, AutoEncoder])``, the JAX package's paths
+SCALER_MODEL = {
+    "gordo_tpu.anomaly.diff.DiffBasedAnomalyDetector": {
+        "scaler": "gordo_tpu.ops.scalers.StandardScaler",
+        "base_estimator": {"gordo_tpu.pipeline.Pipeline": {"steps": [
+            "gordo_tpu.ops.scalers.RobustScaler",
+            {"gordo_tpu.models.estimator.AutoEncoder": {"kind": "feedforward_hourglass"}},
+        ]}},
+    }
+}
+#: the scaler build held to its plain program on the card: the fits'
+#: tolerance, the Robust step's stats as its kernel's, the Standard
+#: detector scaler's as its
+SCALER_BUILD_TOLERANCE = {"params": TRAIN_TOLERANCE["fleet_fit"], "history": TRAIN_TOLERANCE["fleet_fit_history"],
+                          "scaler": SCALER_TOLERANCE["robust"], "detector": SCALER_TOLERANCE["standard"],
+                          **BUILD_TOLERANCE}
+#: machines of the scaler build served over HTTP (one bulk request of 64
+#: rows a machine), and machines and rows streamed
+SCALER_SERVED = 64
+SCALER_REQUEST_ROWS = 64
+SCALER_STREAM = {"machines": 4, "rows": 24}
+_STAT_KEYS = {"minmax": ("scale", "offset"), "standard": ("mean", "std"), "robust": ("center", "scale")}
+
+
+def stat_bound(machines: int, rows: int, tags: int, lists, prefix_steps: int, ops_per_visit: int):
+    """Least time for one stats launch: the rows read once, the row lists'
+    indices, each prefix step's two (M, G, F) stats and the two outputs;
+    per visited value ``ops_per_visit`` operations and two per prefix step
+    (per pass)."""
+    g = len(lists)
+    visits = machines * sum(len(r) for r in lists) * tags
+    nbytes = 4 * (machines * rows * tags + sum(len(r) for r in lists)
+                  + 2 * (prefix_steps + 1) * machines * g * tags)
+    return bound(nbytes, visits * (ops_per_visit + 2 * prefix_steps))
+
+
+def phase_scaler_kernel_check():
+    """K3's Standard statistic (``scaler_stats``) and Robust statistic
+    (``scaler_quantiles``) against their plain versions on the card: at
+    TRAIN_SHAPE over the 4 row lists of TimeSeriesSplit(3) and the full
+    series, on NaN-padded ragged rows (449–576), as the second step of two
+    chains (Standard then MinMax; MinMax to (1, -1), a negative scale, then
+    Robust), each step fed the kernel's stats of the step before, and
+    Robust on one year of 10-minute rows (52,560) × 10 tags.  Times,
+    bounds, and the library call: ``torch.nanquantile`` (one call a row
+    list) for Robust; no one PyTorch call takes a NaN-aware std."""
+    from gordo_tpu_torch.kernels import scaler_quantiles as sq
+    from gordo_tpu_torch.kernels import scaler_stats as ss
+    from gordo_tpu_torch.train.cv import TimeSeriesSplit
+
+    machines, rows, tags = TRAIN_SHAPE
+    rng = np.random.default_rng(SEED + 23)
+    folds = list(TimeSeriesSplit(3).split(np.empty((rows, 1))))
+    row_lists = [tr for tr, _ in folds] + [np.arange(rows)]
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)  # noqa: E731
+    X = bench_fleet(rng, machines, rows, tags)
+    Xn = X.copy()
+    for i, n in enumerate(ragged_lengths(rows, machines, RAGGED_SPREAD)):
+        Xn[i, n:] = np.nan
+    X, Xn = put(X), put(Xn)
+    year = put(bench_fleet(rng, 1, SCALER_YEAR, tags))
+    q = torch.from_numpy(sq.fractions((25.0, 75.0))).to(DEVICE)
+    entries = {}
+
+    def hold(name, stat, run, plain, bound_info, library=None, reps=20, plain_reps=5):
+        got, ref = run(), plain()
+        errs, worst = {}, 0.0
+        for key, r, g in zip(_STAT_KEYS[stat], ref, got):
+            check(bool(g.isfinite().all()), f"{name} {key} is finite")
+            errs[key] = norm_err(r, g)
+            worst = max(worst, float((r.double() - g.double()).abs().max()))
+        tol = SCALER_TOLERANCE[stat]
+        check(all(e <= tol for e in errs.values()), f"{name} within {tol}: {errs}")
+        entry = {"stat": stat, "max_norm_err": errs, "max_abs_err": worst, "tolerance": tol, **bound_info}
+        if DEVICE == "cuda":
+            entry["ms"], entry["host_ms"] = time_ms(run, reps)
+            entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, plain_reps)
+            entry["library_ms"] = None if library is None else time_calls_ms(library, plain_reps)[0]
+        entries[name] = entry
+        return got
+
+    def nanquantile(x, lists):
+        # the row lists are prefixes of the series: one call a row list
+        return lambda: [torch.nanquantile(x[:, : len(r)], q, dim=1) for r in lists]
+
+    full = stat_bound(machines, rows, tags, row_lists, 0, 4)
+    mean, std = hold("standard", "standard", lambda: ss.scaler_stats(X, row_lists, stat="standard"),
+                     lambda: ss.scaler_stats_plain(X, row_lists, stat="standard"), full)
+    hold("robust", "robust", lambda: sq.scaler_quantiles(X, row_lists),
+         lambda: sq.scaler_quantiles_plain(X, row_lists), stat_bound(machines, rows, tags, row_lists, 0, 1),
+         library=nanquantile(X, row_lists))
+    hold("standard_nan_padded", "standard", lambda: ss.scaler_stats(Xn, row_lists, stat="standard"),
+         lambda: ss.scaler_stats_plain(Xn, row_lists, stat="standard"), full)
+    hold("robust_nan_padded", "robust", lambda: sq.scaler_quantiles(Xn, row_lists),
+         lambda: sq.scaler_quantiles_plain(Xn, row_lists), stat_bound(machines, rows, tags, row_lists, 0, 1),
+         library=nanquantile(Xn, row_lists))
+    # chains: the second step's stats taken through the first step's map
+    std_prefix = [(ss.CENTER, mean, std)]
+    hold("chain_standard_minmax", "minmax", lambda: ss.scaler_stats(X, row_lists, prefix=std_prefix),
+         lambda: ss.scaler_stats_plain(X, row_lists, prefix=std_prefix),
+         stat_bound(machines, rows, tags, row_lists, 1, 2))
+    reverse = ss.scaler_stats(X, row_lists, (1.0, -1.0))
+    check(bool((reverse[0] < 0).all()), "a MinMax step to (1, -1) has a negative scale")
+    mm_prefix = [(ss.AFFINE, *reverse)]
+    hold("chain_minmax_robust", "robust", lambda: sq.scaler_quantiles(X, row_lists, prefix=mm_prefix),
+         lambda: sq.scaler_quantiles_plain(X, row_lists, prefix=mm_prefix),
+         stat_bound(machines, rows, tags, row_lists, 1, 1))
+    whole = [np.arange(SCALER_YEAR)]
+    hold("robust_year", "robust", lambda: sq.scaler_quantiles(year, whole),
+         lambda: sq.scaler_quantiles_plain(year, whole), stat_bound(1, SCALER_YEAR, tags, whole, 0, 1),
+         library=nanquantile(year, whole), reps=5, plain_reps=3)
+    emit({"phase": "scaler_kernel_check", "shape": list(TRAIN_SHAPE), "year_rows": SCALER_YEAR,
+          "kernels": entries})
+    del X, Xn, year
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return entries
+
+
+def phase_scaler_build():
+    """``FleetDiffBuilder.build`` of TRAIN_SHAPE's fleet as
+    ``SCALER_MODEL`` detectors (a Robust pipeline step, a Standard detector
+    scaler), built twice, the second counted (seconds, models/h, launches
+    of every kernel set to 0 just before: one ``scaler_quantiles`` and one
+    Standard ``scaler_stats``), held per machine to the same program
+    through the plain versions on the card (each step's own stats, params,
+    history, thresholds, CV scores); then SCALER_SERVED of the detectors
+    dumped and served over HTTP, one bulk request through one
+    ``fleet_score`` launch, held to the plain scorer on the CPU; and
+    SCALER_STREAM rows streamed into a few of them (one ``stream_step``
+    a row), every verdict the request path's bit for bit."""
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.kernels import fleet_score as fs
+    from gordo_tpu_torch.kernels import stream_step as sk
+    from gordo_tpu_torch.ops.scalers import RobustScaler, StandardScaler
+    from gordo_tpu_torch.parallel.anomaly import FleetDiffBuilder, analyze_definition
+    from gordo_tpu_torch.serializer import from_definition
+    from gordo_tpu_torch.serve.server import ModelCollection, make_server
+    from gordo_tpu_torch.serve.stream import reference_verdict
+
+    machines, rows, tags = TRAIN_SHAPE
+    Xs = list(bench_fleet(np.random.default_rng(SEED + 29), machines, rows, tags))
+    spec = analyze_definition(from_definition(SCALER_MODEL))
+    check(spec is not None, "the scaler detector is fleetable")
+    device = None if DEVICE == "cuda" else DEVICE
+    builder = FleetDiffBuilder(spec, device=DEVICE)
+    detectors, info, pending = _build_counted(spec, builder, Xs, _ff_counters())
+    if DEVICE == "cuda":
+        check(info["launches"]["scaler_quantiles"] == 1 and info["launches"]["scaler_stats_standard"] == 1,
+              f"one Robust and one Standard stats launch: {info['launches']}")
+    for det in detectors:
+        step = det.base_estimator.steps[0][1]
+        check(isinstance(step, RobustScaler) and sorted(step.stats_) == ["center", "scale"]
+              and isinstance(det.scaler, StandardScaler) and sorted(det.scaler.stats_) == ["mean", "std"],
+              "each step's own stats under the reference's keys")
+        check(bool(np.isfinite(det.feature_thresholds_).all()), "finite thresholds")
+    worst, admitted = _hold_to_plain_program(spec, builder, pending, detectors, SCALER_BUILD_TOLERANCE)
+    _check_worst(worst, SCALER_BUILD_TOLERANCE, "scaler build against its plain program")
+    info.update(vs_plain_max_norm_err=worst, vs_plain_held_to_one_ulp_movement=admitted)
+
+    names = [f"scaler-{i:03d}" for i in range(SCALER_SERVED)]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scalers_") as tmp:
+        for i, name in enumerate(names):
+            serializer.dump(detectors[i], os.path.join(tmp, name),
+                            metadata={"dataset": {"tag_list": [f"{name}-t{j}" for j in range(tags)]}})
+        collection = ModelCollection.from_directory(tmp, project="scalers", device=device)
+        server = make_server(collection, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        fs.launches = 0
+        try:
+            payload = {"X": {n: Xs[i][-SCALER_REQUEST_ROWS:].tolist() for i, n in enumerate(names)}}
+            t0 = time.perf_counter()
+            status, body = _request(
+                f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/scalers/_bulk/anomaly/prediction", payload)
+            request_seconds = time.perf_counter() - t0
+            serve_launches = fs.launches
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        check(not thread.is_alive(), "server thread stopped")
+        check(status == 200, f"bulk request of the scaler detectors: {status}")
+        if DEVICE == "cuda":
+            check(serve_launches == 1, f"bulk request launched fleet_score {serve_launches} times")
+        served = {}
+        for i, n in enumerate(names[:CPU_MACHINES]):
+            ref = detectors[i].anomaly(Xs[i][-SCALER_REQUEST_ROWS:], device="cpu")
+            for k in OUTPUTS:
+                got = np.asarray(body["data"][n][k], np.float64)
+                check(got.shape == np.shape(ref[k]) and np.isfinite(got).all(), f"served {k} of {n}")
+                served[k] = max(served.get(k, 0.0), float(np.abs(got - ref[k]).max() / np.abs(ref[k]).max()))
+        check(all(v <= TOLERANCE for v in served.values()), f"served scaler detectors within {TOLERANCE}: {served}")
+
+        # a few rows streamed into a few of them: every verdict the request
+        # path's bit for bit
+        hub = collection.stream_hub
+        streamed = names[:SCALER_STREAM["machines"]]
+        sk.launches = 0
+        verdicts = {n: {} for n in streamed}
+        for r in range(SCALER_STREAM["rows"]):
+            for i, n in enumerate(streamed):
+                for ev in hub.ingest_rows(n, collection.get(n).scorer, Xs[i][r], dtype=collection.serve_dtype):
+                    if ev["type"] == "verdict":
+                        verdicts[n][ev["data"]["step"]] = ev["data"]
+        stream_launches = sk.launches
+        if DEVICE == "cuda":
+            want = SCALER_STREAM["machines"] * SCALER_STREAM["rows"]
+            check(stream_launches == want, f"stream_step launched {stream_launches} times, expected {want}")
+        checked = 0
+        for i, n in enumerate(streamed):
+            H = hub.streams[n].state_rows
+            for t in range(H, SCALER_STREAM["rows"] + 1):
+                ref = reference_verdict(collection.get(n).scorer, Xs[i][t - H:t])
+                v = verdicts[n][t]
+                got = {"tag-anomaly-scores": v["tag-anomaly-scores"], "total-anomaly-score": v["total-anomaly-score"],
+                       "anomaly-confidence": v["anomaly-confidence"]}
+                for k in ref:
+                    check(np.asarray(got[k], np.float32).tobytes() == np.asarray(ref[k], np.float32).tobytes(),
+                          f"{n} step {t} {k}: the streamed verdict is the request path's bit for bit")
+                checked += 1
+    info.update(served_machines=len(names), request_rows=SCALER_REQUEST_ROWS, request_seconds=request_seconds,
+                serve_launches=serve_launches, served_max_norm_err=served, stream_launches=stream_launches,
+                streamed_machines=len(streamed), streamed_rows=SCALER_STREAM["rows"],
+                verdicts_checked_bitwise=checked)
+    return info
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU", file=sys.stderr)
@@ -4052,6 +4355,9 @@ def main() -> int:
     fleet_init_kernels = phase_fleet_init_kernel_check()
     project = phase_build_project()
     emit({"phase": "build_project", **project})
+    scaler_kernels = phase_scaler_kernel_check()
+    scaler_build = phase_scaler_build()
+    emit({"phase": "scaler_build", **scaler_build})
     main_shape = shapes[0]
     head = lstm_kernels["fleet_score_lstm_head"]
     summary = [{
@@ -4279,6 +4585,34 @@ def main() -> int:
             entry["launches_by_path"]["resume"] = sum(r["launches"]["fleet_init"] for r in resume.values())
             entry["launches_by_path"]["fleet_api"] = fleet_api["launches"]["fleet_init"]
         entry["launches"] = sum(entry["launches_by_path"].values())
+    # the scaler build (Robust step, Standard detector scaler): its
+    # launches of every kernel, the bulk request's and the stream's
+    for entry in summary:
+        name = entry["name"]
+        if name in scaler_build["launches"] or name in ("fleet_score", "stream_step"):
+            entry["launches_by_path"]["scaler_build"] = scaler_build["launches"].get(name, 0) + (
+                scaler_build["serve_launches"] if name == "fleet_score" else 0) + (
+                scaler_build["stream_launches"] if name == "stream_step" else 0)
+        entry["launches"] = sum(entry["launches_by_path"].values())
+    from gordo_tpu_torch.kernels import scaler_quantiles as sq
+    from gordo_tpu_torch.kernels import scaler_stats as ss
+    for name, mod, replaces, key in (("scaler_stats_standard", ss, ss.REPLACES_STANDARD, "standard"),
+                                     ("scaler_quantiles", sq, sq.REPLACES, "robust")):
+        entry = scaler_kernels[key]
+        by_path = {"scaler_build": scaler_build["launches"][name]}
+        summary.append({
+            "name": name, "route": "cuda", "source": mod.SOURCE, "replaces": replaces,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(e["max_abs_err"] for e in scaler_kernels.values() if e["stat"] == key),
+            "ms": entry["ms"], "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+            "bound_by": entry["bound_by"],
+            # torch.nanquantile, one call a row list, for Robust; no one
+            # PyTorch call takes a NaN-aware std
+            "library_ms": entry["library_ms"],
+            "shape": [*TRAIN_SHAPE, "4 row lists"],
+            "shapes": {k: {f: e.get(f) for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                       for k, e in scaler_kernels.items() if e["stat"] == key},
+        })
     apply_entry = resume_kernels["fleet_apply"]
     summary.append({
         "name": "fleet_apply", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,

@@ -14,7 +14,9 @@ kernel; and the exact-mode fleet build (and the single-machine
 ``scaler_stats`` and thresholds from ``cv_epilogue``.  Serving of LSTM
 detectors (``LSTMAutoEncoder``, ``LSTMForecast``) through ``lstm_layer``
 and ``fleet_score``, and of detectors with a smoothing ``window`` through
-``rolling_median``.
+``rolling_median``.  Pipeline and detector scalers may be MinMax,
+Standard or Robust, chained: their stats come from ``scaler_stats`` and
+``scaler_quantiles``.
 """
 
 __version__ = "0.1.0"

@@ -1,0 +1,212 @@
+// scaler_quantiles: RobustScaler stats of many machines over many row
+// lists: NaN-aware linear percentiles, each value taken through the
+// chain's earlier steps as it loads.
+//
+// Replaces `RobustScaler.compute_stats` (gordo_tpu/ops/scalers.py:207-217)
+// as `fleet.exact` and `fleet.padded` run it, vmapped per machine
+// (gordo_tpu/parallel/anomaly.py:196-214 `_make_scale_chain`, :1124 and
+// :1327 the detector scaler on y).  Per machine, row list and column, with
+// the non-NaN values sorted as v[0..count):
+//
+//   jnp.nanpercentile(v, (lo, 50, hi)), as jax._src.numpy.reductions.
+//   _quantile computes it with squash_nans=True, in float32:
+//     pos = q * (count - 1)             q = p / 100, taken in f32 on the host
+//     l = floor(pos), h = ceil(pos)     each clamped to [0, count - 1]
+//     hw = pos - floor(pos), lw = 1 - hw
+//     quantile = v[l] * lw + v[h] * hw  (no FMA)
+//   center = q50, scale = max(q_hi - q_lo, 1e-12)   (the max keeps a NaN)
+//   with_centering=False: center 0; with_scaling=False: scale 1.
+//
+// An all-NaN column has count 0: index 0 reads the NaN key, and the
+// column's stats are NaN.  The chain prefix (scaler_prefix.cuh) applies
+// the earlier steps' maps at load, so a MinMax step with a negative scale
+// reverses the order before the selection, as the reference's sort of the
+// transformed values does.
+//
+// Bound: each value is read once from device memory; the selection runs in
+// shared memory.  Bound by device memory.
+//
+// Design: one block per (column, machine, row list).  The block loads the
+// column's rows of its row list into shared memory as order-preserving
+// 32-bit keys (a float's bits with the sign folded so that unsigned order
+// is float order, -0 before +0; every NaN maps to the largest key, so it
+// ranks last), and counts the non-NaN values.  The statistic needs six
+// order statistics, not the sorted column, so each is found by a radix
+// selection: four passes of an 8-bit digit, each a 256-bin histogram of
+// the keys that share the digits chosen so far (shared-memory atomics) and
+// one warp's scan to pick the digit holding the wanted rank.  The keys
+// never move, so the block needs only n keys of shared memory, no second
+// buffer and no padding to a power of two: QS_MAX_ROWS (57,344 rows,
+// 229,376 bytes) covers a year of 10-minute rows (52,560).  Ranks that
+// coincide are selected once.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "scaler_prefix.cuh"
+
+#define QS_MAX_FITS 16
+#define QS_THREADS 256
+#define QS_MAX_ROWS 57344
+
+// Mirrored field by field by `_Args` in gordo_tpu_torch/kernels/scaler_quantiles.py.
+struct ScalerQuantilesArgs {
+  const float* x;      // (M, N, F)
+  const int* rows;     // the row lists, concatenated
+  float* center;       // (M, G, F)
+  float* scale;        // (M, G, F)
+  int m;
+  int n;
+  int f;
+  int g;
+  int fit_rows[QS_MAX_FITS];
+  int fit_row_off[QS_MAX_FITS];
+  float q[3];          // lo / 100, 0.5, hi / 100 in f32
+  int with_centering;
+  int with_scaling;
+  ScalerPrefix prefix;
+};
+
+__device__ __forceinline__ unsigned order_key(float v) {
+  if (v != v) return 0xFFFFFFFFu;
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k ^ 0x80000000u) : ~k);
+}
+
+// The key of rank `k` (0-based, k < n) among `keys[0..n)`.  Every thread
+// of the block calls it and gets the same key.
+__device__ unsigned select_rank(const unsigned* keys, int n, int k, unsigned* hist, int* sel) {
+  unsigned prefix = 0u, mask = 0u;
+  for (int shift = 24; shift >= 0; shift -= 8) {
+    for (int i = threadIdx.x; i < 256; i += blockDim.x) hist[i] = 0u;
+    __syncthreads();
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const unsigned key = keys[i];
+      if ((key & mask) == prefix) atomicAdd(&hist[(key >> shift) & 255u], 1u);
+    }
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      unsigned c[8];
+      unsigned sum = 0u;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        c[i] = hist[lane * 8 + i];
+        sum += c[i];
+      }
+      unsigned incl = sum;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const unsigned up = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += up;
+      }
+      unsigned run = incl - sum;
+      if ((unsigned)k >= run && (unsigned)k < incl) {
+        for (int i = 0; i < 8; ++i) {
+          if ((unsigned)k < run + c[i]) {
+            sel[0] = lane * 8 + i;
+            sel[1] = k - (int)run;
+            break;
+          }
+          run += c[i];
+        }
+      }
+    }
+    __syncthreads();
+    // `sel` is written again only after the next pass's two barriers, which
+    // every thread reaches after reading it here
+    prefix |= (unsigned)sel[0] << shift;
+    mask |= 255u << shift;
+    k = sel[1];
+  }
+  return prefix;
+}
+
+__device__ __forceinline__ float floor_eps(float v) {
+  return v != v ? v : fmaxf(v, 1e-12f);
+}
+
+__global__ void __launch_bounds__(QS_THREADS) scaler_quantiles_kernel(const ScalerQuantilesArgs a) {
+  extern __shared__ unsigned keys[];
+  __shared__ unsigned hist[256];
+  __shared__ int sel[2];
+  __shared__ int s_count;
+  const int col = blockIdx.x;
+  const int mach = blockIdx.y;
+  const int fit = blockIdx.z;
+  const int t = threadIdx.x;
+  const int F = a.f;
+  const int n = a.fit_rows[fit];
+  const int* rows = a.rows + a.fit_row_off[fit];
+  const float* xm = a.x + (size_t)mach * a.n * F + col;
+  const size_t at = ((size_t)mach * a.g + fit) * F + col;
+  if (t == 0) s_count = 0;
+  __syncthreads();
+  int count = 0;
+  for (int i = t; i < n; i += blockDim.x) {
+    const float v = prefix_apply(a.prefix, at, __ldg(xm + (size_t)rows[i] * F));
+    keys[i] = order_key(v);
+    count += v == v;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
+  if ((t & 31) == 0) atomicAdd(&s_count, count);
+  __syncthreads();
+  // the counts are float32 in the reference (summed in q's dtype)
+  const float cm1 = __fsub_rn((float)s_count, 1.0f);
+  int rank[6];
+  float weight[6];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const float pos = __fmul_rn(a.q[i], cm1);
+    const float lo = floorf(pos);
+    const float hi = ceilf(pos);
+    const float hw = __fsub_rn(pos, lo);
+    weight[2 * i] = __fsub_rn(1.0f, hw);
+    weight[2 * i + 1] = hw;
+    rank[2 * i] = (int)fmaxf(0.0f, fminf(lo, cm1));
+    rank[2 * i + 1] = (int)fmaxf(0.0f, fminf(hi, cm1));
+  }
+  float value[6];
+  for (int i = 0; i < 6; ++i) {
+    int same = -1;
+    for (int j = 0; j < i; ++j)
+      if (rank[j] == rank[i]) same = j;
+    value[i] = same >= 0 ? value[same] : key_value(select_rank(keys, n, rank[i], hist, sel));
+  }
+  if (t == 0) {
+    float qv[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      qv[i] = __fadd_rn(__fmul_rn(value[2 * i], weight[2 * i]),
+                        __fmul_rn(value[2 * i + 1], weight[2 * i + 1]));
+    a.center[at] = a.with_centering ? qv[1] : 0.0f;
+    a.scale[at] = a.with_scaling ? floor_eps(__fsub_rn(qv[2], qv[0])) : 1.0f;
+  }
+}
+
+extern "C" int scaler_quantiles_args_size() { return (int)sizeof(ScalerQuantilesArgs); }
+
+extern "C" int scaler_quantiles_max_rows() { return QS_MAX_ROWS; }
+
+extern "C" const char* scaler_quantiles_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// Launches on `stream` without synchronising; `max_rows` is the longest row
+// list (its keys fill the dynamic shared memory).  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue past QS_MAX_ROWS.
+extern "C" int scaler_quantiles_launch(const ScalerQuantilesArgs* a, int max_rows, void* stream) {
+  if (max_rows < 1 || max_rows > QS_MAX_ROWS) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)max_rows * sizeof(unsigned);
+  cudaError_t err = cudaFuncSetAttribute(scaler_quantiles_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a->f, a->m, a->g);
+  scaler_quantiles_kernel<<<grid, QS_THREADS, smem, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}

@@ -1,53 +1,92 @@
-// scaler_stats: MinMax stats of many machines over many row lists.
+// scaler_stats: MinMax and Standard stats of many machines over many row
+// lists, each value taken through the chain's earlier steps as it loads.
 //
-// Replaces `MinMaxScaler.compute_stats` (gordo_tpu/ops/scalers.py:139) as
-// the XLA program `fleet.exact` runs it, vmapped per machine
-// (gordo_tpu/parallel/anomaly.py:196 `_make_scale_chain` on each fold's
-// and the full series' rows, :1124 the detector scaler on y).  Per machine,
-// row list and column:
+// Replaces `MinMaxScaler.compute_stats` (gordo_tpu/ops/scalers.py:139) and
+// `StandardScaler.compute_stats` (:169-177) as the XLA programs
+// `fleet.exact` and `fleet.padded` run them, vmapped per machine
+// (gordo_tpu/parallel/anomaly.py:196-214 `_make_scale_chain` on each
+// fold's and the full series' rows, :1124 and :1327 the detector scaler on
+// y).  Per machine, row list and column, over the non-NaN values v:
 //
-//   lo = nanmin(x[rows, j]),  hi = nanmax(x[rows, j])    (NaN if all NaN)
-//   scale  = (b - a) / max(hi - lo, 1e-12)                (max keeps a NaN)
-//   offset = a - lo * scale
+//   MinMax:    lo = nanmin(v), hi = nanmax(v)                (NaN if all NaN)
+//              scale  = (b - a) / max(hi - lo, 1e-12)         (max keeps a NaN)
+//              offset = a - lo * scale
+//   Standard:  mean = sum(v) / count                          (jnp.nanmean)
+//              std  = max(sqrt(sum((v - mean)^2) / count), 1e-12)
+//              (ddof 0, two passes as jnp.nanvar; with_mean=False gives a
+//              mean of 0 and with_std=False a std of 1, the std still
+//              taken around the true mean)
 //
-// Bound: one pass over the rows, a compare or two per element: bound by
-// device memory (each input row read once per row list).
+// The chain prefix: step i of a pipeline's scaler chain takes its stats on
+// step i-1's output (`_make_scale_chain`).  The kernel takes up to
+// SS_MAX_PREFIX earlier steps' maps per fit and applies them to each value
+// as it loads it, so the transformed rows are never written: a MinMax step
+// as `x * a + b`, a Standard or Robust step as `(x - a) / b` (the
+// reference's form, each step rounded on its own, __fmul_rn/__fadd_rn/
+// __fdiv_rn so that no FMA is contracted).  A NaN (pad-up padding) stays
+// NaN through the prefix and falls out of the stats.
 //
-// Design: one block per (row list, machine).  The block's threads split
+// Bound: one pass (MinMax) or two (Standard) over the rows, a few flops
+// per element: bound by device memory (each input row read once per row
+// list).
+//
+// Design: one block per (row list, machine), one instantiation per
+// statistic, with or without a prefix (the MinMax of a chain's first step
+// runs the loop it ran before chains).  The block's threads split
 // into one group per column; each thread strides over the rows of its
 // column, the groups' partials meet in shared memory, and one thread per
-// column writes its stats.  NaN follows the JAX package: NaN rows are
-// skipped by the min and max (CUDA's fminf/fmaxf would skip them too, but
-// an all-NaN column must come out NaN, and max(NaN, 1e-12) must stay NaN,
-// which fmaxf would not do).  offset uses __fmul_rn/__fsub_rn (no FMA
-// contraction), as the reference rounds it.
+// column finishes the column (Standard: the mean goes back through shared
+// memory for the second pass).  NaN follows the JAX package: CUDA's
+// fminf/fmaxf would skip NaN rows too, but an all-NaN column must come
+// out NaN, and max(NaN, 1e-12) must stay NaN, which fmaxf would not do.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "scaler_prefix.cuh"
+
 #define SS_MAX_FITS 16
 #define SS_THREADS 256
+#define SS_MINMAX 0
+#define SS_STANDARD 1
 
 // Mirrored field by field by `_Args` in gordo_tpu_torch/kernels/scaler_stats.py.
 struct ScalerStatsArgs {
   const float* x;      // (M, N, F)
   const int* rows;     // the row lists, concatenated
-  float* scale;        // (M, G, F)
-  float* offset;       // (M, G, F)
+  float* out0;         // (M, G, F): MinMax scale, Standard mean
+  float* out1;         // (M, G, F): MinMax offset, Standard std
   int m;
   int n;
   int f;
   int g;
   int fit_rows[SS_MAX_FITS];
   int fit_row_off[SS_MAX_FITS];
-  float range_lo;      // feature_range a
-  float range_span;    // b - a
+  int stat;            // SS_MINMAX or SS_STANDARD
+  float range_lo;      // MinMax: feature_range a
+  float range_span;    // MinMax: b - a
+  int with_mean;       // Standard
+  int with_std;        // Standard
+  ScalerPrefix prefix;
 };
 
+__device__ __forceinline__ float floor_eps(float v) {
+  return v != v ? v : fmaxf(v, 1e-12f);
+}
+
+// a value of the column through the prefix, when the instantiation has one
+template <bool PREFIX>
+__device__ __forceinline__ float load_value(const ScalerStatsArgs& a, const float* p, size_t at) {
+  const float v = __ldg(p);
+  return PREFIX ? prefix_apply(a.prefix, at, v) : v;
+}
+
+template <int STAT, bool PREFIX>
 __global__ void __launch_bounds__(SS_THREADS) scaler_stats_kernel(const ScalerStatsArgs a) {
-  __shared__ float s_lo[SS_THREADS];
-  __shared__ float s_hi[SS_THREADS];
+  __shared__ float s_a[SS_THREADS];
+  __shared__ float s_b[SS_THREADS];
   __shared__ int s_any[SS_THREADS];
+  __shared__ float s_mean[SS_THREADS];
   const int fit = blockIdx.x;
   const int mach = blockIdx.y;
   const int t = threadIdx.x;
@@ -55,6 +94,7 @@ __global__ void __launch_bounds__(SS_THREADS) scaler_stats_kernel(const ScalerSt
   const int n = a.fit_rows[fit];
   const int* rows = a.rows + a.fit_row_off[fit];
   const float* xm = a.x + (size_t)mach * a.n * F;
+  const size_t stat_row = ((size_t)mach * a.g + fit) * F;
   // `per` threads per column, `cols` columns per pass
   const int per = F < SS_THREADS ? SS_THREADS / F : 1;
   const int cols = SS_THREADS / per;
@@ -62,35 +102,82 @@ __global__ void __launch_bounds__(SS_THREADS) scaler_stats_kernel(const ScalerSt
   const int sub = t - c * per;
   for (int j0 = 0; j0 < F; j0 += cols) {
     const int j = j0 + c;
-    float lo = INFINITY, hi = -INFINITY;
+    const bool mine = c < cols && j < F;
+    float pa = 0.f, pb = 0.f;
     int any = 0;
-    if (c < cols && j < F) {
+    if (STAT == SS_MINMAX) {
+      pa = INFINITY;
+      pb = -INFINITY;
+      if (mine) {
+        for (int r = sub; r < n; r += per) {
+          const float v = load_value<PREFIX>(a, xm + (size_t)rows[r] * F + j, stat_row + j);
+          if (v == v) {
+            pa = fminf(pa, v);
+            pb = fmaxf(pb, v);
+            any = 1;
+          }
+        }
+      }
+    } else if (mine) {  // Standard, first pass: the sum and the count
       for (int r = sub; r < n; r += per) {
-        const float v = __ldg(xm + (size_t)rows[r] * F + j);
+        const float v = load_value<PREFIX>(a, xm + (size_t)rows[r] * F + j, stat_row + j);
         if (v == v) {
-          lo = fminf(lo, v);
-          hi = fmaxf(hi, v);
-          any = 1;
+          pa = __fadd_rn(pa, v);
+          ++any;
         }
       }
     }
-    s_lo[t] = lo;
-    s_hi[t] = hi;
+    s_a[t] = pa;
+    s_b[t] = pb;
     s_any[t] = any;
     __syncthreads();
-    if (c < cols && j < F && sub == 0) {
+    if (mine && sub == 0) {
       for (int k = 1; k < per; ++k) {
-        lo = fminf(lo, s_lo[t + k]);
-        hi = fmaxf(hi, s_hi[t + k]);
-        any |= s_any[t + k];
+        if (STAT == SS_MINMAX) {
+          pa = fminf(pa, s_a[t + k]);
+          pb = fmaxf(pb, s_b[t + k]);
+          any |= s_any[t + k];
+        } else {
+          pa = __fadd_rn(pa, s_a[t + k]);
+          any += s_any[t + k];
+        }
       }
-      if (!any) lo = hi = NAN;
-      const float span = hi - lo;
-      const float den = span != span ? span : fmaxf(span, 1e-12f);
-      const float sc = a.range_span / den;
-      const size_t o = ((size_t)mach * a.g + fit) * F + j;
-      a.scale[o] = sc;
-      a.offset[o] = __fsub_rn(a.range_lo, __fmul_rn(lo, sc));
+      if (STAT == SS_MINMAX) {
+        if (!any) pa = pb = NAN;
+        const float sc = __fdiv_rn(a.range_span, floor_eps(__fsub_rn(pb, pa)));
+        a.out0[stat_row + j] = sc;
+        a.out1[stat_row + j] = __fsub_rn(a.range_lo, __fmul_rn(pa, sc));
+      } else {
+        // 0 / 0 is NaN for an all-NaN column, as jnp.nanmean gives
+        s_mean[c] = __fdiv_rn(pa, (float)any);
+        s_any[t] = any;
+      }
+    }
+    if (STAT == SS_STANDARD) {
+      __syncthreads();
+      const float mean = mine ? s_mean[c] : 0.f;
+      const int count = mine ? s_any[c * per] : 0;
+      float ss = 0.f;
+      if (mine) {  // second pass: the squared deviations from the mean
+        for (int r = sub; r < n; r += per) {
+          const float v = load_value<PREFIX>(a, xm + (size_t)rows[r] * F + j, stat_row + j);
+          if (v == v) {
+            const float d = __fsub_rn(v, mean);
+            ss = __fadd_rn(ss, __fmul_rn(d, d));
+          }
+        }
+      }
+      __syncthreads();
+      s_a[t] = ss;
+      __syncthreads();
+      if (mine && sub == 0) {
+        for (int k = 1; k < per; ++k) ss = __fadd_rn(ss, s_a[t + k]);
+        // jnp.nanvar: NaN where no value counts
+        const float var = count > 0 ? __fdiv_rn(ss, (float)count) : NAN;
+        const float std = floor_eps(__fsqrt_rn(var));
+        a.out0[stat_row + j] = a.with_mean ? mean : 0.f;
+        a.out1[stat_row + j] = a.with_std ? std : 1.f;
+      }
     }
     __syncthreads();
   }
@@ -105,6 +192,15 @@ extern "C" const char* scaler_stats_error_string(int code) {
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 extern "C" int scaler_stats_launch(const ScalerStatsArgs* a, void* stream) {
   dim3 grid(a->g, a->m);
-  scaler_stats_kernel<<<grid, SS_THREADS, 0, (cudaStream_t)stream>>>(*a);
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool prefix = a->prefix.n > 0;
+  if (a->stat == SS_MINMAX && !prefix)
+    scaler_stats_kernel<SS_MINMAX, false><<<grid, SS_THREADS, 0, s>>>(*a);
+  else if (a->stat == SS_MINMAX)
+    scaler_stats_kernel<SS_MINMAX, true><<<grid, SS_THREADS, 0, s>>>(*a);
+  else if (!prefix)
+    scaler_stats_kernel<SS_STANDARD, false><<<grid, SS_THREADS, 0, s>>>(*a);
+  else
+    scaler_stats_kernel<SS_STANDARD, true><<<grid, SS_THREADS, 0, s>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -1,12 +1,21 @@
-"""``scaler_stats``: MinMax stats of many machines over many row lists (K3).
+"""``scaler_stats``: MinMax and Standard stats of many machines over many
+row lists, through a chain's earlier steps (K3).
 
 Replaces ``MinMaxScaler.compute_stats`` (``gordo_tpu/ops/scalers.py:139``)
-as the XLA program ``fleet.exact`` runs it per machine, on every fold's
-rows, the full series and (for the detector scaler) the targets
-(``gordo_tpu/parallel/anomaly.py:196,1124``).  The kernel is CUDA C++ for
-``sm_90a`` (``gordo_tpu_torch/csrc/scaler_stats.cu``, whose header gives
-its bound and design); :func:`scaler_stats_plain` is the same function in
-plain PyTorch.
+and ``StandardScaler.compute_stats`` (``:169-177``) as the XLA programs
+``fleet.exact`` and ``fleet.padded`` run them per machine, on every fold's
+rows, the full series and (for the detector scaler) the targets, each
+pipeline step on the previous step's output
+(``gordo_tpu/parallel/anomaly.py:196-214,1124,1327``).  The kernel is CUDA
+C++ for ``sm_90a`` (``gordo_tpu_torch/csrc/scaler_stats.cu``, whose header
+gives its bound and design); :func:`scaler_stats_plain` is the same
+function in plain PyTorch.
+
+A chain prefix (``prefix``) is a sequence of ``(form, a, b)``: an earlier
+step's map with its stats ``a``, ``b`` (M, G, F), applied to every value
+as it loads, ``x * a + b`` for :data:`AFFINE` (MinMax), ``(x - a) / b``
+for :data:`CENTER` (Standard, Robust).  ``scaler_quantiles`` takes the
+same prefixes.
 
 :func:`scaler_stats` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises, and adds one to
@@ -27,14 +36,36 @@ from gordo_tpu_torch.kernels import build
 
 SOURCE = "gordo_tpu_torch/csrc/scaler_stats.cu"
 REPLACES = "gordo_tpu/ops/scalers.py:139"
+#: the Standard statistic's TPU program (the ``standard`` stat)
+REPLACES_STANDARD = "gordo_tpu/ops/scalers.py:169"
 
 MAX_FITS = 16
 MAX_MACHINES = 65535
+#: earlier chain steps a launch applies (``SP_MAX_PREFIX``)
+MAX_PREFIX = 4
+#: the two forms of a chain step's map (``scaler_prefix.cuh``)
+AFFINE, CENTER = 0, 1
+STATS = ("minmax", "standard")
 _EPS = 1e-12
 
-#: kernel launches so far (the CPU path never counts)
+#: kernel launches so far, and those of the Standard statistic among them
+#: (the CPU path never counts)
 launches = 0
+standard_launches = 0
 _launches_lock = threading.Lock()
+
+Prefix = Sequence[Tuple[int, torch.Tensor, torch.Tensor]]
+
+
+class _Prefix(ctypes.Structure):
+    """Mirror of ``struct ScalerPrefix`` in ``csrc/scaler_prefix.cuh``."""
+
+    _fields_ = [
+        ("n", ctypes.c_int),
+        ("form", ctypes.c_int * MAX_PREFIX),
+        ("a", ctypes.c_void_p * MAX_PREFIX),
+        ("b", ctypes.c_void_p * MAX_PREFIX),
+    ]
 
 
 class _Args(ctypes.Structure):
@@ -43,16 +74,20 @@ class _Args(ctypes.Structure):
     _fields_ = [
         ("x", ctypes.c_void_p),
         ("rows", ctypes.c_void_p),
-        ("scale", ctypes.c_void_p),
-        ("offset", ctypes.c_void_p),
+        ("out0", ctypes.c_void_p),
+        ("out1", ctypes.c_void_p),
         ("m", ctypes.c_int),
         ("n", ctypes.c_int),
         ("f", ctypes.c_int),
         ("g", ctypes.c_int),
         ("fit_rows", ctypes.c_int * MAX_FITS),
         ("fit_row_off", ctypes.c_int * MAX_FITS),
+        ("stat", ctypes.c_int),
         ("range_lo", ctypes.c_float),
         ("range_span", ctypes.c_float),
+        ("with_mean", ctypes.c_int),
+        ("with_std", ctypes.c_int),
+        ("prefix", _Prefix),
     ]
 
 
@@ -80,7 +115,9 @@ def _library() -> ctypes.CDLL:
         return _lib
 
 
-def _validate(x: torch.Tensor, row_lists) -> Tuple[int, int, int, list]:
+def validate(x: torch.Tensor, row_lists, prefix: Prefix = ()) -> Tuple[int, int, int, list]:
+    """Check the stat kernels' common arguments; returns ``(M, N, F,
+    row lists as int64 arrays)``."""
     if x.dim() != 3:
         raise ValueError(f"x must be (M, N, F), got shape {tuple(x.shape)}")
     if x.dtype != torch.float32 or not x.is_contiguous():
@@ -96,70 +133,133 @@ def _validate(x: torch.Tensor, row_lists) -> Tuple[int, int, int, list]:
         if rows.ndim != 1 or rows.size < 1 or rows.min() < 0 or rows.max() >= N:
             raise ValueError(f"each row list must be non-empty, 1-D and lie in [0, {N})")
         lists.append(rows)
+    if len(prefix) > MAX_PREFIX:
+        raise NotImplementedError(
+            f"a chain of {len(prefix) + 1} scaler steps: the stat kernels apply at most "
+            f"{MAX_PREFIX} earlier steps"
+        )
+    for form, a, b in prefix:
+        if form not in (AFFINE, CENTER):
+            raise ValueError(f"a prefix step's form must be AFFINE or CENTER, got {form!r}")
+        for t in (a, b):
+            if (tuple(t.shape) != (M, len(lists), F) or t.dtype != torch.float32
+                    or t.device != x.device or not t.is_contiguous()):
+                raise ValueError(
+                    f"a prefix step's stats must be contiguous float32 ({M}, {len(lists)}, {F}) "
+                    f"on {x.device}"
+                )
     return M, N, F, lists
+
+
+def fill_launch(args, x: torch.Tensor, lists, prefix: Prefix) -> torch.Tensor:
+    """Set the launch fields the stat kernels share (``x``, ``rows``,
+    shapes, row lists, prefix) in ``args``; returns the device row index
+    tensor, which must live until the launch is enqueued."""
+    M, N, F = (int(s) for s in x.shape)
+    rows = to_device(np.concatenate(lists).astype(np.int32), x.device)
+    args.x, args.rows = x.data_ptr(), rows.data_ptr()
+    args.m, args.n, args.f, args.g = M, N, F, len(lists)
+    off = 0
+    for i, r in enumerate(lists):
+        args.fit_rows[i], args.fit_row_off[i] = int(r.size), off
+        off += int(r.size)
+    args.prefix.n = len(prefix)
+    for i, (form, a, b) in enumerate(prefix):
+        args.prefix.form[i] = int(form)
+        args.prefix.a[i], args.prefix.b[i] = a.data_ptr(), b.data_ptr()
+    return rows
 
 
 def scaler_stats(
     x: torch.Tensor,
     row_lists: Sequence,
     feature_range=(0.0, 1.0),
+    stat: str = "minmax",
+    with_mean: bool = True,
+    with_std: bool = True,
+    prefix: Prefix = (),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """MinMax ``(scale, offset)``, each (M, G, F), of each machine of ``x``
-    (M, N, F) over each of the ``G`` host row lists in ``row_lists``."""
+    """The ``stat`` of each machine of ``x`` (M, N, F) over each of the
+    ``G`` host row lists in ``row_lists``, each value first taken through
+    ``prefix``: ``"minmax"`` gives MinMax ``(scale, offset)`` for
+    ``feature_range``, ``"standard"`` gives ``(mean, std)``; each (M, G,
+    F)."""
+    if stat not in STATS:
+        raise ValueError(f"stat must be one of {STATS}, got {stat!r}")
     if x.device.type == "cpu":
-        return scaler_stats_plain(x, row_lists, feature_range)
+        return scaler_stats_plain(x, row_lists, feature_range, stat, with_mean, with_std, prefix)
     if x.device.type != "cuda":
         raise ValueError(f"scaler_stats runs on cuda or cpu tensors, got {x.device}")
-    M, N, F, lists = _validate(x, row_lists)
-    G = len(lists)
-    device = x.device
-    rows = to_device(np.concatenate(lists).astype(np.int32), device)
-    scale = torch.empty((M, G, F), dtype=torch.float32, device=device)
-    offset = torch.empty_like(scale)
+    M, N, F, lists = validate(x, row_lists, prefix)
+    out0 = torch.empty((M, len(lists), F), dtype=torch.float32, device=x.device)
+    out1 = torch.empty_like(out0)
     a, b = feature_range
     args = _Args()
-    args.x, args.rows = x.data_ptr(), rows.data_ptr()
-    args.scale, args.offset = scale.data_ptr(), offset.data_ptr()
-    args.m, args.n, args.f, args.g = M, N, F, G
-    off = 0
-    for i, r in enumerate(lists):
-        args.fit_rows[i], args.fit_row_off[i] = int(r.size), off
-        off += int(r.size)
+    rows = fill_launch(args, x, lists, prefix)  # noqa: F841 (kept alive past the launch)
+    args.out0, args.out1 = out0.data_ptr(), out1.data_ptr()
+    args.stat = STATS.index(stat)
     args.range_lo, args.range_span = float(a), float(b - a)
+    args.with_mean, args.with_std = int(bool(with_mean)), int(bool(with_std))
     lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.scaler_stats_launch(ctypes.byref(args), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(
             f"scaler_stats launch failed: {lib.scaler_stats_error_string(rc).decode()}"
         )
-    global launches
+    global launches, standard_launches
     with _launches_lock:
         launches += 1
-    return scale, offset
+        standard_launches += stat == "standard"
+    return out0, out1
+
+
+def apply_prefix(xs: torch.Tensor, prefix: Prefix, g: int) -> torch.Tensor:
+    """Row list ``g``'s rows ``xs`` (M, n, F) through the prefix's steps,
+    each in the reference's form, rounded step by step."""
+    for form, a, b in prefix:
+        pa, pb = a[:, g, None, :], b[:, g, None, :]
+        xs = xs * pa + pb if form == AFFINE else (xs - pa) / pb
+    return xs
 
 
 def scaler_stats_plain(
     x: torch.Tensor,
     row_lists: Sequence,
     feature_range=(0.0, 1.0),
+    stat: str = "minmax",
+    with_mean: bool = True,
+    with_std: bool = True,
+    prefix: Prefix = (),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`scaler_stats` in plain PyTorch, with ``jnp.nanmin``/
-    ``jnp.nanmax`` semantics (NaN skipped, an all-NaN column is NaN)."""
-    _, _, _, lists = _validate(x, row_lists)
-    a, b = feature_range
-    scales, offsets = [], []
-    for rows in lists:
-        xs = x.index_select(1, torch.as_tensor(rows, device=x.device))
+    ``jnp.nanmax`` and ``jnp.nanmean``/``jnp.nanstd`` (ddof 0) semantics:
+    NaN skipped, an all-NaN column NaN."""
+    if stat not in STATS:
+        raise ValueError(f"stat must be one of {STATS}, got {stat!r}")
+    _, _, _, lists = validate(x, row_lists, prefix)
+    eps = torch.tensor(_EPS, device=x.device)
+    outs0, outs1 = [], []
+    for g, rows in enumerate(lists):
+        xs = apply_prefix(x.index_select(1, torch.as_tensor(rows, device=x.device)), prefix, g)
         nan = torch.isnan(xs)
-        lo = torch.where(nan, torch.inf, xs).amin(dim=1)
-        hi = torch.where(nan, -torch.inf, xs).amax(dim=1)
-        empty = nan.all(dim=1)
-        lo = torch.where(empty, torch.nan, lo)
-        hi = torch.where(empty, torch.nan, hi)
-        # torch.maximum keeps a NaN, as jnp.maximum does
-        scale = (b - a) / torch.maximum(hi - lo, torch.tensor(_EPS, device=x.device))
-        scales.append(scale)
-        offsets.append(a - lo * scale)
-    return torch.stack(scales, dim=1), torch.stack(offsets, dim=1)
+        if stat == "minmax":
+            a, b = feature_range
+            lo = torch.where(nan, torch.inf, xs).amin(dim=1)
+            hi = torch.where(nan, -torch.inf, xs).amax(dim=1)
+            empty = nan.all(dim=1)
+            lo = torch.where(empty, torch.nan, lo)
+            hi = torch.where(empty, torch.nan, hi)
+            # torch.maximum keeps a NaN, as jnp.maximum does
+            scale = (b - a) / torch.maximum(hi - lo, eps)
+            outs0.append(scale)
+            outs1.append(a - lo * scale)
+            continue
+        count = (~nan).sum(dim=1).to(torch.float32)
+        mean = torch.where(nan, 0.0, xs).sum(dim=1) / count
+        dev = torch.where(nan, 0.0, xs - mean[:, None])
+        std = torch.maximum(torch.sqrt((dev * dev).sum(dim=1) / count), eps)
+        outs0.append(mean if with_mean else torch.zeros_like(mean))
+        outs1.append(std if with_std else torch.ones_like(std))
+    return torch.stack(outs0, dim=1), torch.stack(outs1, dim=1)

@@ -5,8 +5,12 @@ A bucket of M machines that share one model definition is built in a few
 kernel launches per length group, the port of the XLA program
 ``fleet.exact`` (``_exact_fleet_program``):
 
-1. ``scaler_stats`` (K3): the pipeline MinMax of every CV fold's train
-   rows and of the full series, and the detector MinMax of the targets;
+1. K3: the pipeline's scaler chain on every CV fold's train rows and on
+   the full series, one launch per step (``scaler_stats`` for MinMax and
+   Standard, ``scaler_quantiles`` for Robust; each step's stats taken on
+   the previous step's output, which the kernel applies as it loads), and
+   the detector scaler's stats of the targets.  The chain's maps fold into
+   one ``x * scale + offset`` (M, G, F) that the fits and the scorer take;
 2. ``fleet_fit`` (K1 + K2): the K fold fits and the final fit of every
    machine, one launch;
 3. ``fleet_score`` (K5): every fold's out-of-fold prediction, tag error
@@ -30,8 +34,9 @@ single-machine ``DiffBasedAnomalyDetector.cross_validate`` runs through
 Pad-up mode (``pad_lengths``), the port of ``fleet.padded``
 (``_padded_fleet_program``): machines are grouped by row count rounded up,
 and a group's rows past each machine's length are masked, never dropped.
-``X`` and ``y`` stay NaN-padded on the device for ``scaler_stats`` alone,
-which skips NaN as ``jnp.nanmin``/``jnp.nanmax`` do; the fits and the
+``X`` and ``y`` stay NaN-padded on the device for the stat kernels alone,
+which skip NaN as ``jnp.nanmin``, ``jnp.nanmean`` and
+``jnp.nanpercentile`` do (a NaN stays NaN through the chain); the fits and the
 out-of-fold scoring read zero-filled copies (JAX's ``Xz``/``yz``: NaN
 anywhere becomes 0) and, through per-slot counts, only each machine's real
 rows: ``fleet_fit`` and the LSTM fit weigh rows (windows) past a machine's
@@ -60,11 +65,10 @@ from gordo_tpu_torch.kernels.cv_epilogue import cv_epilogue
 from gordo_tpu_torch.kernels.fleet_fit import fleet_fit, geometry
 from gordo_tpu_torch.kernels.fleet_score import fleet_score
 from gordo_tpu_torch.kernels.lstm_layer import lstm_layer
-from gordo_tpu_torch.kernels.scaler_stats import scaler_stats
 from gordo_tpu_torch.models.estimator import AutoEncoder, LSTMAutoEncoder, LSTMForecast
 from gordo_tpu_torch.models.factories.feedforward import layer_names
 from gordo_tpu_torch.models.factories.lstm import lstm_state
-from gordo_tpu_torch.ops.scalers import MinMaxScaler
+from gordo_tpu_torch.ops.scalers import PORTED_SCALERS, BaseTransform, affine, fold
 from gordo_tpu_torch.parallel.fleet import (
     Draws,
     chain_of,
@@ -81,8 +85,9 @@ from gordo_tpu_torch.train.cv import METRIC_NAMES, build_splitter, summarize
 from gordo_tpu_torch.train.fit import TrainConfig, adam_hparams
 from gordo_tpu_torch.train.lstm_fit import lstm_fit, window_fit
 
-#: scalers whose stats the port computes (K3)
-FLEETABLE_SCALERS = (MinMaxScaler,)
+#: scalers whose stats the port computes (K3): the pipeline's chain steps
+#: and the detector scaler
+FLEETABLE_SCALERS = PORTED_SCALERS
 
 logger = logging.getLogger(__name__)
 
@@ -95,7 +100,7 @@ class FleetSpec:
     """Everything needed to run one homogeneous bucket as a fleet build."""
 
     detector_proto: DiffBasedAnomalyDetector
-    scaler_protos: List[MinMaxScaler]       # pipeline scalers, in order
+    scaler_protos: List[BaseTransform]      # pipeline scalers, in order
     estimator_proto: Any                    # AutoEncoder, LSTMAutoEncoder, LSTMForecast
     train_cfg: TrainConfig
     factory_kwargs: Dict[str, Any]
@@ -114,9 +119,14 @@ class FleetSpec:
         return (
             type(self.detector_proto).__name__,
             self.detector_proto.window,
-            tuple((type(s).__name__, tuple(s.feature_range)) for s in self.scaler_protos),
-            (type(self.detector_proto.scaler).__name__,
-             tuple(self.detector_proto.scaler.feature_range)),
+            tuple(
+                (type(s).__name__, tuple(sorted(s._stat_options().items())))
+                for s in self.scaler_protos
+            ),
+            (
+                type(self.detector_proto.scaler).__name__,
+                tuple(sorted(self.detector_proto.scaler._stat_options().items())),
+            ),
             type(self.estimator_proto).__name__,
             self.estimator_proto.kind,
             self.train_cfg,
@@ -132,7 +142,7 @@ def analyze_definition(model) -> Optional[FleetSpec]:
     if not isinstance(model.scaler, FLEETABLE_SCALERS):
         return None
     base = model.base_estimator
-    scalers: List[MinMaxScaler] = []
+    scalers: List[BaseTransform] = []
     if isinstance(base, Pipeline):
         for _, step in base.steps[:-1]:
             if not isinstance(step, FLEETABLE_SCALERS):
@@ -176,31 +186,28 @@ def module_for(spec: FleetSpec, n_features: int, n_out: int):
     return factory(n_features=n_features, n_features_out=n_out, **spec.factory_kwargs)
 
 
-def _scaler_range(spec: FleetSpec) -> Optional[Tuple[float, float]]:
-    if len(spec.scaler_protos) > 1:
-        raise NotImplementedError(
-            "a pipeline of several scalers waits for ROADMAP queue 1 item 2 "
-            "(training: the other scalers and pipeline containers)"
-        )
-    return spec.scaler_protos[0].feature_range if spec.scaler_protos else None
-
-
 def _stats(spec: FleetSpec, X: torch.Tensor, y: torch.Tensor, fit_rows):
-    """(K3) each fit's pipeline MinMax (M, G, F) (ones and zeros without a
-    scaler step) and the detector's MinMax of the targets (M, 1, Fo).  NaN
-    rows (a pad-up group's padding) are skipped, as ``jnp.nanmin`` /
-    ``jnp.nanmax`` skip them."""
+    """(K3) the port of ``_make_scale_chain`` and of the detector scaler's
+    stats, one stats launch per chain step over every fit's row list: step
+    i's stats (M, G, F) taken on step i-1's output (the kernels apply the
+    earlier steps as they load), the chain folded into one map ``scale``/
+    ``offset`` (M, G, F) (ones and zeros without a scaler step), the
+    detector scaler's stats of the targets (M, 1, Fo) and its map.  NaN
+    rows (a pad-up group's padding) stay NaN through the chain and fall
+    out of every statistic, as in the reference."""
     M, N, F = (int(s) for s in X.shape)
-    feature_range = _scaler_range(spec)
-    if feature_range is None:
+    steps, prefix = [], []
+    for proto in spec.scaler_protos:
+        a, b = proto.stats_of(X, fit_rows, prefix=prefix)
+        steps.append((a, b))
+        prefix.append((proto.FORM, a, b))
+    folded = fold([affine(type(p), a, b) for p, (a, b) in zip(spec.scaler_protos, steps)])
+    if folded is None:
         scale = torch.ones((M, len(fit_rows), F), dtype=torch.float32, device=X.device)
-        offset = torch.zeros_like(scale)
-    else:
-        scale, offset = scaler_stats(X, fit_rows, feature_range)
-    det_scale, det_offset = scaler_stats(
-        y, [np.arange(N)], spec.detector_proto.scaler.feature_range
-    )
-    return scale, offset, det_scale, det_offset
+        folded = (scale, torch.zeros_like(scale))
+    det = spec.detector_proto.scaler
+    det_stats = det.stats_of(y, [np.arange(N)])
+    return steps, folded, det_stats, affine(type(det), *det_stats)
 
 
 def chain_dims(spec: FleetSpec, n_features: int, n_out: int):
@@ -238,8 +245,10 @@ def exact_fleet_program(
     of each machine (``parallel.fleet.stack_warm_params``; default the
     seed's draw), with the seed's permutations (``fleet.exact_warm``).
     Returns device tensors: ``scale``/``offset`` (M, G, F) each fit's
-    pipeline MinMax (None without a scaler step), ``det_scale``/
-    ``det_offset`` (M, Fo), ``layers`` ``[(W (M, G, in, out), b (M, G,
+    folded pipeline map (None without a scaler step), ``steps`` each chain
+    step's own stats leaves (M, G, F) in its ``STAT_KEYS`` order,
+    ``det_scale``/``det_offset`` (M, Fo) the detector scaler's map and
+    ``det_stats`` its stats leaves (M, Fo), ``layers`` ``[(W (M, G, in, out), b (M, G,
     out)), ...]``, ``history`` (M, G, epochs); with folds also
     ``feature_thresholds`` (M, Fo), ``aggregate_threshold`` (M,),
     ``metrics`` {name: (M, K)} and the out-of-fold ``predictions`` (M, K,
@@ -285,7 +294,7 @@ def _fleet_program(spec, X, y, folds, final, draws, route, params0, lens) -> Dic
     Fo = int(y.shape[2])
     fit_rows = [np.asarray(tr) for tr, _ in folds] + ([np.arange(N)] if final else [])
     G = len(fit_rows)
-    scale, offset, det_scale, det_offset = _stats(spec, X, y, fit_rows)
+    steps, (scale, offset), det_stats, (det_scale, det_offset) = _stats(spec, X, y, fit_rows)
     counts = None
     if lens is not None:
         # what the fits and the scorer read: the rows zero-filled (JAX's Xz,
@@ -301,8 +310,10 @@ def _fleet_program(spec, X, y, folds, final, draws, route, params0, lens) -> Dic
     out: Dict[str, Any] = {
         "scale": scale if spec.scaler_protos else None,
         "offset": offset if spec.scaler_protos else None,
+        "steps": steps,
         "det_scale": det_scale[:, 0],
         "det_offset": det_offset[:, 0],
+        "det_stats": tuple(t[:, 0] for t in det_stats),
     }
     if spec.window_mode != "none":
         L, off = spec.lookback, spec.offset
@@ -681,15 +692,16 @@ class FleetDiffBuilder:
         out = g.out
         K = len(g.folds)
         t0 = time.time()
+        spec = self.spec
         host = {
-            # fit slot K is the final full-data fit, the only one kept
-            "scaler_stats": [] if out["scale"] is None else [{
-                "scale": out["scale"][:, K].cpu().numpy(),
-                "offset": out["offset"][:, K].cpu().numpy(),
-            }],
+            # each step's own stats under the reference's keys; fit slot K
+            # is the final full-data fit, the only one kept
+            "scaler_stats": [
+                {k: t[:, K].cpu().numpy() for k, t in zip(proto.STAT_KEYS, leaves)}
+                for proto, leaves in zip(spec.scaler_protos, out["steps"])
+            ],
             "det_scaler_stats": {
-                "scale": out["det_scale"].cpu().numpy(),
-                "offset": out["det_offset"].cpu().numpy(),
+                k: t.cpu().numpy() for k, t in zip(spec.detector_proto.scaler.STAT_KEYS, out["det_stats"])
             },
             "final_layers": [
                 (W[:, K:].cpu().numpy(), b[:, K:].cpu().numpy()) for W, b in out["layers"]

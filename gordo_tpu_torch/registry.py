@@ -49,6 +49,8 @@ def lookup_factory(model_type: str, kind: str) -> Callable:
 _DETECTOR = "gordo_tpu_torch.anomaly.diff.DiffBasedAnomalyDetector"
 _PIPELINE = "gordo_tpu_torch.pipeline.Pipeline"
 _MINMAX = "gordo_tpu_torch.ops.scalers.MinMaxScaler"
+_STANDARD = "gordo_tpu_torch.ops.scalers.StandardScaler"
+_ROBUST = "gordo_tpu_torch.ops.scalers.RobustScaler"
 _AUTOENCODER = "gordo_tpu_torch.models.estimator.AutoEncoder"
 _LSTM_AE = "gordo_tpu_torch.models.estimator.LSTMAutoEncoder"
 _LSTM_FORECAST = "gordo_tpu_torch.models.estimator.LSTMForecast"
@@ -58,6 +60,8 @@ ALIASES: Dict[str, str] = {
     "gordo_tpu.anomaly.diff.DiffBasedAnomalyDetector": _DETECTOR,
     "gordo_tpu.pipeline.Pipeline": _PIPELINE,
     "gordo_tpu.ops.scalers.MinMaxScaler": _MINMAX,
+    "gordo_tpu.ops.scalers.StandardScaler": _STANDARD,
+    "gordo_tpu.ops.scalers.RobustScaler": _ROBUST,
     "gordo_tpu.models.estimator.AutoEncoder": _AUTOENCODER,
     "gordo_tpu.models.estimator.KerasAutoEncoder": _AUTOENCODER,
     "gordo_tpu.models.estimator.LSTMAutoEncoder": _LSTM_AE,
@@ -68,6 +72,10 @@ ALIASES: Dict[str, str] = {
     "sklearn.pipeline.Pipeline": _PIPELINE,
     "sklearn.preprocessing.MinMaxScaler": _MINMAX,
     "sklearn.preprocessing.data.MinMaxScaler": _MINMAX,
+    "sklearn.preprocessing.StandardScaler": _STANDARD,
+    "sklearn.preprocessing.data.StandardScaler": _STANDARD,
+    "sklearn.preprocessing.RobustScaler": _ROBUST,
+    "sklearn.preprocessing.data.RobustScaler": _ROBUST,
     "gordo_components.model.models.KerasAutoEncoder": _AUTOENCODER,
     "gordo_components.model.models.KerasRawModelRegressor": _AUTOENCODER,
     "gordo_components.model.models.KerasLSTMAutoEncoder": _LSTM_AE,
@@ -94,13 +102,9 @@ _ITEM_TRAINING = (
 )
 
 UNPORTED: Dict[str, str] = {}
-for _path in (
-    "StandardScaler", "RobustScaler", "QuantileTransformer",
-    "FunctionTransformer", "SimpleImputer", "PCA",
-):
+for _path in ("QuantileTransformer", "FunctionTransformer", "SimpleImputer", "PCA"):
     UNPORTED[f"gordo_tpu.ops.scalers.{_path}"] = _ITEM_TRAINING
 for _path in (
-    "preprocessing.StandardScaler", "preprocessing.RobustScaler",
     "preprocessing.QuantileTransformer", "preprocessing.FunctionTransformer",
     "impute.SimpleImputer", "decomposition.PCA",
 ):

@@ -53,7 +53,10 @@ def _signature(chain: Dict[str, Any]) -> Optional[Tuple]:
         chain["cell_acts"],
         tuple(W.shape for W, _ in chain["layers"]),
         chain["acts"],
-        len(chain["scalers"]),
+        # each step's and the detector's scaler class: a bucket casts each
+        # step's own leaves, stacked, before it folds them
+        tuple(cls.__name__ for cls, _ in chain["scalers"]),
+        det["scaler"][0].__name__,
         det["window"],
         det["feature_thresholds"] is not None,
     )

@@ -44,7 +44,7 @@ from gordo_tpu_torch.kernels.fleet_score import fleet_score, slot_ints
 from gordo_tpu_torch.kernels.lstm_layer import launch_plan, lstm_layer
 from gordo_tpu_torch.kernels.rolling_median import MAX_WINDOW, rolling_median
 from gordo_tpu_torch.models.estimator import AutoEncoder, LSTMAutoEncoder, LSTMForecast
-from gordo_tpu_torch.ops.scalers import MinMaxScaler
+from gordo_tpu_torch.ops.scalers import PORTED_SCALERS, affine, fold
 from gordo_tpu_torch.pipeline import Pipeline
 from gordo_tpu_torch.serve import precision
 
@@ -59,18 +59,19 @@ def short_rows_message(offset: int, rows: int) -> str:
     return f"needs more than {offset} rows (lookback window), got {rows}"
 
 
-def _minmax_stats(step, what: str):
-    if not isinstance(step, MinMaxScaler):
+def _scaler_stats(step, what: str):
+    """``(class, stats leaves)`` of a fitted scaler the port serves: its
+    own leaves in ``STAT_KEYS`` order, which :class:`_Stack` casts and then
+    folds."""
+    if not isinstance(step, PORTED_SCALERS):
         raise NotImplementedError(
             f"{what} {type(step).__name__} waits for ROADMAP queue 1 item 2 "
-            "(training: the other scalers); the port serves MinMaxScaler"
+            "(training: the other scalers); the port serves MinMaxScaler, "
+            "StandardScaler and RobustScaler"
         )
     if step.stats_ is None:
         raise RuntimeError(f"{what} {type(step).__name__} is not fitted")
-    return (
-        np.asarray(step.stats_["scale"], np.float32),
-        np.asarray(step.stats_["offset"], np.float32),
-    )
+    return type(step), tuple(np.asarray(step.stats_[k], np.float32) for k in step.STAT_KEYS)
 
 
 def _check_kernel_limits(cells, window: int) -> None:
@@ -100,7 +101,7 @@ def _extract_chain(model) -> Dict[str, Any]:
 
     scalers = []
     if isinstance(base, Pipeline):
-        scalers = [_minmax_stats(step, "pipeline step") for _, step in base.steps[:-1]]
+        scalers = [_scaler_stats(step, "pipeline step") for _, step in base.steps[:-1]]
         est = base._final
     else:
         est = base
@@ -139,15 +140,13 @@ def _extract_chain(model) -> Dict[str, Any]:
         # the dense stack; an LSTM's head alone
         "layers": [(host(lin.weight).T.copy(), host(lin.bias)) for lin, _ in dense],
         "acts": tuple(act for _, act in dense),
-        # each scaler's (scale, offset); _Stack folds them into one map
+        # each scaler's (class, stats leaves); _Stack folds them into one map
         "scalers": scalers,
         "detector": None,
     }
     if detector is not None:
-        ds, do = _minmax_stats(detector.scaler, "detector scaler")
         chain["detector"] = {
-            "scale": ds,
-            "offset": do,
+            "scaler": _scaler_stats(detector.scaler, "detector scaler"),
             "feature_thresholds": detector.feature_thresholds_,
             "aggregate_threshold": detector.aggregate_threshold_,
             "require_thresholds": detector.require_thresholds,
@@ -165,11 +164,14 @@ class _Stack:
     ``stacked``: a bucket of the fleet scorer.  The reference's bucket path
     stores its stacked leaves in bf16 and quantises each (int8) with one
     scale across its machines; the per-machine path quantises the float32
-    leaf.  Consecutive pipeline scalers fold into one affine map, each
-    scaler's stats cast (quantised) first, as the reference casts each
-    leaf; the fold is taken in f32 and its result stored at the storage
-    dtype (at reduced precision with two or more scalers, one more bf16
-    rounding than the reference's)."""
+    leaf.  Each scaler's own stats leaves (MinMax's scale and offset,
+    Standard's mean and std, Robust's center and scale) are cast
+    (quantised) first, as the reference casts each leaf; then the pipeline
+    chain folds into one affine map ``x * scale + offset`` and the detector
+    scaler becomes one, in f32 (``ops.scalers.affine``, ``fold``), stored
+    at the storage dtype (at reduced precision, one more bf16 rounding
+    than the reference's where a step is not MinMax or the chain has two
+    or more)."""
 
     def __init__(
         self,
@@ -204,25 +206,25 @@ class _Stack:
             (put([c["layers"][i][0] for c in chains]), put([c["layers"][i][1] for c in chains]))
             for i in range(len(c0["layers"]))
         ]
+        def scaler_map(stats):
+            """The map of one scaler of every chain, from its leaves, each
+            cast first."""
+            leaves = [put([s[1][k] for s in stats]).float() for k in range(2)]
+            return affine(stats[0][0], *leaves)
+
         self.scale = self.offset = None
-        for i in range(len(c0["scalers"])):
-            s = put([c["scalers"][i][0] for c in chains])
-            o = put([c["scalers"][i][1] for c in chains])
-            if self.scale is None:
-                self.scale, self.offset = s, o
-            else:  # x * s1 * s2 + (o1 * s2 + o2), in f32
-                s = s.float()
-                self.scale, self.offset = self.scale.float() * s, self.offset.float() * s + o.float()
-        if self.scale is not None:
-            self.scale = precision.cast_storage(self.scale, self.dtype)
-            self.offset = precision.cast_storage(self.offset, self.dtype)
+        folded = fold([scaler_map([c["scalers"][i] for c in chains]) for i in range(len(c0["scalers"]))])
+        if folded is not None:
+            self.scale, self.offset = (precision.cast_storage(t.contiguous(), self.dtype) for t in folded)
         self.det_scale = self.det_offset = self.agg_thr = None
         self.thresholds_np = self.agg_thresholds_np = None
         self.with_thresholds = False
         if c0["detector"] is not None:
             dets = [c["detector"] for c in chains]
-            self.det_scale = put([d["scale"] for d in dets])
-            self.det_offset = put([d["offset"] for d in dets])
+            self.det_scale, self.det_offset = (
+                precision.cast_storage(t.contiguous(), self.dtype)
+                for t in scaler_map([d["scaler"] for d in dets])
+            )
             self.with_thresholds = all(d["feature_thresholds"] is not None for d in dets)
             if self.with_thresholds:
                 self.thresholds_np = np.stack(

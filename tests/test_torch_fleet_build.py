@@ -111,7 +111,9 @@ def test_fleet_build_refuses_unported_modes(inputs):
     # pad-up and warm builds are ported (tests/test_torch_padded_build.py):
     # a pad-up group whose machine is too short for its last test block is
     # built exactly, and a warm set of the wrong leaves is refused; a
-    # pipeline of several scalers still waits for its item
+    # pipeline of several scalers is built as the JAX package builds it
+    # (each step's stats on the previous step's output), and a scaler still
+    # unported is refused by name
     spec = analyze_definition(from_definition(definition()))
     padded = FleetDiffBuilder(spec, pad_lengths=500, device="cpu").build(inputs[:1])
     exact = FleetDiffBuilder(spec, device="cpu").build(inputs[:1])
@@ -120,10 +122,30 @@ def test_fleet_build_refuses_unported_modes(inputs):
     with pytest.raises(ValueError, match="leaf signature"):
         FleetDiffBuilder(spec, device="cpu").build(inputs[:1], warm_params=[{}])
     two = definition()
-    two["gordo_tpu.anomaly.diff.DiffBasedAnomalyDetector"]["base_estimator"][
-        "gordo_tpu.pipeline.Pipeline"]["steps"].insert(0, "gordo_tpu.ops.scalers.MinMaxScaler")
+    steps = two["gordo_tpu.anomaly.diff.DiffBasedAnomalyDetector"]["base_estimator"][
+        "gordo_tpu.pipeline.Pipeline"]["steps"]
+    steps.insert(0, "gordo_tpu.ops.scalers.MinMaxScaler")
+    ref = JaxBuilder(jax_analyze(jax_from_definition(two))).build(inputs[:1])[0]
+    got = FleetDiffBuilder(analyze_definition(from_definition(two)), device="cpu",
+                           draws=jax_draws).build(inputs[:1])[0]
+    assert len(got.base_estimator.steps) == 3
+    first_ref, first = ref.base_estimator.steps[0][1], got.base_estimator.steps[0][1]
+    for key in ("scale", "offset"):
+        assert r12(first_ref.stats_[key], first.stats_[key]) <= STATS_TOL, key
+    # the second step's stats are taken on the first step's output; its
+    # offsets are rounding residue (~1e-8 in the reference, whose XLA:CPU
+    # fuses x * scale + offset into one rounding; 0 in the port), so it is
+    # held through what it does: its output on the first step's output
+    Z = np.asarray(first_ref.transform(inputs[0]))
+    second_ref, second = ref.base_estimator.steps[1][1], got.base_estimator.steps[1][1]
+    assert r12(np.asarray(second_ref.transform(Z)), second.transform(Z)) <= STATS_TOL
+    assert r12(ref.feature_thresholds_, got.feature_thresholds_) <= FIT_TOL
+    assert r12(ref.aggregate_threshold_, got.aggregate_threshold_) <= FIT_TOL
+    unported = definition()
+    unported["gordo_tpu.anomaly.diff.DiffBasedAnomalyDetector"]["base_estimator"][
+        "gordo_tpu.pipeline.Pipeline"]["steps"].insert(0, "gordo_tpu.ops.scalers.QuantileTransformer")
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        FleetDiffBuilder(analyze_definition(from_definition(two)), device="cpu").build(inputs[:1])
+        from_definition(unported)
 
 
 def test_analyze_definition_matches_jax():

@@ -67,6 +67,8 @@ def test_every_port_module_imports_with_jax_and_gordo_tpu_blocked():
         "gordo_tpu_torch.parallel.anomaly",
         "gordo_tpu_torch.kernels.fleet_fit",
         "gordo_tpu_torch.kernels.scaler_stats",
+        "gordo_tpu_torch.kernels.scaler_quantiles",
+        "gordo_tpu_torch.ops.scalers",
         "gordo_tpu_torch.kernels.cv_epilogue",
         "gordo_tpu_torch.kernels.lstm_layer",
         "gordo_tpu_torch.kernels.rolling_median",
