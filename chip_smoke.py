@@ -189,14 +189,34 @@ itself.  Phases, each printing one JSON line:
    on the CPU) and 24 rows streamed into four (one ``stream_step`` a row,
    every verdict the request path's bit for bit).
 
+25. ``transform_kernel_check``: K12 (``chain_apply``) against its plain
+   version on the card over every step form (imputer, centre, multiply,
+   expm1, add, log1p, PCA at k = 8, 10 and the full width, affine) on
+   rows with NaN cells, QuantileTransformer steps (Q = 100 uniform and
+   normal, Q = 1,000 normal) over quantised rows whose grids tie, and
+   chain A's steps, at 576 × 10 and 4,096 × 128; ``scaler_quantiles``'
+   grid variant (Q = 100, and the median) and ``scaler_stats``' means (a
+   NaN column) at 576 × 10 and on a year of 10-minute rows (52,560 × 10),
+   Robust's kernel rechecked there; times, bounds, and
+   ``torch.nanquantile``, ``torch.nanmedian``, ``torch.mean`` and
+   ``torch.nanmean`` beside the statistics.
+26. ``transform_build``: ``build_project`` of a 16-machine RandomDataset
+   YAML (576 rows × 10 tags; 8 chain A, 6 chain B and 2 chain B with a
+   uniform output) through the singles pass on the card (seconds, stage
+   split, the card's busy share, launches of every kernel set to 0 just
+   before), the same machines built again through the plain versions on
+   the card and held per machine, then served over HTTP per machine and
+   in bulk with NaN cells in the request rows (one ``chain_apply`` and one
+   ``fleet_score`` launch a machine), held to the plain scorer on the CPU.
+
 The holds of a build to its plain program (phases 12, 13 and 24) and of
 the ragged ``fleet_fit`` (phase 11) admit an array that misses its bound
 only within the smaller of the plain version's movements from initial
 params one ulp up and one ulp down, and at most ``ONE_ULP_ADMITTED``
 arrays and machines a hold.
 
-Every build of phases 6 to 22 and 24 draws its initial params and permutations
-through ``fleet_init`` (one launch a length group), counted with the
+Every build of phases 6 to 22, 24 and 26 draws its initial params and permutations
+through ``fleet_init`` (one launch a length group, or a fit on the single path), counted with the
 build's kernels.
 
 Then the ``kernels`` summary line (``cv_epilogue``'s launches in pad-up
@@ -206,8 +226,10 @@ are the bf16 instantiations, whose launches are also in ``fleet_score``'s
 and ``lstm_layer``'s; ``stream_step`` counts the scoring launches and the
 LSTM rows' shifts; ``fleet_fit_stateful`` and ``fleet_fit_weighted``
 are ``fleet_fit`` resumed and with row weights, whose launches are not in
-``fleet_fit``'s; ``scaler_stats_standard`` is ``scaler_stats``' Standard
-statistic, whose launches are also in ``scaler_stats``') and, last,
+``fleet_fit``'s; ``scaler_stats_standard`` and ``scaler_stats_mean`` are
+``scaler_stats``' Standard and mean statistics, whose launches are also in
+``scaler_stats``'; ``scaler_quantiles_grid`` is ``scaler_quantiles``' grid
+variant, whose launches are not in ``scaler_quantiles``') and, last,
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero without a result; so does
 a run without CUDA or outside a checkout of the repository.
 """
@@ -471,7 +493,7 @@ def phase_build():
     paths = build.build("fleet_score", "fleet_fit", "scaler_stats", "cv_epilogue",
                         "lstm_layer", "rolling_median", "lstm_layer_bwd", "lstm_head_fit",
                         "fleet_adam", "fake_quant", "stream_step", "fleet_apply", "fleet_init",
-                        "scaler_quantiles")
+                        "scaler_quantiles", "chain_apply")
     seconds = time.perf_counter() - t0
     ptxas = []
     for p in paths:
@@ -4309,6 +4331,466 @@ def phase_scaler_build():
     return info
 
 
+TRANSFORM_SHAPES = [(576, 10), (4096, 128)]
+#: QuantileTransformer's default grid, and the year of 10-minute rows the
+#: grid statistic also runs on
+TRANSFORM_Q = 100
+TRANSFORM_YEAR = 52_560
+#: K12 and the single-machine statistics against their plain versions on
+#: the card, max |kernel - plain| / max |plain| over the finite values (the
+#: NaNs must sit at the same places): chain_apply's PCA sums in another
+#: order than cuBLAS (the other steps round as the plain version's
+#: separate operations do, the FMAs as its float64 ones); the grid's
+#: selection is exact and its interpolation the plain version's FMA
+#: (expected 0, a double rounding in float64 at most 1 ulp); the means sum
+#: in XLA:CPU's tree order on both sides (expected 0)
+TRANSFORM_TOLERANCE = {"chain_apply": 1e-5, "grid": 1e-6, "mean": 1e-6}
+#: chain A and chain B of the single-machine path, the JAX package's paths
+CHAIN_A = {
+    "gordo_tpu.anomaly.diff.DiffBasedAnomalyDetector": {
+        "base_estimator": {"gordo_tpu.pipeline.Pipeline": {"steps": [
+            {"gordo_tpu.ops.scalers.SimpleImputer": {"strategy": "median"}},
+            {"gordo_tpu.ops.scalers.FunctionTransformer": {
+                "func": "gordo_tpu.ops.transformer_funcs.multiplier", "kw_args": {"factor": 2}}},
+            {"gordo_tpu.ops.scalers.PCA": {"n_components": 8}},
+            "gordo_tpu.ops.scalers.MinMaxScaler",
+            {"gordo_tpu.models.estimator.AutoEncoder": {"kind": "feedforward_hourglass"}},
+        ]}}
+    }
+}
+
+
+def chain_b(distribution: str = "normal") -> dict:
+    return {
+        "gordo_tpu.anomaly.diff.DiffBasedAnomalyDetector": {
+            "base_estimator": {"gordo_tpu.pipeline.Pipeline": {"steps": [
+                {"gordo_tpu.ops.scalers.QuantileTransformer": {
+                    "n_quantiles": TRANSFORM_Q, "output_distribution": distribution}},
+                {"gordo_tpu.models.estimator.AutoEncoder": {"kind": "feedforward_hourglass"}},
+            ]}}
+        }
+    }
+
+
+#: the transform build's project: machines of chain A, of chain B (normal)
+#: and of chain B with a uniform output; rows of each request; the
+#: machines whose responses are held to the plain scorer on the CPU
+TRANSFORM_FLEET = {"chain_a": 8, "chain_b": 6, "chain_b_uniform": 2}
+TRANSFORM_ROWS = 576
+TRANSFORM_REQUEST_ROWS = 64
+#: the transform build held to its plain program on the card, per machine
+#: (max |kernel build - plain build| / max |plain build|): the stats as the
+#: kernels', the fits as ``fleet_fit``'s against its plain version, the
+#: rest as the fleet builds'
+TRANSFORM_BUILD_TOLERANCE = {"stats": 1e-5, "params": TRAIN_TOLERANCE["fleet_fit"],
+                             "thresholds": BUILD_TOLERANCE["thresholds"],
+                             "explained_variance_score": BUILD_TOLERANCE["explained_variance_score"],
+                             "mean_squared_error": BUILD_TOLERANCE["mean_squared_error"]}
+
+
+def _masked_err(ref: torch.Tensor, got: torch.Tensor, what: str) -> tuple:
+    """``(max norm error, max abs error)`` over the finite values, the
+    non-finite ones required at the same places with the same values."""
+    ref, got = ref.double(), got.double()
+    fin = torch.isfinite(ref)
+    check(bool((fin == torch.isfinite(got)).all()), f"{what}: non-finite values at the same places")
+    check(bool((torch.isnan(ref) == torch.isnan(got)).all()), f"{what}: NaN at the same places")
+    check(bool((ref[~fin & ~torch.isnan(ref)] == got[~fin & ~torch.isnan(got)]).all()), f"{what}: same infinities")
+    if not bool(fin.any()):
+        return 0.0, 0.0
+    diff = (ref[fin] - got[fin]).abs()
+    return float(diff.max() / ref[fin].abs().max().clamp_min(1e-30)), float(diff.max())
+
+
+def single_stat_bound(n: int, tags: int, nq: int, outputs: int):
+    """Least time for one single-machine statistic (the grid, the median,
+    the means): the (n, F) rows read once and, for the grid, its ``nq``
+    fractions, ``outputs`` values a column written once, one operation a
+    value.  The stat kernels' row-list interface is not the function's
+    work, so its indices are not counted."""
+    return bound(4 * (n * tags + nq + outputs * tags), n * tags)
+
+
+def chain_apply_bound(n: int, steps, f: int):
+    """Least time for one chain_apply call: the rows read once, the steps'
+    stats read once, the output written once; per value 2 operations an
+    affine or centre step, 1 the others, a PCA step 2 F k a row, a quantile
+    step ceil(log2 Q) comparisons and 6 operations (and 40 for ndtri)."""
+    from gordo_tpu_torch.kernels import chain_apply as ca
+
+    w, ops, stats = f, 0.0, 0
+    for st in steps:
+        stats += sum(int(t.numel()) for t in (st.a, st.b) if t is not None)
+        if st.form == ca.PCA:
+            k = int(st.b.shape[1])
+            ops += n * (w + 2 * w * k)
+            w = k
+        elif st.form == ca.QUANTILE:
+            ops += n * w * (math.ceil(math.log2(int(st.a.shape[0]))) + 6 + (40 if st.normal else 0))
+        else:
+            ops += n * w * (2 if st.form in (ca.AFFINE, ca.CENTER) else 1)
+    return bound(4 * (n * f + stats + n * w), ops)
+
+
+def phase_transform_kernel_check():
+    """K12 and the single-machine statistics against their plain versions
+    on the card.  ``chain_apply`` over every step form at each of
+    TRANSFORM_SHAPES: an imputer, centre, multiply, expm1, add, log1p,
+    PCA and affine chain on rows with NaN cells, with PCA at k = 8, 10 and
+    the full width; QuantileTransformer steps of Q = 100
+    (uniform and normal) and Q = 1,000 (normal) on quantised rows, whose
+    grids (from the kernel) tie, with NaN rows; and chains A and B as the
+    build fits them.  ``scaler_quantiles``' grid variant (Q = 100, and the
+    median) at the first shape and on a year of 10-minute rows (52,560 ×
+    10), Robust's kernel rechecked there value for value against its plain
+    version; ``scaler_stats``' mean (``jnp.mean``) with a NaN column and
+    NaN-mean.  Times, bounds, and the library calls: ``torch.nanquantile``
+    over the grid, ``torch.mean`` and ``torch.nanmean``; no one PyTorch
+    call runs a transform chain."""
+    from gordo_tpu_torch.kernels import chain_apply as ca
+    from gordo_tpu_torch.kernels import scaler_quantiles as sq
+    from gordo_tpu_torch.kernels import scaler_stats as ss
+
+    rng = np.random.default_rng(SEED + 31)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)  # noqa: E731
+    entries = {}
+
+    def hold(name, run, plain, bound_info, tol, library=None, reps=20, plain_reps=5):
+        got, ref = run(), plain()
+        outs = list(got) if isinstance(got, (tuple, list)) else [got]
+        refs = list(ref) if isinstance(ref, (tuple, list)) else [ref]
+        errs, worst = [], 0.0
+        for r, g in zip(refs, outs):
+            e, a = _masked_err(r, g, name)
+            errs.append(e)
+            worst = max(worst, a)
+        check(max(errs) <= tol, f"{name} within {tol}: {errs}")
+        entry = {"max_norm_err": max(errs), "max_abs_err": worst, "tolerance": tol, **bound_info}
+        if DEVICE == "cuda":
+            entry["ms"], entry["host_ms"] = time_ms(run, reps)
+            entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, plain_reps)
+            entry["library_ms"] = None if library is None else time_calls_ms(library, plain_reps)[0]
+        entries[name] = entry
+        return got
+
+    # the statistics: the grid, the median, the means
+    rows, tags = TRANSFORM_SHAPES[0]
+    for label, n in (("", rows), ("_year", TRANSFORM_YEAR)):
+        X = np.round(bench_fleet(rng, 1, n, tags) * 8) / 8   # quantised: tied values
+        X[0, rng.random((n, tags)) < 0.01] = np.nan
+        x = put(X)
+        whole = [np.arange(n)]
+        q = put(ca.percentile_fractions(TRANSFORM_Q))
+        reps = 20 if not label else 5
+        hold(f"grid{label}", lambda: sq.scaler_quantiles_grid(x, whole, q),
+             lambda: sq.scaler_quantiles_grid_plain(x, whole, q),
+             single_stat_bound(n, tags, TRANSFORM_Q, TRANSFORM_Q), TRANSFORM_TOLERANCE["grid"],
+             library=lambda: torch.nanquantile(x[0], q, dim=0), reps=reps, plain_reps=3)
+        half = put([0.5])
+        hold(f"median{label}", lambda: sq.scaler_quantiles_grid(x, whole, half, midpoint=True),
+             lambda: sq.scaler_quantiles_grid_plain(x, whole, half, midpoint=True),
+             single_stat_bound(n, tags, 1, 1), TRANSFORM_TOLERANCE["grid"],
+             library=lambda: torch.nanmedian(x[0], dim=0).values, reps=reps, plain_reps=3)
+        # Robust's path, unchanged: its plain version's values exactly (a
+        # zero may come out as -0.0 on one side: the kernel ranks -0 first,
+        # torch.sort keeps the rows' order)
+        hold(f"robust{label}", lambda: sq.scaler_quantiles(x, whole), lambda: sq.scaler_quantiles_plain(x, whole),
+             stat_bound(1, n, tags, whole, 0, 1), 0.0, reps=reps, plain_reps=3)
+        Xm = bench_fleet(rng, 1, n, tags)
+        Xm[0, 5, 3] = np.nan     # jnp.mean keeps a NaN column's NaN
+        xm = put(Xm)
+        hold(f"mean{label}", lambda: ss.scaler_stats(xm, whole, stat="mean")[0],
+             lambda: ss.scaler_stats_plain(xm, whole, stat="mean")[0],
+             single_stat_bound(n, tags, 0, 1), TRANSFORM_TOLERANCE["mean"],
+             library=lambda: torch.mean(xm, dim=1), reps=reps, plain_reps=3)
+        check(bool(torch.isnan(ss.scaler_stats(xm, whole, stat="mean")[0][0, 0, 3])), "a NaN column's mean is NaN")
+        hold(f"nanmean{label}", lambda: ss.scaler_stats(xm, whole, stat="nanmean")[0],
+             lambda: ss.scaler_stats_plain(xm, whole, stat="nanmean")[0],
+             single_stat_bound(n, tags, 0, 1), TRANSFORM_TOLERANCE["mean"],
+             library=lambda: torch.nanmean(xm, dim=1), reps=reps, plain_reps=3)
+
+    # chain_apply: every step form, both quantile outputs, chains A and B
+    for n, f in TRANSFORM_SHAPES:
+        X = bench_fleet(rng, 1, n, f)[0]
+        Xq = np.round(X * 4) / 4                             # quantised rows: tied grid values
+        nan_rows = rng.random(n) < 0.02
+        Xn = X.copy()
+        Xn[nan_rows, rng.integers(0, f, int(nan_rows.sum()))] = np.nan
+        x, xq, xn = put(X), put(Xq), put(Xn)
+        whole = [np.arange(n)]
+        grid = sq.scaler_quantiles_grid(xq[None].contiguous(), whole, put(ca.percentile_fractions(TRANSFORM_Q)))[0, 0]
+        grid_1000 = sq.scaler_quantiles_grid(xq[None].contiguous(), whole, put(ca.percentile_fractions(1000)))[0, 0]
+        check(bool((grid[1:] == grid[:-1]).any()), "the quantised grid has tied entries")
+        xq_nan = xq.clone()
+        xq_nan[torch.from_numpy(nan_rows).to(DEVICE)] = float("nan")
+        mean, std = (put(v) for v in (X.mean(0), X.std(0) + 0.1))
+        fill = put(np.nanmedian(Xn, 0))
+        u, sv, vt = torch.linalg.svd(x - x.mean(0), full_matrices=False)
+        qs = put(ca.unit_linspace(TRANSFORM_Q))
+        for k in sorted({8, 10, f}):
+            comps = vt[:k].contiguous()
+            steps = [ca.Step(ca.IMPUTE, fill), ca.Step(ca.CENTER, mean, std), ca.func_step(ca.MUL, 0.5),
+                     ca.func_step(ca.EXPM1), ca.func_step(ca.ADD, 1.0), ca.func_step(ca.LOG1P),
+                     ca.Step(ca.PCA, put(np.zeros(f)), comps.t().contiguous()),
+                     ca.Step(ca.AFFINE, put(rng.uniform(0.5, 2, k)), put(rng.uniform(-1, 1, k)))]
+            hold(f"every_form_{n}x{f}_k{k}", lambda: ca.chain_apply(xn, steps), lambda: ca.chain_apply_plain(xn, steps),
+                 chain_apply_bound(n, steps, f), TRANSFORM_TOLERANCE["chain_apply"])
+        for label, steps, rows_in in (
+            ("quantile_uniform", [ca.Step(ca.QUANTILE, grid, qs)], xq_nan),
+            ("quantile_normal", [ca.Step(ca.QUANTILE, grid, qs, normal=True)], xq_nan),
+            ("quantile_1000_normal", [ca.Step(ca.QUANTILE, grid_1000, put(ca.unit_linspace(1000)), normal=True)],
+             xq_nan),
+            ("chain_a", [ca.Step(ca.IMPUTE, fill), ca.func_step(ca.MUL, 2.0),
+                         ca.Step(ca.PCA, mean, vt[: min(8, f)].t().contiguous()),
+                         ca.Step(ca.AFFINE, put(rng.uniform(0.5, 2, min(8, f))), put(rng.uniform(-1, 1, min(8, f))))],
+             xn),
+        ):
+            hold(f"{label}_{n}x{f}", lambda: ca.chain_apply(rows_in, steps), lambda: ca.chain_apply_plain(rows_in, steps),
+                 chain_apply_bound(n, steps, f), TRANSFORM_TOLERANCE["chain_apply"])
+    emit({"phase": "transform_kernel_check", "shapes": TRANSFORM_SHAPES, "q": TRANSFORM_Q,
+          "year_rows": TRANSFORM_YEAR, "kernels": entries})
+    if DEVICE == "cuda":
+        torch.cuda.empty_cache()
+    return entries
+
+
+def transform_project(rows: int, tags: int) -> str:
+    """The transform build's project YAML: TRANSFORM_FLEET's machines of
+    chains A and B, each over its own ``tags`` RandomDataset tags and
+    ``rows`` 10-minute rows (``gordo_tpu_torch.bench.project_config``'s
+    dataset), each machine naming its model."""
+    from gordo_tpu_torch.bench import project_config
+
+    machines = sum(TRANSFORM_FLEET.values())
+    text = project_config(machines, tags, rows, seed=12)
+    models = ([CHAIN_A] * TRANSFORM_FLEET["chain_a"] + [chain_b()] * TRANSFORM_FLEET["chain_b"]
+              + [chain_b("uniform")] * TRANSFORM_FLEET["chain_b_uniform"])
+    lines = []
+    for line in text.splitlines():
+        lines.append(line)
+        if line.startswith("    dataset: {tag_list"):
+            lines.append(f"    model: {json.dumps(models.pop(0))}")
+    return "\n".join(lines) + "\n"
+
+
+def _transform_counters():
+    from gordo_tpu_torch.kernels import chain_apply as ca
+    from gordo_tpu_torch.kernels import scaler_quantiles as sq
+    from gordo_tpu_torch.kernels import scaler_stats as ss
+
+    return {"chain_apply": (ca, "launches"), "scaler_quantiles_grid": (sq, "grid_launches"),
+            "scaler_stats_mean": (ss, "mean_launches"), **_ff_counters()}
+
+
+@contextlib.contextmanager
+def plain_single_kernels():
+    """Within: the single-machine path calls the kernels' plain versions
+    (on any device): the transforms' statistics and ``chain_apply``, the
+    fits' draws and ``fleet_fit``, the scorer's ``chain_apply`` and
+    ``fleet_score``."""
+    from gordo_tpu_torch.kernels import chain_apply as ca
+    from gordo_tpu_torch.kernels import fleet_fit as ff
+    from gordo_tpu_torch.kernels import fleet_init as fi
+    from gordo_tpu_torch.kernels import fleet_score as fs
+    from gordo_tpu_torch.kernels import scaler_quantiles as sq
+    from gordo_tpu_torch.kernels import scaler_stats as ss
+    from gordo_tpu_torch.models import estimator
+    from gordo_tpu_torch.ops import scalers
+    from gordo_tpu_torch.parallel import fleet
+    from gordo_tpu_torch.serve import scorer
+
+    plain = {(scalers, "chain_apply"): ca.chain_apply_plain, (scorer, "chain_apply"): ca.chain_apply_plain,
+             (scalers, "scaler_stats"): ss.scaler_stats_plain,
+             (scalers, "scaler_quantiles_grid"): sq.scaler_quantiles_grid_plain,
+             (estimator, "fleet_fit"): ff.fleet_fit_plain, (scorer, "fleet_score"): fs.fleet_score_plain,
+             (fleet, "_fleet_init_kernel"): fi.fleet_init_reference}
+    saved = {key: getattr(*key) for key in plain}
+    for (mod, name), fn in plain.items():
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def _transform_arrays(det) -> dict:
+    """A built transform detector's stats, params, thresholds and CV
+    scores, as float64 arrays by group."""
+    out = {"stats": [], "params": []}
+    for k, v in det.state_arrays().items():
+        if k in ("feature_thresholds", "aggregate_threshold"):
+            continue
+        (out["params"] if ".dense_" in k or ".out." in k else out["stats"]).append(np.asarray(v, np.float64).ravel())
+    arrays = {g: np.concatenate(v) for g, v in out.items()}
+    arrays["thresholds"] = np.append(det.feature_thresholds_, det.aggregate_threshold_).astype(np.float64)
+    scores = det.cv_metadata_["scores"]
+    for name in ("explained_variance_score", "mean_squared_error"):
+        arrays[name] = np.asarray(scores[name]["folds"], np.float64)
+    return arrays
+
+
+def phase_transform_build():
+    """``build_project`` of a RandomDataset project YAML of TRANSFORM_FLEET's
+    chain A and chain B machines (TRANSFORM_ROWS × 10 tags) on the card:
+    each through build-project's singles pass (``build_model``:
+    cross-validation through the generic fold loop, thresholds, the final
+    fit), with the stage split, the launches of every kernel (set to 0 just
+    before) and the card's busy share; the same machines built again with
+    every kernel of the path swapped for its plain version on the card
+    (``plain_single_kernels``) and held per machine (stats, params,
+    thresholds, CV scores); then the model directory served over HTTP:
+    a per-machine anomaly request of TRANSFORM_REQUEST_ROWS rows with NaN
+    cells for every machine and one bulk request of all of them (each
+    machine one ``chain_apply`` and one ``fleet_score`` launch), held to
+    the plain scorer on the CPU."""
+    from gordo_tpu_torch import serializer
+    from gordo_tpu_torch.bench import busy_share
+    from gordo_tpu_torch.builder.build_model import build_model
+    from gordo_tpu_torch.builder.fleet_build import build_project
+    from gordo_tpu_torch.dataset.base import GordoBaseDataset
+    from gordo_tpu_torch.kernels import chain_apply as ca
+    from gordo_tpu_torch.kernels import fleet_score as fs
+    from gordo_tpu_torch.ops.scalers import PCA, QuantileTransformer
+    from gordo_tpu_torch.serve.server import ModelCollection, make_server
+    from gordo_tpu_torch.workflow.config import NormalizedConfig
+
+    machines, tags = sum(TRANSFORM_FLEET.values()), 10
+    device = None if DEVICE == "cuda" else DEVICE
+    counters = _transform_counters()
+    config = NormalizedConfig.from_source(transform_project(TRANSFORM_ROWS, tags), "transforms")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_transforms_") as tmp:
+        # a first build of one machine of each chain loads cuSOLVER and the
+        # kernels, outside the counted build
+        build_project([config.machines[0], config.machines[-1]], os.path.join(tmp, "warm"), device=device)
+        out_dir = os.path.join(tmp, "models")
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        timed = busy_share(lambda: build_project(config.machines, out_dir, device=device),
+                           DEVICE if DEVICE == "cuda" else "cpu")
+        result = timed["result"]
+        launches = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+        check(not result.failed and len(result.single_built) == machines and not result.fleet_built,
+              f"build_project built {len(result.single_built)} of {machines} singles: {result.failed}")
+        if DEVICE == "cuda":
+            # per machine: 3 fold fits and the final fit, each one fleet_init
+            # and one fleet_fit, each fitting the chain's steps in turn (A:
+            # the median's grid, PCA's mean and MinMax's stats, and five
+            # chain_apply launches, one a step and PCA's centring; B: the
+            # grid and one chain_apply); each fold's scoring request one
+            # chain_apply and one fleet_score; the detector scaler's MinMax
+            # stats twice (cross-validation and the final fit)
+            folds, fits = 3, 4
+            a, b = TRANSFORM_FLEET["chain_a"], machines - TRANSFORM_FLEET["chain_a"]
+            want = {"fleet_fit": machines * fits, "fleet_init": machines * fits,
+                    "fleet_score": machines * folds, "scaler_quantiles_grid": machines * fits,
+                    "scaler_stats_mean": a * fits, "scaler_stats": 2 * a * fits + 2 * machines,
+                    "chain_apply": (5 * a + b) * fits + machines * folds,
+                    "cv_epilogue": 0, "scaler_quantiles": 0, "scaler_stats_standard": 0}
+            check(launches == want, f"transform build launches {launches}, expected {want}")
+        models = {n: serializer.load(os.path.join(out_dir, n)) for n in sorted(os.listdir(out_dir))
+                  if serializer.is_artifact_dir(os.path.join(out_dir, n))}
+        check(len(models) == machines, f"{len(models)} artifacts written")
+        for det in models.values():
+            check(bool(np.isfinite(det.feature_thresholds_).all()), "finite thresholds")
+            first = det.base_estimator.steps[0][1]
+            if isinstance(first, QuantileTransformer):
+                check(first.stats_["grid"].shape == (TRANSFORM_Q, tags), "the quantile grid's shape")
+            else:
+                pca = det.base_estimator.steps[2][1]
+                check(isinstance(pca, PCA) and pca.stats_["components"].shape == (8, tags), "PCA (8, 10)")
+
+        # where the time of the singles pass went, from each artifact's
+        # metadata (build_model's data, cross-validation and fit seconds)
+        singles_split = {"data": 0.0, "cross_validation": 0.0, "fit": 0.0}
+        for n in models:
+            meta = serializer.load_metadata(os.path.join(out_dir, n))["model"]
+            singles_split["data"] += meta["data_query_duration_sec"]
+            singles_split["cross_validation"] += meta["cross_validation_duration_sec"]
+            singles_split["fit"] += meta["model_builder_duration_sec"]
+        data = {m.name: np.asarray(GordoBaseDataset.from_dict(dict(m.dataset)).get_data()[0], np.float32)
+                for m in config.machines}
+        # the card's SVD against the CPU's on the same rows: chain A's PCA
+        # refitted on the CPU from the card's imputed and multiplied rows
+        svd = {"components": 0, "sign_flips": 0, "max_abs_gap": 0.0}
+        for n, det in models.items():
+            steps = [st for _, st in det.base_estimator.steps]
+            if not any(isinstance(st, PCA) for st in steps):
+                continue
+            Z = steps[1].transform(steps[0].transform(data[n]))
+            cpu = PCA(n_components=8).fit(Z, device="cpu").stats_["components"]
+            card = steps[2].stats_["components"]
+            dots = np.sum(cpu.astype(np.float64) * card, axis=1)
+            svd["components"] += len(dots)
+            svd["sign_flips"] += int((dots < 0).sum())
+            svd["max_abs_gap"] = max(svd["max_abs_gap"], float(np.abs(np.abs(cpu) - np.abs(card)).max()))
+
+        # the same machines through the plain versions on the card
+        worst = {}
+        with plain_single_kernels():
+            for m in config.machines:
+                plain_det, _ = build_model(m.name, m.model, m.dataset, m.metadata, m.evaluation, device=device)
+                ref, got = _transform_arrays(plain_det), _transform_arrays(models[m.name])
+                for key, r in ref.items():
+                    err = float(np.abs(r - got[key]).max() / max(np.abs(r).max(), 1e-30))
+                    worst[key] = max(worst.get(key, 0.0), err)
+        _check_worst(worst, TRANSFORM_BUILD_TOLERANCE, "transform build against its plain program")
+
+        requests = {}
+        for i, n in enumerate(sorted(data)):
+            X = data[n][-TRANSFORM_REQUEST_ROWS:].copy()
+            X[3 + i % 5, i % tags] = np.nan          # a sensor dropout in the request
+            requests[n] = X
+        collection = ModelCollection.from_directory(out_dir, project="transforms", device=device)
+        server = make_server(collection, "127.0.0.1", 0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        base = f"http://127.0.0.1:{server.server_address[1]}/gordo/v0/transforms"
+        try:
+            ca.launches = fs.launches = 0
+            t0 = time.perf_counter()
+            single = {n: _request(f"{base}/{n}/anomaly/prediction", {"X": X.tolist()}) for n, X in requests.items()}
+            single_seconds = (time.perf_counter() - t0) / len(requests)
+            single_launches = {"chain_apply": ca.launches, "fleet_score": fs.launches}
+            ca.launches = fs.launches = 0
+            t1 = time.perf_counter()
+            status, body = _request(f"{base}/_bulk/anomaly/prediction",
+                                    {"X": {n: X.tolist() for n, X in requests.items()}})
+            bulk_seconds = time.perf_counter() - t1
+            bulk_launches = {"chain_apply": ca.launches, "fleet_score": fs.launches}
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        check(not thread.is_alive(), "server thread stopped")
+        check(status == 200 and all(st == 200 for st, _ in single.values()), "transform requests answered 200")
+        if DEVICE == "cuda":
+            want = {"chain_apply": machines, "fleet_score": machines}
+            check(single_launches == want and bulk_launches == want,
+                  f"each machine's request one chain_apply and one fleet_score: {single_launches}, {bulk_launches}")
+        served = {}
+        for n, X in requests.items():
+            ref = models[n].anomaly(X, device="cpu")
+            for label, got_all in (("single", single[n][1]["data"]), ("bulk", body["data"][n])):
+                for k in OUTPUTS:
+                    r = torch.from_numpy(np.asarray(ref[k], np.float64))
+                    g = torch.from_numpy(np.asarray(got_all[k], np.float64))
+                    check(g.shape == r.shape, f"served {k} of {n} ({label})")
+                    err, _ = _masked_err(r, g, f"served {k} of {n} ({label})")
+                    served[k] = max(served.get(k, 0.0), err)
+        check(all(v <= TOLERANCE for v in served.values()), f"served transform detectors within {TOLERANCE}: {served}")
+    return {
+        "machines": machines, "rows": TRANSFORM_ROWS, "tags": tags, "fleet": TRANSFORM_FLEET,
+        "build_seconds": result.seconds, "models_per_hour": machines / result.seconds * 3600,
+        "stage_seconds": dict(result.stage_seconds), "singles_seconds": singles_split,
+        "svd_card_vs_cpu": svd, "busy_share": timed["busy_share"],
+        "kernel_seconds": timed["kernel_seconds"], "launches": launches,
+        "vs_plain_max_norm_err": worst, "request_rows": TRANSFORM_REQUEST_ROWS,
+        "single_request_seconds": single_seconds, "bulk_request_seconds": bulk_seconds,
+        "single_launches": single_launches, "bulk_launches": bulk_launches, "served_max_norm_err": served,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU", file=sys.stderr)
@@ -4358,6 +4840,9 @@ def main() -> int:
     scaler_kernels = phase_scaler_kernel_check()
     scaler_build = phase_scaler_build()
     emit({"phase": "scaler_build", **scaler_build})
+    transform_kernels = phase_transform_kernel_check()
+    transform_build = phase_transform_build()
+    emit({"phase": "transform_build", **transform_build})
     main_shape = shapes[0]
     head = lstm_kernels["fleet_score_lstm_head"]
     summary = [{
@@ -4612,6 +5097,39 @@ def main() -> int:
             "shape": [*TRAIN_SHAPE, "4 row lists"],
             "shapes": {k: {f: e.get(f) for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
                        for k, e in scaler_kernels.items() if e["stat"] == key},
+        })
+    # the transform build (chains A and B through the singles pass): its
+    # launches of every kernel, its requests' included
+    for entry in summary:
+        name = entry["name"]
+        if name in transform_build["launches"]:
+            entry["launches_by_path"]["transform_build"] = transform_build["launches"][name] + (
+                transform_build["single_launches"].get(name, 0) + transform_build["bulk_launches"].get(name, 0))
+        entry["launches"] = sum(entry["launches_by_path"].values())
+    from gordo_tpu_torch.kernels import chain_apply as ca
+    transform_counts = {name: transform_build["launches"][name] + transform_build["single_launches"].get(name, 0)
+                        + transform_build["bulk_launches"].get(name, 0)
+                        for name in ("chain_apply", "scaler_quantiles_grid", "scaler_stats_mean")}
+    rows, tags = TRANSFORM_SHAPES[0]
+    for name, mod, replaces, key, library, kinds, shape in (
+        ("chain_apply", ca, ca.REPLACES, f"chain_a_{rows}x{tags}", None,
+         ("every_form", "quantile", "chain_a"), [rows, tags, "chain A"]),
+        ("scaler_quantiles_grid", sq, sq.REPLACES_GRID, "grid", "torch.nanquantile over the grid",
+         ("grid", "median"), [1, rows, tags, f"Q {TRANSFORM_Q}"]),
+        ("scaler_stats_mean", ss, ss.REPLACES_MEAN, "mean", "torch.mean", ("mean", "nanmean"), [1, rows, tags]),
+    ):
+        entry = transform_kernels[key]
+        shapes_of = {k: {f: e.get(f) for f in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                     for k, e in transform_kernels.items() if k.startswith(kinds)}
+        summary.append({
+            "name": name, "route": "cuda", "source": mod.SOURCE, "replaces": replaces,
+            "launches": transform_counts[name], "launches_by_path": {"transform_build": transform_counts[name]},
+            "max_abs_err": max(transform_kernels[k]["max_abs_err"] for k in shapes_of),
+            "ms": entry["ms"], "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+            "bound_by": entry["bound_by"],
+            # no one PyTorch call runs a transform chain; torch.nanquantile
+            # over the grid and torch.mean beside the statistics
+            "library_ms": entry["library_ms"], "library": library, "shape": shape, "shapes": shapes_of,
         })
     apply_entry = resume_kernels["fleet_apply"]
     summary.append({

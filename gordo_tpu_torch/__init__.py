@@ -16,7 +16,10 @@ detectors (``LSTMAutoEncoder``, ``LSTMForecast``) through ``lstm_layer``
 and ``fleet_score``, and of detectors with a smoothing ``window`` through
 ``rolling_median``.  Pipeline and detector scalers may be MinMax,
 Standard or Robust, chained: their stats come from ``scaler_stats`` and
-``scaler_quantiles``.
+``scaler_quantiles``.  Pipelines with ``SimpleImputer``, ``PCA``,
+``QuantileTransformer`` or ``FunctionTransformer`` steps build through
+the single-machine path and serve one machine at a time, their steps
+applied by ``chain_apply``.
 """
 
 __version__ = "0.1.0"

@@ -16,7 +16,17 @@ the thresholds through the exact fleet build with one machine
 (``gordo_tpu_torch/parallel/anomaly.py``): fold fits in ``fleet_fit`` (an
 LSTM's in the lockstep LSTM fit, ``gordo_tpu_torch/train/lstm_fit.py``),
 out-of-fold scoring in ``fleet_score`` (after ``lstm_layer`` for an LSTM),
-smoothed maxima and metrics in ``cv_epilogue``.
+smoothed maxima and metrics in ``cv_epilogue``.  A definition the fleet
+engine does not take (a pipeline step outside MinMax, Standard and
+Robust: ``SimpleImputer``, ``PCA``, ``QuantileTransformer``,
+``FunctionTransformer``) takes the JAX package's route
+(``gordo_tpu/anomaly/diff.py:96-131``): the generic fold loop of
+``train/cv.py``, each fold's fit drawing its params and permutations
+through ``fleet_init`` from the estimator's seed, each fold's
+out-of-fold rows scored through ``chain_apply`` and ``fleet_score`` in
+one request (``anomaly.scores``), and the smoothed maxima
+(:func:`rolling_min_max`) on the host, as the reference takes them in
+pandas.
 """
 
 from __future__ import annotations
@@ -28,10 +38,21 @@ import torch
 
 from gordo_tpu_torch.anomaly.base import AnomalyDetectorBase
 from gordo_tpu_torch.device import resolve_device
+from gordo_tpu_torch.kernels.cv_epilogue import SMOOTHING_WINDOW
 from gordo_tpu_torch.ops.scalers import BaseTransform, MinMaxScaler, as_float2d
 from gordo_tpu_torch.parallel.fleet import Draws, fleet_draws
 from gordo_tpu_torch.train.cv import METRIC_NAMES, build_splitter
 from gordo_tpu_torch.utils.args import ParamsMixin, capture_args
+
+
+def rolling_min_max(arr: np.ndarray, window: int) -> np.ndarray:
+    """Per column, the maximum over time of the trailing rolling minimum of
+    ``window`` rows (``min_periods=1``), NaN skipped as pandas skips it:
+    ``gordo_tpu/anomaly/diff.py::_rolling_min_max``."""
+    arr = np.asarray(arr, np.float64)
+    pad = np.full((window - 1,) + arr.shape[1:], np.nan)
+    windows = np.lib.stride_tricks.sliding_window_view(np.concatenate([pad, arr]), window, axis=0)
+    return np.fmax.reduce(np.fmin.reduce(windows, axis=-1), axis=0)
 
 
 class DiffBasedAnomalyDetector(ParamsMixin, AnomalyDetectorBase):
@@ -88,12 +109,9 @@ class DiffBasedAnomalyDetector(ParamsMixin, AnomalyDetectorBase):
         y_arr = X_arr if y is None else as_float2d(y)
         dev = resolve_device(device)
         spec = analyze_definition(self.clone())
-        if spec is None:
-            raise NotImplementedError(
-                f"cross_validate of {type(self.base_estimator).__name__} waits for "
-                "ROADMAP queue 1 item 2 (the other scalers and pipeline containers)"
-            )
         self.scaler.fit(y_arr, device=dev)
+        if spec is None:
+            return self._cross_validate_single(X_arr, y_arr, cv, dev, draws)
         folds = list(build_splitter(cv).split(X_arr))
         with torch.no_grad():
             out = exact_fleet_program(
@@ -122,6 +140,35 @@ class DiffBasedAnomalyDetector(ParamsMixin, AnomalyDetectorBase):
                 for k, te in enumerate(out["test_rows"])
             ],
         }
+
+    def _cross_validate_single(self, X: np.ndarray, y: np.ndarray, cv, device, draws: Draws) -> Dict[str, Any]:
+        """The JAX package's route for a definition the fleet engine does
+        not take: fold fits through ``train.cv.cross_validate``, each fold's
+        predictions, tag scores and totals from one scoring request of the
+        fold's model behind the detector scaler, thresholds from their
+        smoothed maxima."""
+        from gordo_tpu_torch.serve.scorer import CompiledScorer
+        from gordo_tpu_torch.train.cv import cross_validate
+
+        fold_scores = []
+
+        def predict(est, X_test, y_test):
+            probe = DiffBasedAnomalyDetector(est, self.scaler, require_thresholds=False)
+            out = CompiledScorer(probe, device=device, dtype="float32").anomaly_arrays(X_test, y_test)
+            fold_scores.append((out["tag-anomaly-scores"], out["total-anomaly-score"]))
+            return out["model-output"]
+
+        results = cross_validate(self.base_estimator, X, y, cv=cv, predict=predict, device=device, draws=draws)
+        self.feature_thresholds_ = np.mean(
+            [rolling_min_max(tag, SMOOTHING_WINDOW) for tag, _ in fold_scores], axis=0)
+        self.aggregate_threshold_ = float(np.mean(
+            [rolling_min_max(total[:, None], SMOOTHING_WINDOW)[0] for _, total in fold_scores]))
+        self.cv_metadata_ = {
+            "scores": results["scores"],
+            "feature_thresholds": [float(v) for v in self.feature_thresholds_],
+            "aggregate_threshold": self.aggregate_threshold_,
+        }
+        return results
 
     def predict(self, X, device=None) -> np.ndarray:
         from gordo_tpu_torch.serve.scorer import CompiledScorer

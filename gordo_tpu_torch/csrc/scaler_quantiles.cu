@@ -39,6 +39,21 @@
 // buffer and no padding to a power of two: QS_MAX_ROWS (57,344 rows,
 // 229,376 bytes) covers a year of 10-minute rows (52,560).  Ranks that
 // coincide are selected once.
+//
+// The grid variant (`scaler_quantiles_grid_kernel`) takes Q fractions from
+// device memory instead of Robust's three and writes every quantile,
+// (M, G, Q, F): `QuantileTransformer.fit`'s grid (gordo_tpu/ops/
+// scalers.py:240-246, jnp.nanpercentile at jnp.linspace(0, 100, Q)) and
+// `SimpleImputer(strategy="median")`'s fill (:288-299, jnp.nanmedian, the
+// same _quantile at q = 0.5 with method "midpoint": (v[l] + v[h]) * 0.5).
+// Its linear interpolation rounds as XLA:CPU's program does, which fuses
+// `v[l] * lw + v[h] * hw` into fma(v[h], hw, v[l] * lw) (measured bit for
+// bit against the JAX package); the Robust kernel above keeps its own
+// separate roundings.  The keys load as above but through no chain prefix
+// (the transforms' fits take rows that chain_apply has transformed); the
+// 2Q ranks, ascending with q, are selected one after another by the same
+// radix selection, a rank equal to the one before reusing its value.
+// Bound as above: each value read once, the Q * F outputs written once.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -189,7 +204,83 @@ __global__ void __launch_bounds__(QS_THREADS) scaler_quantiles_kernel(const Scal
   }
 }
 
+// Mirrored field by field by `_GridArgs` in gordo_tpu_torch/kernels/scaler_quantiles.py.
+struct ScalerGridArgs {
+  const float* x;      // (M, N, F)
+  const int* rows;     // the row lists, concatenated
+  const float* q;      // (Q,) fractions in [0, 1], ascending
+  float* out;          // (M, G, Q, F)
+  int m;
+  int n;
+  int f;
+  int g;
+  int fit_rows[QS_MAX_FITS];
+  int fit_row_off[QS_MAX_FITS];
+  int nq;
+  int midpoint;        // 1: nanmedian's (v[l] + v[h]) * 0.5; 0: linear
+};
+
+__global__ void __launch_bounds__(QS_THREADS) scaler_quantiles_grid_kernel(const ScalerGridArgs a) {
+  extern __shared__ unsigned keys[];
+  __shared__ unsigned hist[256];
+  __shared__ int sel[2];
+  __shared__ int s_count;
+  const int col = blockIdx.x;
+  const int mach = blockIdx.y;
+  const int fit = blockIdx.z;
+  const int t = threadIdx.x;
+  const int F = a.f;
+  const int n = a.fit_rows[fit];
+  const int* rows = a.rows + a.fit_row_off[fit];
+  const float* xm = a.x + (size_t)mach * a.n * F + col;
+  if (t == 0) s_count = 0;
+  __syncthreads();
+  int count = 0;
+  for (int i = t; i < n; i += blockDim.x) {
+    const float v = __ldg(xm + (size_t)rows[i] * F);
+    keys[i] = order_key(v);
+    count += v == v;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
+  if ((t & 31) == 0) atomicAdd(&s_count, count);
+  __syncthreads();
+  const float cm1 = __fsub_rn((float)s_count, 1.0f);
+  float* out = a.out + (((size_t)mach * a.g + fit) * a.nq) * F + col;
+  int last_rank = -1;
+  float last_value = 0.f;
+  for (int k = 0; k < a.nq; ++k) {
+    const float pos = __fmul_rn(__ldg(a.q + k), cm1);
+    const float lo = floorf(pos);
+    const float hi = ceilf(pos);
+    const float hw = __fsub_rn(pos, lo);
+    const float lw = __fsub_rn(1.0f, hw);
+    const int r_lo = (int)fmaxf(0.0f, fminf(lo, cm1));
+    const int r_hi = (int)fmaxf(0.0f, fminf(hi, cm1));
+    float v_lo, v_hi;
+    if (r_lo == last_rank) {
+      v_lo = last_value;
+    } else {
+      v_lo = key_value(select_rank(keys, n, r_lo, hist, sel));
+      last_rank = r_lo;
+      last_value = v_lo;
+    }
+    if (r_hi == last_rank) {
+      v_hi = last_value;
+    } else {
+      v_hi = key_value(select_rank(keys, n, r_hi, hist, sel));
+      last_rank = r_hi;
+      last_value = v_hi;
+    }
+    if (t == 0)
+      out[(size_t)k * F] = a.midpoint ? __fmul_rn(__fadd_rn(v_lo, v_hi), 0.5f)
+                                      : __fmaf_rn(v_hi, hw, __fmul_rn(v_lo, lw));
+  }
+}
+
 extern "C" int scaler_quantiles_args_size() { return (int)sizeof(ScalerQuantilesArgs); }
+
+extern "C" int scaler_quantiles_grid_args_size() { return (int)sizeof(ScalerGridArgs); }
 
 extern "C" int scaler_quantiles_max_rows() { return QS_MAX_ROWS; }
 
@@ -208,5 +299,17 @@ extern "C" int scaler_quantiles_launch(const ScalerQuantilesArgs* a, int max_row
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a->f, a->m, a->g);
   scaler_quantiles_kernel<<<grid, QS_THREADS, smem, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+// The grid variant, as scaler_quantiles_launch.
+extern "C" int scaler_quantiles_grid_launch(const ScalerGridArgs* a, int max_rows, void* stream) {
+  if (max_rows < 1 || max_rows > QS_MAX_ROWS || a->nq < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)max_rows * sizeof(unsigned);
+  cudaError_t err = cudaFuncSetAttribute(scaler_quantiles_grid_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a->f, a->m, a->g);
+  scaler_quantiles_grid_kernel<<<grid, QS_THREADS, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }

@@ -16,6 +16,12 @@
 //              (ddof 0, two passes as jnp.nanvar; with_mean=False gives a
 //              mean of 0 and with_std=False a std of 1, the std still
 //              taken around the true mean)
+//   Mean:      mean = sum(x) * (1 / N)                        (jnp.mean: PCA.fit's
+//              mean, gordo_tpu/ops/scalers.py:331; a NaN gives a NaN mean)
+//   NaN-mean:  mean = sum(v) / count                          (jnp.nanmean:
+//              SimpleImputer(strategy="mean")'s fill, :291)
+//              (both write the mean to out0 and the values summed to out1;
+//              `scaler_mean_kernel` below)
 //
 // The chain prefix: step i of a pipeline's scaler chain takes its stats on
 // step i-1's output (`_make_scale_chain`).  The kernel takes up to
@@ -49,6 +55,11 @@
 #define SS_THREADS 256
 #define SS_MINMAX 0
 #define SS_STANDARD 1
+#define SS_MEAN 2
+#define SS_NANMEAN 3
+// the means' window sums in shared memory: 200 KiB, 1,588,736 rows a row
+// list (scaler_stats_mean_max_rows)
+#define SS_MEAN_SMEM (200 * 1024)
 
 // Mirrored field by field by `_Args` in gordo_tpu_torch/kernels/scaler_stats.py.
 struct ScalerStatsArgs {
@@ -62,7 +73,7 @@ struct ScalerStatsArgs {
   int g;
   int fit_rows[SS_MAX_FITS];
   int fit_row_off[SS_MAX_FITS];
-  int stat;            // SS_MINMAX or SS_STANDARD
+  int stat;            // SS_MINMAX, SS_STANDARD, SS_MEAN or SS_NANMEAN
   float range_lo;      // MinMax: feature_range a
   float range_span;    // MinMax: b - a
   int with_mean;       // Standard
@@ -183,7 +194,99 @@ __global__ void __launch_bounds__(SS_THREADS) scaler_stats_kernel(const ScalerSt
   }
 }
 
+// The means (SS_MEAN, SS_NANMEAN) sum in XLA:CPU's order, so that a mean
+// is the JAX package's bit for bit: XLA's tree-reduction rewrite splits a
+// reduction over more than SS_WINDOW values into windows of SS_WINDOW,
+// padded with zeros to a multiple of it (half the padding in front, the
+// rest behind), sums each window in order, and reduces the window sums the
+// same way; XLA then multiplies jnp.mean's sum by 1 / N (a division by a
+// constant).  One block per (column, machine, row list): each thread sums
+// whole windows in order into shared memory, level after level, and one
+// thread finishes the last SS_WINDOW or fewer.  A NaN-mean adds 0 for a
+// NaN (jnp.nansum) and divides by the count.  Bound by device memory, each
+// value read once (the column's loads are strided by F).
+#define SS_WINDOW 32
+
+// the window sums of `n` values read by `at(i)` into `out`, ceil(n / W)
+// of them, the padding's zeros skipped (x + 0 = x)
+template <typename At>
+__device__ void window_sums(int n, At at, float* out) {
+  const int m = (n + SS_WINDOW - 1) / SS_WINDOW * SS_WINDOW;
+  const int lo = (m - n) / 2;
+  for (int b = threadIdx.x; b < m / SS_WINDOW; b += blockDim.x) {
+    float s = 0.f;
+    for (int j = 0; j < SS_WINDOW; ++j) {
+      const int i = b * SS_WINDOW + j - lo;
+      if (i >= 0 && i < n) s = __fadd_rn(s, at(i));
+    }
+    out[b] = s;
+  }
+}
+
+__global__ void __launch_bounds__(SS_THREADS) scaler_mean_kernel(const ScalerStatsArgs a) {
+  extern __shared__ float part[];   // ceil(n / W) + ceil(n / W^2) floats
+  __shared__ int s_count;
+  const int col = blockIdx.x;
+  const int mach = blockIdx.y;
+  const int fit = blockIdx.z;
+  const int F = a.f;
+  const int n = a.fit_rows[fit];
+  const int* rows = a.rows + a.fit_row_off[fit];
+  const float* xm = a.x + (size_t)mach * a.n * F + col;
+  const size_t at = ((size_t)mach * a.g + fit) * F + col;
+  const bool skip_nan = a.stat == SS_NANMEAN;
+  if (threadIdx.x == 0) s_count = 0;
+  __syncthreads();
+  int count = 0;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float v = __ldg(xm + (size_t)rows[i] * F);
+    count += v == v;
+  }
+  atomicAdd(&s_count, count);
+  float* cur = part;
+  float* nxt = part + (n + SS_WINDOW - 1) / SS_WINDOW;
+  int len = n;
+  if (len > SS_WINDOW) {
+    window_sums(len, [&](int i) {
+      const float v = __ldg(xm + (size_t)rows[i] * F);
+      return skip_nan && v != v ? 0.f : v;
+    }, cur);
+    len = (len + SS_WINDOW - 1) / SS_WINDOW;
+    __syncthreads();
+    while (len > SS_WINDOW) {
+      window_sums(len, [&](int i) { return cur[i]; }, nxt);
+      len = (len + SS_WINDOW - 1) / SS_WINDOW;
+      float* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+      __syncthreads();
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.f;
+    const bool leaves = n > SS_WINDOW;
+    for (int i = 0; i < len; ++i) {
+      float v = leaves ? cur[i] : __ldg(xm + (size_t)rows[i] * F);
+      if (!leaves && skip_nan && v != v) v = 0.f;
+      s = __fadd_rn(s, v);
+    }
+    const float cnt = skip_nan ? (float)s_count : (float)n;
+    a.out0[at] = skip_nan ? __fdiv_rn(s, cnt) : __fmul_rn(s, __fdiv_rn(1.0f, cnt));
+    a.out1[at] = cnt;
+  }
+}
+
 extern "C" int scaler_stats_args_size() { return (int)sizeof(ScalerStatsArgs); }
+
+// The longest row list whose two levels of window sums, ceil(n / 32) and
+// ceil(ceil(n / 32) / 32) floats, fit SS_MEAN_SMEM.
+extern "C" int scaler_stats_mean_max_rows() {
+  const int floats = SS_MEAN_SMEM / (int)sizeof(float);
+  int level1 = floats;
+  while (level1 + (level1 + SS_WINDOW - 1) / SS_WINDOW > floats) --level1;
+  return level1 * SS_WINDOW;
+}
 
 extern "C" const char* scaler_stats_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
@@ -198,9 +301,21 @@ extern "C" int scaler_stats_launch(const ScalerStatsArgs* a, void* stream) {
     scaler_stats_kernel<SS_MINMAX, false><<<grid, SS_THREADS, 0, s>>>(*a);
   else if (a->stat == SS_MINMAX)
     scaler_stats_kernel<SS_MINMAX, true><<<grid, SS_THREADS, 0, s>>>(*a);
-  else if (!prefix)
+  else if (a->stat == SS_STANDARD && !prefix)
     scaler_stats_kernel<SS_STANDARD, false><<<grid, SS_THREADS, 0, s>>>(*a);
-  else
+  else if (a->stat == SS_STANDARD)
     scaler_stats_kernel<SS_STANDARD, true><<<grid, SS_THREADS, 0, s>>>(*a);
+  else if ((a->stat == SS_MEAN || a->stat == SS_NANMEAN) && !prefix) {
+    int longest = 0;
+    for (int i = 0; i < a->g; ++i) longest = a->fit_rows[i] > longest ? a->fit_rows[i] : longest;
+    const int level1 = (longest + SS_WINDOW - 1) / SS_WINDOW;
+    const size_t smem = (size_t)(level1 + (level1 + SS_WINDOW - 1) / SS_WINDOW) * sizeof(float);
+    if (smem > SS_MEAN_SMEM) return (int)cudaErrorInvalidValue;
+    cudaError_t err = cudaFuncSetAttribute(scaler_mean_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    scaler_mean_kernel<<<dim3(a->f, a->m, a->g), SS_THREADS, smem, s>>>(*a);
+  } else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }

@@ -13,6 +13,13 @@ gives its bound and design: a radix selection in shared memory);
 (``torch.sort`` and the reference's formula step by step;
 ``torch.nanquantile`` interpolates with ``lerp``, another rounding).
 
+:func:`scaler_quantiles_grid` is the kernel's grid variant: every
+quantile of a grid of Q fractions, ``jnp.nanpercentile`` at
+``jnp.linspace(0, 100, Q)`` for ``QuantileTransformer.fit``
+(``gordo_tpu/ops/scalers.py:240-246``) and ``jnp.nanmedian`` for
+``SimpleImputer(strategy="median")`` (``:288-299``, method "midpoint");
+its launches count in :data:`grid_launches`, not in :data:`launches`.
+
 A series longer than :data:`MAX_ROWS` rows (the keys one block's shared
 memory holds) raises ``NotImplementedError`` naming ROADMAP queue 1 item
 20; nothing falls back to the plain version.  :func:`scaler_quantiles`
@@ -42,14 +49,18 @@ from gordo_tpu_torch.kernels.scaler_stats import (
 
 SOURCE = "gordo_tpu_torch/csrc/scaler_quantiles.cu"
 REPLACES = "gordo_tpu/ops/scalers.py:207"
+#: the grid variant's TPU code (QuantileTransformer.fit)
+REPLACES_GRID = "gordo_tpu/ops/scalers.py:240"
 
 #: the longest row list a launch takes (``QS_MAX_ROWS``: 224 KiB of keys)
 MAX_ROWS = 57_344
 LONG_SERIES_ITEM = "ROADMAP queue 1 item 20 (long-series robust stats)"
 _EPS = 1e-12
 
-#: kernel launches so far (the CPU path never counts)
+#: kernel launches so far, Robust's and the grid variant's (the CPU path
+#: never counts)
 launches = 0
+grid_launches = 0
 _launches_lock = threading.Lock()
 
 
@@ -74,6 +85,25 @@ class _Args(ctypes.Structure):
     ]
 
 
+class _GridArgs(ctypes.Structure):
+    """Mirror of ``struct ScalerGridArgs`` in the CUDA source."""
+
+    _fields_ = [
+        ("x", ctypes.c_void_p),
+        ("rows", ctypes.c_void_p),
+        ("q", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("m", ctypes.c_int),
+        ("n", ctypes.c_int),
+        ("f", ctypes.c_int),
+        ("g", ctypes.c_int),
+        ("fit_rows", ctypes.c_int * MAX_FITS),
+        ("fit_row_off", ctypes.c_int * MAX_FITS),
+        ("nq", ctypes.c_int),
+        ("midpoint", ctypes.c_int),
+    ]
+
+
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
@@ -85,9 +115,12 @@ def _library() -> ctypes.CDLL:
             lib = build.load("scaler_quantiles")
             lib.scaler_quantiles_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             lib.scaler_quantiles_launch.restype = ctypes.c_int
+            lib.scaler_quantiles_grid_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            lib.scaler_quantiles_grid_launch.restype = ctypes.c_int
             lib.scaler_quantiles_error_string.argtypes = [ctypes.c_int]
             lib.scaler_quantiles_error_string.restype = ctypes.c_char_p
-            for name in ("scaler_quantiles_args_size", "scaler_quantiles_max_rows"):
+            for name in ("scaler_quantiles_args_size", "scaler_quantiles_grid_args_size",
+                         "scaler_quantiles_max_rows"):
                 getattr(lib, name).argtypes = []
                 getattr(lib, name).restype = ctypes.c_int
             if lib.scaler_quantiles_args_size() != ctypes.sizeof(_Args):
@@ -95,6 +128,8 @@ def _library() -> ctypes.CDLL:
                     f"scaler_quantiles: ScalerQuantilesArgs is {lib.scaler_quantiles_args_size()} "
                     f"bytes in the library but {ctypes.sizeof(_Args)} in the wrapper"
                 )
+            if lib.scaler_quantiles_grid_args_size() != ctypes.sizeof(_GridArgs):
+                raise RuntimeError("scaler_quantiles: ScalerGridArgs differs from _GridArgs")
             if lib.scaler_quantiles_max_rows() != MAX_ROWS:
                 raise RuntimeError("scaler_quantiles: QS_MAX_ROWS differs from MAX_ROWS")
             _lib = lib
@@ -194,3 +229,82 @@ def scaler_quantiles_plain(
         centers.append(center if with_centering else torch.zeros_like(center))
         scales.append(scale if with_scaling else torch.ones_like(scale))
     return torch.stack(centers, dim=1), torch.stack(scales, dim=1)
+
+
+def _check_grid(q: torch.Tensor, device) -> int:
+    if q.dim() != 1 or q.numel() < 1 or q.dtype != torch.float32 or q.device != device:
+        raise ValueError(f"q must be a non-empty float32 (Q,) tensor on {device}")
+    return int(q.numel())
+
+
+def scaler_quantiles_grid(
+    x: torch.Tensor,
+    row_lists: Sequence,
+    q: torch.Tensor,
+    midpoint: bool = False,
+) -> torch.Tensor:
+    """The NaN-aware quantiles at the fractions ``q`` (Q,) float32 on
+    ``x``'s device (ascending) of each machine of ``x`` (M, N, F) over each
+    host row list: (M, G, Q, F).  ``midpoint``: ``jnp.nanmedian``'s
+    ``(v[l] + v[h]) * 0.5`` instead of the linear interpolation."""
+    if x.device.type == "cpu":
+        return scaler_quantiles_grid_plain(x, row_lists, q, midpoint)
+    if x.device.type != "cuda":
+        raise ValueError(f"scaler_quantiles_grid runs on cuda or cpu tensors, got {x.device}")
+    M, N, F, lists = validate(x, row_lists, ())
+    longest = _check_rows(lists)
+    nq = _check_grid(q, x.device)
+    q = q.contiguous()
+    out = torch.empty((M, len(lists), nq, F), dtype=torch.float32, device=x.device)
+    args = _GridArgs()
+    rows = fill_launch(args, x, lists)  # noqa: F841 (kept alive past the launch)
+    args.q, args.out = q.data_ptr(), out.data_ptr()
+    args.nq, args.midpoint = nq, int(bool(midpoint))
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.scaler_quantiles_grid_launch(ctypes.byref(args), longest, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(
+            f"scaler_quantiles_grid launch failed: {lib.scaler_quantiles_error_string(rc).decode()}"
+        )
+    global grid_launches
+    with _launches_lock:
+        grid_launches += 1
+    return out
+
+
+def scaler_quantiles_grid_plain(
+    x: torch.Tensor,
+    row_lists: Sequence,
+    q: torch.Tensor,
+    midpoint: bool = False,
+) -> torch.Tensor:
+    """:func:`scaler_quantiles_grid` in plain PyTorch: ``_quantile`` with
+    ``squash_nans=True`` step by step, the linear interpolation's
+    ``fma(v[h], hw, v[l] * lw)`` taken in float64 and rounded once."""
+    _, _, _, lists = validate(x, row_lists, ())
+    _check_rows(lists)
+    _check_grid(q, x.device)
+    qq = q[:, None, None]
+    out = []
+    for rows in lists:
+        xs = x.index_select(1, torch.as_tensor(rows, device=x.device))
+        v = torch.sort(xs, dim=1).values
+        cm1 = (~torch.isnan(xs)).sum(dim=1).to(torch.float32) - 1.0     # (M, F)
+        pos = qq * cm1[None]                                            # (Q, M, F)
+        lo, hi = torch.floor(pos), torch.ceil(pos)
+        hw = pos - lo
+        lw = 1.0 - hw
+        zero = torch.zeros_like(pos)
+        lo = torch.maximum(zero, torch.minimum(lo, cm1[None])).long()
+        hi = torch.maximum(zero, torch.minimum(hi, cm1[None])).long()
+        vt = v.permute(1, 0, 2)                                         # (n, M, F)
+        v_lo = torch.stack([torch.gather(vt, 0, lo[k][None])[0] for k in range(lo.shape[0])])
+        v_hi = torch.stack([torch.gather(vt, 0, hi[k][None])[0] for k in range(hi.shape[0])])
+        if midpoint:
+            quant = (v_lo + v_hi) * 0.5
+        else:
+            quant = (v_hi.double() * hw.double() + (v_lo * lw).double()).float()
+        out.append(quant.permute(1, 0, 2))                              # (M, Q, F)
+    return torch.stack(out, dim=1)

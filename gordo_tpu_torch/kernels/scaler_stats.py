@@ -11,6 +11,14 @@ C++ for ``sm_90a`` (``gordo_tpu_torch/csrc/scaler_stats.cu``, whose header
 gives its bound and design); :func:`scaler_stats_plain` is the same
 function in plain PyTorch.
 
+The ``"mean"`` and ``"nanmean"`` statistics serve the single-machine
+transforms: ``PCA.fit``'s ``jnp.mean`` (``gordo_tpu/ops/scalers.py:331``:
+a NaN gives a NaN mean) and ``SimpleImputer(strategy="mean")``'s
+``jnp.nanmean`` (``:291``).  They sum in XLA:CPU's tree order
+(:func:`xla_sum`), so that they are the JAX package's bit for bit; they
+take no prefix, a row list of at most :data:`MEAN_MAX_ROWS` rows, and
+their launches also count in :data:`mean_launches`.
+
 A chain prefix (``prefix``) is a sequence of ``(form, a, b)``: an earlier
 step's map with its stats ``a``, ``b`` (M, G, F), applied to every value
 as it loads, ``x * a + b`` for :data:`AFFINE` (MinMax), ``(x - a) / b``
@@ -38,6 +46,8 @@ SOURCE = "gordo_tpu_torch/csrc/scaler_stats.cu"
 REPLACES = "gordo_tpu/ops/scalers.py:139"
 #: the Standard statistic's TPU program (the ``standard`` stat)
 REPLACES_STANDARD = "gordo_tpu/ops/scalers.py:169"
+#: the mean statistics' (PCA.fit's mean; SimpleImputer's nanmean)
+REPLACES_MEAN = "gordo_tpu/ops/scalers.py:331"
 
 MAX_FITS = 16
 MAX_MACHINES = 65535
@@ -45,13 +55,19 @@ MAX_MACHINES = 65535
 MAX_PREFIX = 4
 #: the two forms of a chain step's map (``scaler_prefix.cuh``)
 AFFINE, CENTER = 0, 1
-STATS = ("minmax", "standard")
+#: XLA:CPU's reduction window (``SS_WINDOW``) and the longest row list the
+#: means' window sums fit (``SS_MEAN_SMEM`` of shared memory:
+#: ``scaler_stats_mean_max_rows``)
+XLA_WINDOW = 32
+MEAN_MAX_ROWS = 1_588_736
+STATS = ("minmax", "standard", "mean", "nanmean")
 _EPS = 1e-12
 
-#: kernel launches so far, and those of the Standard statistic among them
-#: (the CPU path never counts)
+#: kernel launches so far, and those of the Standard and the mean
+#: statistics among them (the CPU path never counts)
 launches = 0
 standard_launches = 0
+mean_launches = 0
 _launches_lock = threading.Lock()
 
 Prefix = Sequence[Tuple[int, torch.Tensor, torch.Tensor]]
@@ -104,13 +120,16 @@ def _library() -> ctypes.CDLL:
             lib.scaler_stats_launch.restype = ctypes.c_int
             lib.scaler_stats_error_string.argtypes = [ctypes.c_int]
             lib.scaler_stats_error_string.restype = ctypes.c_char_p
-            lib.scaler_stats_args_size.argtypes = []
-            lib.scaler_stats_args_size.restype = ctypes.c_int
+            for name in ("scaler_stats_args_size", "scaler_stats_mean_max_rows"):
+                getattr(lib, name).argtypes = []
+                getattr(lib, name).restype = ctypes.c_int
             if lib.scaler_stats_args_size() != ctypes.sizeof(_Args):
                 raise RuntimeError(
                     f"scaler_stats: ScalerStatsArgs is {lib.scaler_stats_args_size()} "
                     f"bytes in the library but {ctypes.sizeof(_Args)} in the wrapper"
                 )
+            if lib.scaler_stats_mean_max_rows() != MEAN_MAX_ROWS:
+                raise RuntimeError("scaler_stats: scaler_stats_mean_max_rows() differs from MEAN_MAX_ROWS")
             _lib = lib
         return _lib
 
@@ -151,10 +170,11 @@ def validate(x: torch.Tensor, row_lists, prefix: Prefix = ()) -> Tuple[int, int,
     return M, N, F, lists
 
 
-def fill_launch(args, x: torch.Tensor, lists, prefix: Prefix) -> torch.Tensor:
+def fill_launch(args, x: torch.Tensor, lists, prefix: Prefix = ()) -> torch.Tensor:
     """Set the launch fields the stat kernels share (``x``, ``rows``,
-    shapes, row lists, prefix) in ``args``; returns the device row index
-    tensor, which must live until the launch is enqueued."""
+    shapes, row lists, and a prefix where there is one) in ``args``;
+    returns the device row index tensor, which must live until the launch
+    is enqueued."""
     M, N, F = (int(s) for s in x.shape)
     rows = to_device(np.concatenate(lists).astype(np.int32), x.device)
     args.x, args.rows = x.data_ptr(), rows.data_ptr()
@@ -163,6 +183,8 @@ def fill_launch(args, x: torch.Tensor, lists, prefix: Prefix) -> torch.Tensor:
     for i, r in enumerate(lists):
         args.fit_rows[i], args.fit_row_off[i] = int(r.size), off
         off += int(r.size)
+    if not prefix:
+        return rows
     args.prefix.n = len(prefix)
     for i, (form, a, b) in enumerate(prefix):
         args.prefix.form[i] = int(form)
@@ -182,15 +204,19 @@ def scaler_stats(
     """The ``stat`` of each machine of ``x`` (M, N, F) over each of the
     ``G`` host row lists in ``row_lists``, each value first taken through
     ``prefix``: ``"minmax"`` gives MinMax ``(scale, offset)`` for
-    ``feature_range``, ``"standard"`` gives ``(mean, std)``; each (M, G,
-    F)."""
+    ``feature_range``, ``"standard"`` gives ``(mean, std)``, ``"mean"``
+    and ``"nanmean"`` give ``(mean, values summed)``; each (M, G, F)."""
     if stat not in STATS:
         raise ValueError(f"stat must be one of {STATS}, got {stat!r}")
+    if prefix and stat in ("mean", "nanmean"):
+        raise ValueError(f"the {stat} statistic takes no chain prefix")
     if x.device.type == "cpu":
         return scaler_stats_plain(x, row_lists, feature_range, stat, with_mean, with_std, prefix)
     if x.device.type != "cuda":
         raise ValueError(f"scaler_stats runs on cuda or cpu tensors, got {x.device}")
     M, N, F, lists = validate(x, row_lists, prefix)
+    if stat in ("mean", "nanmean"):
+        _check_mean_rows(lists)
     out0 = torch.empty((M, len(lists), F), dtype=torch.float32, device=x.device)
     out1 = torch.empty_like(out0)
     a, b = feature_range
@@ -208,11 +234,44 @@ def scaler_stats(
         raise RuntimeError(
             f"scaler_stats launch failed: {lib.scaler_stats_error_string(rc).decode()}"
         )
-    global launches, standard_launches
+    global launches, standard_launches, mean_launches
     with _launches_lock:
         launches += 1
         standard_launches += stat == "standard"
+        mean_launches += stat in ("mean", "nanmean")
     return out0, out1
+
+
+def _check_mean_rows(lists) -> None:
+    longest = max(int(r.size) for r in lists)
+    if longest > MEAN_MAX_ROWS:
+        raise NotImplementedError(
+            f"the mean of a {longest}-row series waits for ROADMAP queue 1 item 20 (long series): "
+            f"scaler_stats' means take at most {MEAN_MAX_ROWS} rows a row list"
+        )
+
+
+def xla_sum(x: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """The float32 sum over ``dim`` in XLA:CPU's order: more than
+    :data:`XLA_WINDOW` values are padded with zeros to a multiple of it
+    (half the padding in front), summed window by window in order, and
+    the window sums reduced the same way."""
+    x = x.movedim(dim, 0)
+    while x.shape[0] > XLA_WINDOW:
+        n = int(x.shape[0])
+        m = -(-n // XLA_WINDOW) * XLA_WINDOW
+        lo = (m - n) // 2
+        pad = x.new_zeros((m,) + tuple(x.shape[1:]))
+        pad[lo: lo + n] = x
+        x = _in_order(pad.reshape((m // XLA_WINDOW, XLA_WINDOW) + tuple(x.shape[1:])), 1)
+    return _in_order(x, 0)
+
+
+def _in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
+    s = torch.zeros_like(x.select(dim, 0))
+    for i in range(int(x.shape[dim])):
+        s = s + x.select(dim, i)
+    return s
 
 
 def apply_prefix(xs: torch.Tensor, prefix: Prefix, g: int) -> torch.Tensor:
@@ -235,9 +294,11 @@ def scaler_stats_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`scaler_stats` in plain PyTorch, with ``jnp.nanmin``/
     ``jnp.nanmax`` and ``jnp.nanmean``/``jnp.nanstd`` (ddof 0) semantics:
-    NaN skipped, an all-NaN column NaN."""
+    NaN skipped, an all-NaN column NaN; ``jnp.mean`` for ``"mean"``."""
     if stat not in STATS:
         raise ValueError(f"stat must be one of {STATS}, got {stat!r}")
+    if prefix and stat in ("mean", "nanmean"):
+        raise ValueError(f"the {stat} statistic takes no chain prefix")
     _, _, _, lists = validate(x, row_lists, prefix)
     eps = torch.tensor(_EPS, device=x.device)
     outs0, outs1 = [], []
@@ -255,6 +316,16 @@ def scaler_stats_plain(
             scale = (b - a) / torch.maximum(hi - lo, eps)
             outs0.append(scale)
             outs1.append(a - lo * scale)
+            continue
+        if stat in ("mean", "nanmean"):
+            _check_mean_rows([rows])
+            if stat == "mean":
+                count = torch.full_like(xs[:, 0], float(xs.shape[1]))
+                outs0.append(xla_sum(xs) * (1.0 / count))
+            else:
+                count = (~nan).sum(dim=1).to(torch.float32)
+                outs0.append(xla_sum(torch.where(nan, 0.0, xs)) / count)
+            outs1.append(count)
             continue
         count = (~nan).sum(dim=1).to(torch.float32)
         mean = torch.where(nan, 0.0, xs).sum(dim=1) / count

@@ -1,9 +1,11 @@
 """Sequential pipeline container (counterpart of ``gordo_tpu/pipeline.py``).
 
-Transforms are stats + pure-function scalers that the serving scorer folds
-into the fused kernel.  ``fit`` fits each transform on X and transforms X
-through it; the final estimator fits on the transformed X against the
-**raw** y, as in the JAX package.
+Transforms are stats + pure-function scalers.  ``fit`` fits each transform
+on X and transforms X through it, on the device (the stat kernels, then
+``chain_apply``); the final estimator fits on the transformed X against
+the **raw** y, as in the JAX package.  The serving scorer folds a chain of
+MinMax, Standard and Robust steps into the fused kernel and runs any
+other chain through ``chain_apply`` first.
 """
 
 from __future__ import annotations
@@ -11,7 +13,9 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
+from gordo_tpu_torch.ops.scalers import rows_tensor
 from gordo_tpu_torch.utils.args import ParamsMixin, capture_args
 
 StepLike = Union[Any, Tuple[str, Any], List]
@@ -43,11 +47,32 @@ class Pipeline(ParamsMixin):
     def offset(self) -> int:
         return getattr(self._final, "offset", 0)
 
-    def fit(self, X, y=None, device=None, **fit_kwargs):
+    def _transform_until_final(self, X, device=None) -> torch.Tensor:
+        x = rows_tensor(X, device)
         for _, step in self.steps[:-1]:
-            X = step.fit_transform(X, y, device=device)
-        self._final.fit(X, y, device=device, **fit_kwargs)
+            x = step.transform(x)
+        return x
+
+    def fit(self, X, y=None, device=None, **fit_kwargs):
+        """Fit each transform on the previous one's output on ``device``
+        (:func:`gordo_tpu_torch.device.resolve_device`), then the final
+        estimator on the transformed rows against ``y``."""
+        x = rows_tensor(X, device)
+        for _, step in self.steps[:-1]:
+            x = step.fit_transform(x, y)
+        self._final.fit(x.cpu().numpy(), y, device=device, **fit_kwargs)
         return self
+
+    def transform(self, X, device=None):
+        """``X`` through every transform step (and the final step's own
+        ``transform``, where it has one), as host rows."""
+        x = self._transform_until_final(X, device)
+        if hasattr(self._final, "transform"):
+            x = self._final.transform(x)
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+
+    def fit_transform(self, X, y=None, device=None):
+        return self.fit(X, y, device=device).transform(X, device=device)
 
     def get_metadata(self) -> Dict[str, Any]:
         final = self._final

@@ -51,6 +51,8 @@ _PIPELINE = "gordo_tpu_torch.pipeline.Pipeline"
 _MINMAX = "gordo_tpu_torch.ops.scalers.MinMaxScaler"
 _STANDARD = "gordo_tpu_torch.ops.scalers.StandardScaler"
 _ROBUST = "gordo_tpu_torch.ops.scalers.RobustScaler"
+_SCALERS = "gordo_tpu_torch.ops.scalers"
+_FUNCS = "gordo_tpu_torch.ops.transformer_funcs"
 _AUTOENCODER = "gordo_tpu_torch.models.estimator.AutoEncoder"
 _LSTM_AE = "gordo_tpu_torch.models.estimator.LSTMAutoEncoder"
 _LSTM_FORECAST = "gordo_tpu_torch.models.estimator.LSTMForecast"
@@ -82,6 +84,19 @@ ALIASES: Dict[str, str] = {
     "gordo_components.model.models.KerasLSTMForecast": _LSTM_FORECAST,
     "gordo_components.model.anomaly.diff.DiffBasedAnomalyDetector": _DETECTOR,
 }
+# the single-machine transforms and the transformer funcs
+for _name, _sklearn in (
+    ("QuantileTransformer", ("preprocessing.QuantileTransformer", "preprocessing.data.QuantileTransformer")),
+    ("FunctionTransformer", ("preprocessing.FunctionTransformer",)),
+    ("SimpleImputer", ("impute.SimpleImputer",)),
+    ("PCA", ("decomposition.PCA",)),
+):
+    ALIASES[f"gordo_tpu.ops.scalers.{_name}"] = f"{_SCALERS}.{_name}"
+    for _path in _sklearn:
+        ALIASES[f"sklearn.{_path}"] = f"{_SCALERS}.{_name}"
+for _name in ("multiplier", "adder", "log1p", "expm1"):
+    ALIASES[f"gordo_tpu.ops.transformer_funcs.{_name}"] = f"{_FUNCS}.{_name}"
+    ALIASES[f"gordo_components.model.transformer_funcs.general.{_name}"] = f"{_FUNCS}.{_name}"
 # datasets and data providers, by the JAX package's and the reference's paths
 for _name in ("TimeSeriesDataset", "RandomDataset"):
     for _prefix in ("gordo_tpu.dataset.datasets", "gordo_components.dataset.datasets"):
@@ -96,19 +111,9 @@ for _name in (
     ):
         ALIASES[f"{_prefix}.{_name}"] = f"gordo_tpu_torch.dataset.data_provider.providers.{_name}"
 
-_ITEM_TRAINING = (
-    "ROADMAP queue 1 item 2 (training: the other scalers and pipeline "
-    "containers)"
-)
+_ITEM_TRAINING = "ROADMAP queue 1 item 2 (training: the other pipeline containers)"
 
 UNPORTED: Dict[str, str] = {}
-for _path in ("QuantileTransformer", "FunctionTransformer", "SimpleImputer", "PCA"):
-    UNPORTED[f"gordo_tpu.ops.scalers.{_path}"] = _ITEM_TRAINING
-for _path in (
-    "preprocessing.QuantileTransformer", "preprocessing.FunctionTransformer",
-    "impute.SimpleImputer", "decomposition.PCA",
-):
-    UNPORTED[f"sklearn.{_path}"] = _ITEM_TRAINING
 for _path in (
     "gordo_tpu.pipeline.FeatureUnion",
     "gordo_tpu.pipeline.TransformedTargetRegressor",

@@ -39,7 +39,10 @@ from gordo_tpu_torch.serve.scorer import (
 
 def _signature(chain: Dict[str, Any]) -> Optional[Tuple]:
     det = chain["detector"]
-    if det is None:
+    if det is None or chain["transforms"]:
+        # a chain that does not fold (chain_apply first) is scored one by
+        # one, as the JAX FleetScorer scores a chain it cannot stack;
+        # stacking it waits for ROADMAP queue 1 item 2
         return None
     if det["feature_thresholds"] is None and det["require_thresholds"]:
         # the per-machine path refuses to serve this model; route it through
@@ -99,9 +102,11 @@ class FleetDispatch:
 class FleetScorer:
     """Serve many machines' anomaly scoring as stacked kernel launches.
 
-    Machines that cannot bucket (no detector, or missing thresholds that
-    are required) are served by their own :class:`CompiledScorer`, which
-    reports the same per-machine error the single-machine route does.
+    Machines that cannot bucket (no detector, missing thresholds that are
+    required, or a pipeline with SimpleImputer, PCA, QuantileTransformer or
+    FunctionTransformer steps) are served by their own
+    :class:`CompiledScorer`, which reports the same per-machine error the
+    single-machine route does.
     """
 
     def __init__(self, device, dtype: str = "float32"):

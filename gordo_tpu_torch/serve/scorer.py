@@ -15,6 +15,15 @@ the fleet scorer's buckets extend), and a request runs:
   smooths the tag and total scores and computes the confidence from the
   smoothed total.
 
+A pipeline whose transform steps are all MinMax, Standard or Robust folds
+them into one map that the first kernel applies as it loads.  Any other
+chain (``SimpleImputer``, ``PCA``, ``QuantileTransformer``,
+``FunctionTransformer`` steps, which the JAX package serves through its
+fused program or the model's own path, ``gordo_tpu/serve/scorer.py:240-241,
+562``) runs as one ``chain_apply`` launch over the request rows first, each
+step in its own form; the model's kernels then take its output with no
+fold, and the detector epilogue takes the raw rows as its targets.
+
 The serving precision (``dtype``, :mod:`gordo_tpu_torch.serve.precision`)
 is resolved when a scorer is made: at ``bfloat16`` and ``int8`` the stack
 is stored in bf16 (int8: fake-quantised by ``fake_quant`` as it loads),
@@ -40,11 +49,12 @@ import torch
 from gordo_tpu_torch.anomaly.base import AnomalyDetectorBase
 from gordo_tpu_torch.anomaly.diff import DiffBasedAnomalyDetector
 from gordo_tpu_torch.device import resolve_device
+from gordo_tpu_torch.kernels.chain_apply import chain_apply
 from gordo_tpu_torch.kernels.fleet_score import fleet_score, slot_ints
 from gordo_tpu_torch.kernels.lstm_layer import launch_plan, lstm_layer
 from gordo_tpu_torch.kernels.rolling_median import MAX_WINDOW, rolling_median
 from gordo_tpu_torch.models.estimator import AutoEncoder, LSTMAutoEncoder, LSTMForecast
-from gordo_tpu_torch.ops.scalers import PORTED_SCALERS, affine, fold
+from gordo_tpu_torch.ops.scalers import PORTED_SCALERS, TRANSFORMS, affine, fold
 from gordo_tpu_torch.pipeline import Pipeline
 from gordo_tpu_torch.serve import precision
 
@@ -74,6 +84,17 @@ def _scaler_stats(step, what: str):
     return type(step), tuple(np.asarray(step.stats_[k], np.float32) for k in step.STAT_KEYS)
 
 
+def _transform_step(step):
+    """A fitted pipeline step the port serves through ``chain_apply``."""
+    if not isinstance(step, TRANSFORMS):
+        raise NotImplementedError(
+            f"pipeline step {type(step).__name__} waits for ROADMAP queue 1 item 2 "
+            "(training: the other transforms and pipeline containers)"
+        )
+    step._check_fitted()
+    return step
+
+
 def _check_kernel_limits(cells, window: int) -> None:
     """Refuse, when the model loads, what the kernels cannot take: LSTM
     layers whose weights do not fit a block's shared memory, and windows
@@ -99,9 +120,13 @@ def _extract_chain(model) -> Dict[str, Any]:
         detector = model
         base = model.base_estimator
 
-    scalers = []
+    scalers, transforms = [], []
     if isinstance(base, Pipeline):
-        scalers = [_scaler_stats(step, "pipeline step") for _, step in base.steps[:-1]]
+        steps = [step for _, step in base.steps[:-1]]
+        if all(isinstance(step, PORTED_SCALERS) for step in steps):
+            scalers = [_scaler_stats(step, "pipeline step") for step in steps]
+        else:
+            transforms = [_transform_step(step) for step in steps]
         est = base._final
     else:
         est = base
@@ -129,6 +154,16 @@ def _extract_chain(model) -> Dict[str, Any]:
         mode, lookback = "none", 1
         dense = est.module_.layers()
         n_features = int(dense[0][0].weight.shape[1])
+    if transforms and mode != "none":
+        raise NotImplementedError(
+            f"{type(est).__name__} behind SimpleImputer, PCA, QuantileTransformer or "
+            "FunctionTransformer steps waits for ROADMAP queue 1 item 2"
+        )
+    if transforms:
+        # the request's width: the first step's (a PCA's components, a
+        # quantile grid's or the stats' width; funcs keep the width)
+        n_features = next(
+            (int(np.shape(t.stats_[t.STAT_KEYS[-1]])[-1]) for t in transforms if t.STAT_KEYS), n_features)
     chain: Dict[str, Any] = {
         "n_features": n_features,
         "mode": mode,
@@ -142,6 +177,8 @@ def _extract_chain(model) -> Dict[str, Any]:
         "acts": tuple(act for _, act in dense),
         # each scaler's (class, stats leaves); _Stack folds them into one map
         "scalers": scalers,
+        # or the fitted transform steps that chain_apply runs first
+        "transforms": transforms,
         "detector": None,
     }
     if detector is not None:
@@ -190,6 +227,15 @@ class _Stack:
         self.acts = c0["acts"]
         self.cell_acts = c0["cell_acts"]
         self.window = c0["detector"]["window"] if c0["detector"] else 0
+        # chain_apply's steps: one machine's (a chain that does not fold
+        # is never stacked)
+        self.transform_steps = [st for t in c0["transforms"] for st in t.steps(device)]
+        if c0["transforms"] and (len(chains) > 1 or self.dtype != "float32"):
+            raise NotImplementedError(
+                "a pipeline with SimpleImputer, PCA, QuantileTransformer or FunctionTransformer "
+                "steps is served one machine at a time at float32; stacking and reduced "
+                "precision for it wait for ROADMAP queue 1 item 2"
+            )
 
         def put(arrays, groups=1):
             t = torch.from_numpy(np.ascontiguousarray(np.stack(arrays), np.float32)).to(device)
@@ -240,6 +286,7 @@ class _Stack:
         tensors = [t for cell in self.cells for t in cell]
         tensors += [t for layer in self.layers for t in layer]
         tensors += [self.scale, self.offset, self.det_scale, self.det_offset, self.agg_thr]
+        tensors += [t for st in self.transform_steps for t in (st.a, st.b)]
         return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
     def put_rows(self, X: np.ndarray) -> torch.Tensor:
@@ -285,6 +332,10 @@ class _Stack:
         kw: Dict[str, Any] = dict(idx=idx, n_rows=rows)
         with torch.no_grad():
             h = x
+            if self.transform_steps:
+                h = chain_apply(x, self.transform_steps)
+                if targets is None:
+                    targets = x
             if self.mode == "none":
                 kw.update(scale=self.scale, offset=self.offset)
             else:

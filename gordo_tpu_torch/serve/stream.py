@@ -156,6 +156,11 @@ class MachineStream:
                 f"machine {self.name!r} has no anomaly detector chain; the "
                 "streaming plane needs a diff-based detector"
             )
+        if c["transforms"]:
+            raise StreamUnsupported(
+                f"machine {self.name!r}: streaming a pipeline with SimpleImputer, PCA, "
+                "QuantileTransformer or FunctionTransformer steps waits for ROADMAP queue 1 item 2"
+            )
         det = c["detector"]
         if det["feature_thresholds"] is None and det["require_thresholds"]:
             raise StreamUnsupported(

@@ -3,12 +3,14 @@
 Fold indices are host numpy.  :func:`cross_validate` is the generic
 clone → fit → predict loop for any estimator with ``fit`` and
 ``predict``; the anomaly detector's own ``cross_validate`` runs its folds
-through the fleet build instead (``gordo_tpu_torch/parallel/anomaly.py``).
+through the fleet build instead (``gordo_tpu_torch/parallel/anomaly.py``)
+where the fleet engine takes its definition, and through this loop
+otherwise, as the JAX package does.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -104,14 +106,17 @@ def cross_validate(
     y: Optional[np.ndarray] = None,
     cv: Any = None,
     metric_names: Tuple[str, ...] = METRIC_NAMES,
+    predict: Optional[Callable] = None,
     **fit_kwargs,
 ) -> Dict[str, Any]:
     """Out-of-fold predictions + per-fold metrics.
 
     ``model`` must expose ``clone()`` (unfitted copy), ``fit`` and
     ``predict``; ``fit_kwargs`` (``device=...``) go to each fold's fit.
-    Returns ``{"folds": [...], "scores": {...}, "predictions":
-    [(test_index, y_true_aligned, y_pred), ...]}``.
+    ``predict(est, X_test, y_test)``, when given, makes a fold's
+    predictions instead of ``est.predict`` (the detector scores them in
+    the same launch).  Returns ``{"folds": [...], "scores": {...},
+    "predictions": [(test_index, y_true_aligned, y_pred), ...]}``.
     """
     X = np.asarray(X, dtype=np.float32)
     y_arr = X if y is None else np.asarray(y, dtype=np.float32)
@@ -123,7 +128,10 @@ def cross_validate(
     for train_idx, test_idx in splitter.split(X):
         est = model.clone() if hasattr(model, "clone") else model
         est.fit(X[train_idx], y_arr[train_idx], **fit_kwargs)
-        pred = np.asarray(est.predict(X[test_idx], device=device))
+        if predict is None:
+            pred = np.asarray(est.predict(X[test_idx], device=device))
+        else:
+            pred = np.asarray(predict(est, X[test_idx], y_arr[test_idx]))
         offset = getattr(est, "offset", 0)
         y_true = y_arr[test_idx][offset:]
         folds.append({

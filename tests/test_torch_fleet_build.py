@@ -143,7 +143,7 @@ def test_fleet_build_refuses_unported_modes(inputs):
     assert r12(ref.aggregate_threshold_, got.aggregate_threshold_) <= FIT_TOL
     unported = definition()
     unported["gordo_tpu.anomaly.diff.DiffBasedAnomalyDetector"]["base_estimator"][
-        "gordo_tpu.pipeline.Pipeline"]["steps"].insert(0, "gordo_tpu.ops.scalers.QuantileTransformer")
+        "gordo_tpu.pipeline.Pipeline"]["steps"].insert(0, "gordo_tpu.pipeline.FeatureUnion")
     with pytest.raises(NotImplementedError, match="queue 1 item 2"):
         from_definition(unported)
 

@@ -92,6 +92,8 @@ def test_every_port_module_imports_with_jax_and_gordo_tpu_blocked():
         "gordo_tpu_torch.builder.build_model",
         "gordo_tpu_torch.builder.fleet_build",
         "gordo_tpu_torch.bench",
+        "gordo_tpu_torch.kernels.chain_apply",
+        "gordo_tpu_torch.ops.transformer_funcs",
     ):
         assert expected in result["modules"]
 
