@@ -194,12 +194,15 @@ itself.  Phases, each printing one JSON line:
    expm1, add, log1p, PCA at k = 8, 10 and the full width, affine) on
    rows with NaN cells, QuantileTransformer steps (Q = 100 uniform and
    normal, Q = 1,000 normal) over quantised rows whose grids tie, and
-   chain A's steps, at 576 × 10 and 4,096 × 128; ``scaler_quantiles``'
-   grid variant (Q = 100, and the median) and ``scaler_stats``' means (a
-   NaN column) at 576 × 10 and on a year of 10-minute rows (52,560 × 10),
-   Robust's kernel rechecked there; times, bounds, and
-   ``torch.nanquantile``, ``torch.nanmedian``, ``torch.mean`` and
-   ``torch.nanmean`` beside the statistics.
+   chain A's steps, at 576 × 10 and 4,096 × 128, and the PCA step alone
+   at the full width beside ``torch.mm``; ``scaler_quantiles``' grid
+   variant (Q = 100, the median by selection and by the sort) and
+   ``scaler_stats``' means (a NaN column) at 576 × 10 and on a year of
+   10-minute rows (52,560 × 10), Robust's kernel rechecked there, and the
+   grid at its sort's edges (Q 1,000, 27,000 and 57,344 rows, an all-NaN
+   column, one row), every grid bit for bit its plain version; times,
+   bounds, and ``torch.nanquantile``, ``torch.nanmedian``, ``torch.mean``
+   and ``torch.nanmean`` beside the statistics.
 26. ``transform_build``: ``build_project`` of a 16-machine RandomDataset
    YAML (576 rows × 10 tags; 8 chain A, 6 chain B and 2 chain B with a
    uniform output) through the singles pass on the card (seconds, stage
@@ -217,7 +220,10 @@ itself.  Phases, each printing one JSON line:
    at 1 × 2048 × 10, 1 × 4,096 × 128 and stacked at 512 × 2048 × 10, on
    rows with NaN cells; times, bounds (``epilogue_bound``), plain times,
    and ``torch.addcmul``/``torch.addmm``/``torch.baddbmm`` beside the
-   affine and PCA inverses.
+   affine and PCA inverses; the PCA forms swept at k 1 to 128, stacked
+   with ``idx``, ``n_rows`` and a column range, at every ``<T, TO>``
+   instantiation (``pca_forms_check``), and ``PCA_INV`` at k 128 held to
+   the bits of the FMA chain it sums.
 28. ``container_build``: ``build_project`` of a 16-machine RandomDataset
    YAML (576 rows × 10 tags: 8 of gordo's default
    ``TransformedTargetRegressor``, one of them with a window of 144, 4
@@ -231,6 +237,15 @@ itself.  Phases, each printing one JSON line:
    launches held exactly: a TTR's three, four with the window), bf16 bit
    for bit f32, every answer held to the plain scorer on the CPU, and a
    stream bind refused with 422.
+29. ``uncentred_chain``: 64 machines × 576 × 10 tags plus a level of 1e3
+   as detectors of ``[RobustScaler, MinMaxScaler]`` and of
+   ``[MinMaxScaler, StandardScaler]``, each with a StandardScaler detector
+   scaler, every step applied in turn in its own form by the kernels that
+   load scaled rows: each chain built (launches held exactly) and held to
+   its plain program on the card, 4 machines served 2048 rows at float32
+   and bfloat16 (one ``fleet_score`` launch a request, each held to the
+   plain scorer on the CPU at its dtype) and 4 streamed, every verdict the
+   request path's bit for bit.
 
 The holds of a build to its plain program (phases 12, 13 and 24) and of
 the ragged ``fleet_fit`` (phase 11) admit an array that misses its bound
@@ -238,7 +253,7 @@ only within the smaller of the plain version's movements from initial
 params one ulp up and one ulp down, and at most ``ONE_ULP_ADMITTED``
 arrays and machines a hold.
 
-Every build of phases 6 to 22, 24, 26 and 28 draws its initial params and permutations
+Every build of phases 6 to 22, 24, 26, 28 and 29 draws its initial params and permutations
 through ``fleet_init`` (one launch a length group, or a fit on the single path), counted with the
 build's kernels.
 
@@ -385,11 +400,17 @@ def to_device(chain, device):
         layers=[(put(W), put(b)) for W, b in chain["layers"]],
         acts=chain["acts"],
         kw=dict(
-            scale=put(chain["scale"]), offset=put(chain["offset"]),
-            det_scale=put(chain["det_scale"]), det_offset=put(chain["det_offset"]),
+            chain=[minmax_step(put(chain["scale"]), put(chain["offset"]))],
+            det=minmax_step(put(chain["det_scale"]), put(chain["det_offset"])),
             agg_thr=put(chain["agg"]),
         ),
     )
+
+
+def minmax_step(scale, offset):
+    """A MinMax scaler as the kernels take it: one AFFINE step."""
+    from gordo_tpu_torch.kernels.scaler_stats import AFFINE
+    return (AFFINE, scale, offset)
 
 
 def norm_err(ref, got) -> float:
@@ -531,7 +552,7 @@ def phase_build():
     ptxas = []
     for p in paths:
         with open(p + ".log") as f:
-            ptxas += [ln.strip() for ln in f if "registers" in ln or "spill" in ln]
+            ptxas += [ln.strip() for ln in f if "registers" in ln or "spill" in ln or "entry function" in ln]
     emit({"phase": "build", "seconds": seconds, "ptxas": ptxas})
 
 
@@ -866,9 +887,10 @@ def phase_train_kernel_check():
     # K1 + K2: the three fold fits and the final fit of every machine
     params0, perms = put_draws(fleet_draws, 0, dims, fits, cfg.epochs, X.device)
     draw = np.zeros(machines, np.int64)
-    args = (X, X, fits, scale, offset, params0, perms, draw, acts, cfg.epochs, hp)
-    run = lambda: ff.fleet_fit(*args)  # noqa: E731
-    plain = lambda: ff.fleet_fit_plain(*args)  # noqa: E731
+    args = (X, X, fits, params0, perms, draw, acts, cfg.epochs, hp)
+    kw = dict(chain=[minmax_step(scale, offset)])
+    run = lambda: ff.fleet_fit(*args, **kw)  # noqa: E731
+    plain = lambda: ff.fleet_fit_plain(*args, **kw)  # noqa: E731
     (layers, hist), (layers_p, hist_p) = run(), plain()
     pairs = {f"layer{i}.{k}": (p, g) for i, ((gw, gb), (pw, pb)) in enumerate(zip(layers, layers_p))
              for k, p, g in (("kernel", pw, gw), ("bias", pb, gb))}
@@ -887,8 +909,8 @@ def phase_train_kernel_check():
     det_s, det_o = ss.scaler_stats(X, [np.arange(rows)])
     expand = lambda t: t.expand(machines, G, tags).reshape(machines * G, tags)  # noqa: E731
     scored = fs.fleet_score(
-        x_oof, flat, acts, scale=scale.reshape(machines * G, tags), offset=offset.reshape(machines * G, tags),
-        det_scale=expand(det_s), det_offset=expand(det_o),
+        x_oof, flat, acts, chain=[minmax_step(scale.reshape(machines * G, tags), offset.reshape(machines * G, tags))],
+        det=minmax_step(expand(det_s), expand(det_o)),
         idx=(np.arange(machines)[:, None] * G + np.arange(K)).reshape(-1), y=x_oof,
     )
     epi_args = (scored["tag-anomaly-scores"], scored["total-anomaly-score"], scored["model-output"], x_oof)
@@ -1126,8 +1148,11 @@ def _valid_err(ref, got, counts, what: str, tol: float):
 def lstm_layer_variants(rng, net, x, scale, offset):
     """``lstm_layer`` on what the bucket-wide check does not reach: a
     subset of the bucket's machines by stack position (``idx``) with ragged
-    windows per slot, the forecast's one-fewer windows, and lookback 1."""
+    windows per slot, the forecast's one-fewer windows, lookback 1, and a
+    chain of a Standard and a MinMax step on rows far from zero (each step
+    in its own form)."""
     from gordo_tpu_torch.kernels import lstm_layer as ll
+    from gordo_tpu_torch.kernels import scaler_stats as ss
 
     machines, n, _ = x.shape
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(x.device)  # noqa: E731
@@ -1137,15 +1162,28 @@ def lstm_layer_variants(rng, net, x, scale, offset):
     idx = np.sort(rng.choice(machines, m_sub, replace=False))[::-1].copy()
     windows = rng.integers(1, n - LOOKBACK + 2, m_sub)
     xs = x[:m_sub].contiguous()
+    level = xs + 1e3
+    chain = [(ss.CENTER, level.mean(1).contiguous(), (level.std(1) + 0.1).contiguous()),
+             (ss.AFFINE, scale[:m_sub].contiguous(), offset[:m_sub].contiguous())]
     for name, kw in (
         ("subset_ragged", dict(lookback=LOOKBACK, idx=idx, slot_windows=windows)),
         ("forecast_windows", dict(lookback=LOOKBACK, n_windows=n - LOOKBACK)),
         ("lookback_1", dict(lookback=1)),
+        ("uncentred_chain", dict(lookback=LOOKBACK)),
     ):
         counts = windows if "slot_windows" in kw else [kw.get("n_windows", n - kw["lookback"] + 1)] * m_sub
-        first = dict(kw, act="tanh", scale=scale, offset=offset)
+        first = dict(kw, act="tanh", chain=[minmax_step(scale, offset)])
+        if name == "uncentred_chain":
+            first = dict(kw, act="tanh", chain=chain)
+            weights0 = [a[:m_sub].contiguous() for a in (ki0, kh0, b0)]
+            weights1 = [a[:m_sub].contiguous() for a in (ki1, kh1, b1)]
+            got0 = ll.lstm_layer(level, *weights0, **first)
+            ref0 = ll.lstm_layer_plain(level, *weights0, **first)
+            err0, abs0 = _valid_err(ref0, got0, counts, f"lstm_layer {name} (rows)", LSTM_TOLERANCE["lstm_layer"])
+            out.append({"variant": name, "max_norm_err": err0, "max_abs_err": abs0})
+            continue
         if "idx" not in kw:
-            first.update(scale=scale[:m_sub].contiguous(), offset=offset[:m_sub].contiguous())
+            first.update(chain=[minmax_step(scale[:m_sub].contiguous(), offset[:m_sub].contiguous())])
             weights0 = [a[:m_sub].contiguous() for a in (ki0, kh0, b0)]
             weights1 = [a[:m_sub].contiguous() for a in (ki1, kh1, b1)]
         else:
@@ -1214,7 +1252,7 @@ def phase_lstm_kernel_check():
         n_in, hidden = int(ki.shape[1]), int(kh.shape[1])
         first, last = i == 0, i == len(net["cells"]) - 1
         kw = dict(lookback=LOOKBACK, act="tanh", last=last,
-                  scale=scale if first else None, offset=offset if first else None)
+                  chain=[minmax_step(scale, offset)] if first else None)
         inp = h
         run = lambda: ll.lstm_layer(inp, ki, kh, b, **kw)  # noqa: E731
         plain = lambda: ll.lstm_layer_plain(inp, ki, kh, b, **kw)  # noqa: E731
@@ -1256,8 +1294,7 @@ def phase_lstm_kernel_check():
     # the head and detector epilogue: fleet_score on the final states
     W, bh = put(net["head"][0]), put(net["head"][1])
     hidden = int(W.shape[1])
-    det = dict(det_scale=put(net["det_scale"]), det_offset=put(net["det_offset"]),
-               y=x, y_offset=LOOKBACK - 1)
+    det = dict(det=minmax_step(put(net["det_scale"]), put(net["det_offset"])), y=x, y_offset=LOOKBACK - 1)
     run = lambda: fs.fleet_score(h, [(W, bh)], ["linear"], **det)  # noqa: E731
     plain = lambda: fs.fleet_score_plain(h, [(W, bh)], ["linear"], **det)  # noqa: E731
     got, ref = run(), plain()
@@ -1688,7 +1725,7 @@ def _lstm_train_variant(X, row_lists, scale, offset, off, hp, batch_size: int) -
     for i, (ki, kh, b) in enumerate(cells):
         first = i == 0
         kw = dict(lookback=LOOKBACK, batch=batch, act="tanh", last=i == len(cells) - 1,
-                  scale=scale[:S] if first else None, offset=offset[:S] if first else None)
+                  chain=[minmax_step(scale[:S], offset[:S])] if first else None)
         got = ll.lstm_layer_train(h, ki, kh, b, **kw)
         ref = ll.lstm_layer_train_plain(h, ki, kh, b, **kw)
         for r, g in zip(ref, got):
@@ -1705,7 +1742,7 @@ def _lstm_train_variant(X, row_lists, scale, offset, off, hp, batch_size: int) -
     for i in reversed(range(len(cells))):
         first = i == 0
         kw = dict(lookback=LOOKBACK, batch=batch, act="tanh", last=i == len(cells) - 1,
-                  scale=scale[:S] if first else None, offset=offset[:S] if first else None,
+                  chain=[minmax_step(scale[:S], offset[:S])] if first else None,
                   want_dx=not first)
         got_b = lb.lstm_layer_bwd(inputs[i], *cells[i], *saves[i], dout, **kw)
         ref_b = lb.lstm_layer_bwd_plain(inputs[i], *cells[i], dout, **kw)
@@ -1800,7 +1837,7 @@ def phase_lstm_train_kernel_check():
     for i, (ki, kh, b) in enumerate(cells):
         first, last = i == 0, i == len(cells) - 1
         kw = dict(lookback=LOOKBACK, batch=batch, act="tanh", last=last,
-                  scale=scale if first else None, offset=offset if first else None)
+                  chain=[minmax_step(scale, offset)] if first else None)
         inp = h
         run = lambda: ll.lstm_layer_train(inp, ki, kh, b, **kw)  # noqa: E731
         plain = lambda: ll.lstm_layer_train_plain(inp, ki, kh, b, **kw)  # noqa: E731
@@ -1839,7 +1876,7 @@ def phase_lstm_train_kernel_check():
         ki, kh, b = cells[i]
         first, last = i == 0, i == len(cells) - 1
         kw = dict(lookback=LOOKBACK, batch=batch, act="tanh", last=last,
-                  scale=scale if first else None, offset=offset if first else None, want_dx=not first)
+                  chain=[minmax_step(scale, offset)] if first else None, want_dx=not first)
         inp, (gates, cell), d = inputs[i], saves[i], dout
         run = lambda: lb.lstm_layer_bwd(inp, ki, kh, b, gates, cell, d, **kw)  # noqa: E731
         plain = lambda: lb.lstm_layer_bwd_plain(inp, ki, kh, b, d, **kw)  # noqa: E731
@@ -2569,9 +2606,10 @@ def phase_ragged_kernel_check():
         real_in = (ids[None] < fit_counts[:, g, None, None, None]).sum(-1)
         empty_batches += int((real_in == 0).sum())
     check(empty_batches > 0, "the ragged fits hold minibatches of padding alone")
-    args = (X, X, fits, scale, offset, params0, perms, np.zeros(machines, np.int64), acts, cfg.epochs, hp)
-    run = lambda: ff.fleet_fit(*args, counts=fit_counts)  # noqa: E731
-    plain = lambda: ff.fleet_fit_plain(*args, counts=fit_counts)  # noqa: E731
+    args = (X, X, fits, params0, perms, np.zeros(machines, np.int64), acts, cfg.epochs, hp)
+    kw = dict(counts=fit_counts, chain=[minmax_step(scale, offset)])
+    run = lambda: ff.fleet_fit(*args, **kw)  # noqa: E731
+    plain = lambda: ff.fleet_fit_plain(*args, **kw)  # noqa: E731
     (layers, hist), (layers_p, hist_p) = run(), plain()
     pairs = {f"layer{i}.{k}": (p, g) for i, ((gw, gb), (pw, pb)) in enumerate(zip(layers, layers_p))
              for k, p, g in (("kernel", pw, gw), ("bias", pb, gb))}
@@ -2584,8 +2622,8 @@ def phase_ragged_kernel_check():
     if over:
         moved = []
         for d in (1, -1):
-            nudged = ff.fleet_fit_plain(X, X, fits, scale, offset, one_ulp(params0, d), perms,
-                                        np.zeros(machines, np.int64), acts, cfg.epochs, hp, counts=fit_counts)[0]
+            nudged = ff.fleet_fit_plain(X, X, fits, one_ulp(params0, d), perms, np.zeros(machines, np.int64),
+                                        acts, cfg.epochs, hp, **kw)[0]
             moved.append({f"layer{i}.{k}": m for i, (mw, mb) in enumerate(nudged)
                           for k, m in (("kernel", mw), ("bias", mb))})
         for key in sorted(over):
@@ -2687,7 +2725,7 @@ def _lstm_zero_window_step_check(rng) -> dict:
         for i, (ki, kh, b) in enumerate(cells):
             first = i == 0
             kw = dict(lookback=LOOKBACK, batch=batch, act="tanh", last=i == len(cells) - 1,
-                      scale=scale if first else None, offset=offset if first else None)
+                      chain=[minmax_step(scale, offset)] if first else None)
             got = ll.lstm_layer_train(h, ki, kh, b, **kw)
             ref = ll.lstm_layer_train_plain(h, ki, kh, b, **kw)
             for r, g in zip(ref, got):
@@ -2706,7 +2744,7 @@ def _lstm_zero_window_step_check(rng) -> dict:
         for i in reversed(range(len(cells))):
             first = i == 0
             kw = dict(lookback=LOOKBACK, batch=batch, act="tanh", last=i == len(cells) - 1,
-                      scale=scale if first else None, offset=offset if first else None, want_dx=not first)
+                      chain=[minmax_step(scale, offset)] if first else None, want_dx=not first)
             got_b = lb.lstm_layer_bwd(inputs[i], *cells[i], *saves[i], dout, **kw)
             ref_b = lb.lstm_layer_bwd_plain(inputs[i], *cells[i], dout, **kw)
             for r, g in zip(ref_b[1:], got_b[1:]):
@@ -2926,7 +2964,8 @@ def phase_precision_kernel_check():
     chain = random_chain(rng, machines, tags)
     dev = to_device(chain, DEVICE)
     layers = [(W.to(bf), b.to(bf)) for W, b in dev["layers"]]
-    kw = {k: v if k == "agg_thr" else v.to(bf) for k, v in dev["kw"].items()}
+    (form, s, o), (det_form, ds, do) = dev["kw"]["chain"][0], dev["kw"]["det"]
+    kw = dict(chain=[(form, s.to(bf), o.to(bf))], det=(det_form, ds.to(bf), do.to(bf)), agg_thr=dev["kw"]["agg_thr"])
     x = put(rng.standard_normal((machines, n, tags))).to(bf)
     run = lambda: fs.fleet_score(x, layers, chain["acts"], **kw)  # noqa: E731
     plain = lambda: fs.fleet_score_plain(x, layers, chain["acts"], **kw)  # noqa: E731
@@ -2956,7 +2995,7 @@ def phase_precision_kernel_check():
     timed(entry, run, plain, 20, 5)
     entry.update(fleet_score_bound(machines, n, chain["dims"], machines, in_bytes=2))
     entries["fleet_score_bf16"] = entry
-    stacked_ff = [t for layer in layers for t in layer] + [kw[k] for k in ("scale", "offset", "det_scale", "det_offset")]
+    stacked_ff = [t for layer in layers for t in layer] + [*kw["chain"][0][1:], *kw["det"][1:]]
     del x, got, ref, xs, got_s, ref_s
 
     # lstm_layer over bf16 storage: six layers at the bench's LSTM, each fed
@@ -2973,7 +3012,7 @@ def phase_precision_kernel_check():
         n_in, hidden = int(ki.shape[1]), int(kh.shape[1])
         first, last = i == 0, i == len(net["cells"]) - 1
         lkw = dict(lookback=LOOKBACK, act="tanh", last=last,
-                   scale=scale if first else None, offset=offset if first else None)
+                   chain=[minmax_step(scale, offset)] if first else None)
         inp = h
         run = lambda: ll.lstm_layer(inp, ki, kh, b, **lkw)  # noqa: E731
         plain = lambda: ll.lstm_layer_plain(inp, ki, kh, b, **lkw)  # noqa: E731
@@ -3002,9 +3041,9 @@ def phase_precision_kernel_check():
     W, bh = put(net["head"][0]).to(bf), put(net["head"][1]).to(bf)
     stacked_lstm += [W, bh]
     groups_lstm += [1, 1]
-    det = dict(det_scale=put(net["det_scale"]).to(bf), det_offset=put(net["det_offset"]).to(bf),
+    det = dict(det=minmax_step(put(net["det_scale"]).to(bf), put(net["det_offset"]).to(bf)),
                y=x, y_offset=LOOKBACK - 1)
-    stacked_lstm += [scale, offset, det["det_scale"], det["det_offset"]]
+    stacked_lstm += [scale, offset, *det["det"][1:]]
     groups_lstm += [1, 1, 1, 1]
     run = lambda: fs.fleet_score(h, [(W, bh)], ["linear"], **det)  # noqa: E731
     plain = lambda: fs.fleet_score_plain(h, [(W, bh)], ["linear"], **det)  # noqa: E731
@@ -3221,6 +3260,7 @@ def phase_stream_kernel_check():
             cast = lambda t: None if t is None else (t if t.dtype != torch.float32 else t.to(dtype))  # noqa: E731
             lay = [(cast(w), cast(b)) for w, b in layers]
             st = {k: cast(put(src[k])) for k in ("scale", "offset", "det_scale", "det_offset")}
+            pipe, det = [minmax_step(st["scale"], st["offset"])], minmax_step(st["det_scale"], st["det_offset"])
             thr = put(src["agg"])
             cells = [tuple(cast(put(a)) for a in c) for c in src.get("cells", [])]
             ring = cast(put(rng.standard_normal((H, F))))
@@ -3228,17 +3268,14 @@ def phase_stream_kernel_check():
 
             def score(ring_in, count, x=None, ring_out=None, plain=False):
                 fn = sk.stream_step_plain if plain else sk.stream_step
-                kw = dict(window=W, mode_offset=offset_rows, det_scale=st["det_scale"],
-                          det_offset=st["det_offset"], agg_thr=thr)
+                kw = dict(window=W, mode_offset=offset_rows, det=det, agg_thr=thr)
                 if kind == "default":
-                    return fn(ring_in, count, lay, acts, scale=st["scale"], offset=st["offset"],
-                              x=x, ring_out=ring_out, **kw)
+                    return fn(ring_in, count, lay, acts, chain=pipe, x=x, ring_out=ring_out, **kw)
                 h = ring_in[None]
                 for i, ((ki, kh, b), act) in enumerate(zip(cells, ["tanh"] * len(cells))):
                     h = ll.lstm_layer(h, ki, kh, b, lookback=LOOKBACK, act=act,
-                                      n_windows=W if i == 0 else None,
-                                      scale=st["scale"] if i == 0 else None,
-                                      offset=st["offset"] if i == 0 else None, last=i == len(cells) - 1)
+                                      n_windows=W if i == 0 else None, chain=pipe if i == 0 else None,
+                                      last=i == len(cells) - 1)
                 return fn(ring_in, count, lay, acts, h=h[0], **kw)
 
             e = {"ring": [H, F], "window": W, "storage": str(dtype).replace("torch.", "")}
@@ -3265,17 +3302,15 @@ def phase_stream_kernel_check():
                 if label == "steady":
                     # the request path's kernels over the same H rows
                     fo = F
-                    kw = dict(det_scale=st["det_scale"], det_offset=st["det_offset"])
                     if kind == "default":
-                        scored = fs.fleet_score(out_k[None], lay, acts, scale=st["scale"], offset=st["offset"], **kw)
+                        scored = fs.fleet_score(out_k[None], lay, acts, chain=pipe, det=det)
                     else:
                         h = out_k[None]
                         for i, (ki, kh, b) in enumerate(cells):
                             h = ll.lstm_layer(h, ki, kh, b, lookback=LOOKBACK, act="tanh",
-                                              n_windows=W if i == 0 else None,
-                                              scale=st["scale"] if i == 0 else None,
-                                              offset=st["offset"] if i == 0 else None, last=i == len(cells) - 1)
-                        scored = fs.fleet_score(h, lay, acts, y=out_k[None], y_offset=offset_rows, **kw)
+                                              n_windows=W if i == 0 else None, chain=pipe if i == 0 else None,
+                                              last=i == len(cells) - 1)
+                        scored = fs.fleet_score(h, lay, acts, y=out_k[None], y_offset=offset_rows, det=det)
                     med = rm.rolling_median(scored["tag-anomaly-scores"], scored["total-anomaly-score"], W,
                                             agg_thr=thr)
                     want = torch.cat([med["tag-anomaly-scores"][0, -1], med["total-anomaly-score"][0, -1:],
@@ -3292,8 +3327,7 @@ def phase_stream_kernel_check():
                     plain = lambda: score(ring, count_t.clone(), row, out_t.clone(), plain=True)  # noqa: E731
                 else:
                     h_fixed = torch.randn((W, dims[0]), device=DEVICE)
-                    skw = dict(window=W, mode_offset=offset_rows, det_scale=st["det_scale"],
-                               det_offset=st["det_offset"], agg_thr=thr, h=h_fixed)
+                    skw = dict(window=W, mode_offset=offset_rows, det=det, agg_thr=thr, h=h_fixed)
                     run = lambda: sk.stream_step(out_t, count_t, lay, acts, **skw)  # noqa: E731
                     plain = lambda: sk.stream_step_plain(out_t, count_t, lay, acts, **skw)  # noqa: E731
                     e["shift_ms"], e["shift_host_ms"] = time_ms(lambda: sk.stream_shift(ring, out_t, count_t, row), 200)
@@ -3607,7 +3641,9 @@ def phase_resume_kernel_check():
     scale, offset = ss.scaler_stats(X, row_lists)
     params0, perms = put_draws(fleet_draws, 0, dims, fits, cfg.epochs, X.device)
     zero = np.zeros(machines, np.int64)
-    args = (X, X, fits, scale, offset)
+    pipe = [minmax_step(scale, offset)]
+    fit = lambda *a, **k: ff.fleet_fit(X, X, fits, *a, chain=pipe, **k)  # noqa: E731
+    fit_plain = lambda *a, **k: ff.fleet_fit_plain(X, X, fits, *a, chain=pipe, **k)  # noqa: E731
     entries = {}
 
     def errors(ref: dict, got: dict, tol: dict, what: str):
@@ -3625,14 +3661,14 @@ def phase_resume_kernel_check():
                     else STATE_TOLERANCE) for k in keys}
 
     # one launch of all epochs, and the same fit as chunks from saved state
-    layers, hist, state = ff.fleet_fit(*args, params0, perms, zero, acts, cfg.epochs, hp, return_state=True)
+    layers, hist, state = fit(params0, perms, zero, acts, cfg.epochs, hp, return_state=True)
     whole = {**_state_pairs(layers, state), "history": hist}
     per_fit = ff.unpack_perms(perms.cpu(), fits, cfg.epochs)
     check(sum(RESUME_CHUNKS) == cfg.epochs, f"the chunks {RESUME_CHUNKS} cover {cfg.epochs} epochs")
     p, st, hists, e0 = params0, None, [], 0
     for chunk in RESUME_CHUNKS:
         part = torch.from_numpy(ff.pack_perms([q[:, e0:e0 + chunk].numpy() for q in per_fit])).to(DEVICE)
-        p, h, st = ff.fleet_fit(*args, p, part, zero if st is None else np.arange(machines), acts, chunk,
+        p, h, st = fit(p, part, zero if st is None else np.arange(machines), acts, chunk,
                                 hp, perm_draw=zero, state=st, return_state=True)
         hists.append(h)
         e0 += chunk
@@ -3641,16 +3677,16 @@ def phase_resume_kernel_check():
         check(torch.equal(ref, chunked[key]), f"fleet_fit chunked {RESUME_CHUNKS}: {key} bit for bit")
     check(st.count.cpu().numpy().tolist() == [[cfg.epochs * fg.steps for fg in fits]] * machines,
           "the final Adam counts")
-    layers_p, hist_p, state_p = ff.fleet_fit_plain(*args, params0, perms, zero, acts, cfg.epochs, hp,
+    layers_p, hist_p, state_p = fit_plain(params0, perms, zero, acts, cfg.epochs, hp,
                                                    return_state=True)
     plain = {**_state_pairs(layers_p, state_p), "history": hist_p}
     errs, abs_err = errors(plain, whole, tolerance(plain), "stateful fleet_fit")
     # the timed launch: all epochs from given (zero) state, state written
     zero_state = ff.FitState(torch.zeros_like(state.mu), torch.zeros_like(state.nu),
                              torch.zeros_like(state.count))
-    run = lambda: ff.fleet_fit(*args, params0, perms, zero, acts, cfg.epochs, hp, state=zero_state,  # noqa: E731
+    run = lambda: fit(params0, perms, zero, acts, cfg.epochs, hp, state=zero_state,  # noqa: E731
                                return_state=True)
-    plain_run = lambda: ff.fleet_fit_plain(*args, params0, perms, zero, acts, cfg.epochs, hp,  # noqa: E731
+    plain_run = lambda: fit_plain(params0, perms, zero, acts, cfg.epochs, hp,  # noqa: E731
                                            state=zero_state, return_state=True)
     entry = {"max_norm_err": errs, "max_abs_err": abs_err, "tolerance": tolerance(errs),
              "chunks": list(RESUME_CHUNKS), "chunked_bitwise": True,
@@ -3664,8 +3700,8 @@ def phase_resume_kernel_check():
     w = rng.uniform(0.0, 2.0, (machines, rows)).astype(np.float32)
     w[rng.uniform(size=w.shape) < 0.1] = 0.0
     w_dev = torch.from_numpy(w).to(DEVICE)
-    run = lambda: ff.fleet_fit(*args, params0, perms, zero, acts, cfg.epochs, hp, w=w_dev)  # noqa: E731
-    plain_run = lambda: ff.fleet_fit_plain(*args, params0, perms, zero, acts, cfg.epochs, hp, w=w_dev)  # noqa: E731
+    run = lambda: fit(params0, perms, zero, acts, cfg.epochs, hp, w=w_dev)  # noqa: E731
+    plain_run = lambda: fit_plain(params0, perms, zero, acts, cfg.epochs, hp, w=w_dev)  # noqa: E731
     (lw, hw), (lw_p, hw_p) = run(), plain_run()
     got = {**_state_pairs(lw, None), "history": hw}
     ref = {**_state_pairs(lw_p, None), "history": hw_p}
@@ -3681,8 +3717,8 @@ def phase_resume_kernel_check():
     lengths = ragged_lengths(rows, machines, FLEET_API_SPREAD)
     mask = torch.from_numpy((np.arange(rows)[None] < lengths[:, None]).astype(np.float32)).to(DEVICE)
     counts = np.minimum(lengths[:, None], [fg.n for fg in fits])
-    by_mask = ff.fleet_fit(*args, params0, perms, zero, acts, cfg.epochs, hp, w=mask)
-    by_counts = ff.fleet_fit(*args, params0, perms, zero, acts, cfg.epochs, hp, counts=counts)
+    by_mask = fit(params0, perms, zero, acts, cfg.epochs, hp, w=mask)
+    by_counts = fit(params0, perms, zero, acts, cfg.epochs, hp, counts=counts)
     for (a, b), (c, d) in zip(by_mask[0], by_counts[0]):
         check(torch.equal(a, c) and torch.equal(b, d), "0/1 weights: params bit for bit the counts'")
     check(torch.equal(by_mask[1], by_counts[1]), "0/1 weights: history bit for bit the counts'")
@@ -4131,9 +4167,10 @@ def phase_build_project():
 SCALER_YEAR = 52_560
 #: the Standard and Robust statistics against their plain versions on the
 #: card, max |kernel - plain| / max |plain| per output: the Standard sums
-#: run in another order (each thread strides its column, then a tree);
-#: Robust's selection is exact and its interpolation and chain prefix
-#: round as the plain version's separate operations do (expected 0)
+#: run in XLA:CPU's window order on both sides (expected 0); Robust's
+#: selection is exact, its interpolation the plain version's FMA (taken in
+#: float64 there) and its chain prefix the same separate roundings
+#: (expected 0)
 SCALER_TOLERANCE = {"standard": 1e-5, "robust": 1e-6, "minmax": TRAIN_TOLERANCE["scaler_stats"]}
 #: ``DiffBasedAnomalyDetector(scaler=StandardScaler,
 #: base_estimator=Pipeline[RobustScaler, AutoEncoder])``, the JAX package's paths
@@ -4179,9 +4216,13 @@ def phase_scaler_kernel_check():
     series, on NaN-padded ragged rows (449–576), as the second step of two
     chains (Standard then MinMax; MinMax to (1, -1), a negative scale, then
     Robust), each step fed the kernel's stats of the step before, and
-    Robust on one year of 10-minute rows (52,560) × 10 tags.  Times,
-    bounds, and the library call: ``torch.nanquantile`` (one call a row
-    list) for Robust; no one PyTorch call takes a NaN-aware std."""
+    Robust on one year of 10-minute rows (52,560) × 10 tags; the Standard
+    statistic also after that MinMax step (its prefix instantiation), at
+    128 tags (column groups of 13 and 11) and on the year.  The Standard
+    entries count their values that are not the plain version's bit for
+    bit (``differing``: both sum in XLA's window order).  Times, bounds,
+    and the library call: ``torch.nanquantile`` (one call a row list) for
+    Robust; no one PyTorch call takes a NaN-aware std."""
     from gordo_tpu_torch.kernels import scaler_quantiles as sq
     from gordo_tpu_torch.kernels import scaler_stats as ss
     from gordo_tpu_torch.train.cv import TimeSeriesSplit
@@ -4210,6 +4251,8 @@ def phase_scaler_kernel_check():
         tol = SCALER_TOLERANCE[stat]
         check(all(e <= tol for e in errs.values()), f"{name} within {tol}: {errs}")
         entry = {"stat": stat, "max_norm_err": errs, "max_abs_err": worst, "tolerance": tol, **bound_info}
+        if stat == "standard":
+            entry["differing"] = sum(int((r.view(torch.int32) != g.view(torch.int32)).sum()) for r, g in zip(ref, got))
         if DEVICE == "cuda":
             entry["ms"], entry["host_ms"] = time_ms(run, reps)
             entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, plain_reps)
@@ -4243,7 +4286,17 @@ def phase_scaler_kernel_check():
     hold("chain_minmax_robust", "robust", lambda: sq.scaler_quantiles(X, row_lists, prefix=mm_prefix),
          lambda: sq.scaler_quantiles_plain(X, row_lists, prefix=mm_prefix),
          stat_bound(machines, rows, tags, row_lists, 1, 1))
+    hold("chain_minmax_standard", "standard", lambda: ss.scaler_stats(X, row_lists, stat="standard", prefix=mm_prefix),
+         lambda: ss.scaler_stats_plain(X, row_lists, stat="standard", prefix=mm_prefix),
+         stat_bound(machines, rows, tags, row_lists, 1, 4))
+    wide = put(bench_fleet(rng, 64, rows, 128))
+    hold("standard_128_tags", "standard", lambda: ss.scaler_stats(wide, row_lists, stat="standard"),
+         lambda: ss.scaler_stats_plain(wide, row_lists, stat="standard"), stat_bound(64, rows, 128, row_lists, 0, 4))
+    del wide
     whole = [np.arange(SCALER_YEAR)]
+    hold("standard_year", "standard", lambda: ss.scaler_stats(year, whole, stat="standard"),
+         lambda: ss.scaler_stats_plain(year, whole, stat="standard"), stat_bound(1, SCALER_YEAR, tags, whole, 0, 4),
+         reps=5, plain_reps=3)
     hold("robust_year", "robust", lambda: sq.scaler_quantiles(year, whole),
          lambda: sq.scaler_quantiles_plain(year, whole), stat_bound(1, SCALER_YEAR, tags, whole, 0, 1),
          library=nanquantile(year, whole), reps=5, plain_reps=3)
@@ -4479,13 +4532,17 @@ def phase_transform_kernel_check():
     the full width; QuantileTransformer steps of Q = 100
     (uniform and normal) and Q = 1,000 (normal) on quantised rows, whose
     grids (from the kernel) tie, with NaN rows; and chains A and B as the
-    build fits them.  ``scaler_quantiles``' grid variant (Q = 100, and the
-    median) at the first shape and on a year of 10-minute rows (52,560 ×
-    10), Robust's kernel rechecked there value for value against its plain
-    version; ``scaler_stats``' mean (``jnp.mean``) with a NaN column and
-    NaN-mean.  Times, bounds, and the library calls: ``torch.nanquantile``
-    over the grid, ``torch.mean`` and ``torch.nanmean``; no one PyTorch
-    call runs a transform chain."""
+    build fits them, and the PCA step alone at the full width beside
+    ``torch.mm`` of the centred rows.  ``scaler_quantiles``' grid variant
+    (Q = 100, the median by selection and by the sort) at the first shape
+    and on a year of 10-minute rows (52,560 × 10), and at its sort's
+    edges (Q 1,000, 27,000 and 57,344 rows with an all-NaN column, one
+    row), each bit for bit its plain version (``grid_bits``), Robust's
+    kernel rechecked value for value against its plain version;
+    ``scaler_stats``' mean (``jnp.mean``) with a NaN column and NaN-mean.
+    Times, bounds, and the library calls: ``torch.nanquantile`` over the
+    grid, ``torch.mm``, ``torch.mean`` and ``torch.nanmean``; no one
+    PyTorch call runs a transform chain."""
     from gordo_tpu_torch.kernels import chain_apply as ca
     from gordo_tpu_torch.kernels import scaler_quantiles as sq
     from gordo_tpu_torch.kernels import scaler_stats as ss
@@ -4512,6 +4569,15 @@ def phase_transform_kernel_check():
         entries[name] = entry
         return got
 
+    def grid_bits(name, x, lists, q, midpoint=False):
+        """The grid variant bit for bit its plain version (exact order
+        statistics; a zero's sign aside: the kernel ranks -0 first,
+        torch.sort keeps the rows' order)."""
+        got = sq.scaler_quantiles_grid(x, lists, q, midpoint=midpoint) + 0.0
+        ref = sq.scaler_quantiles_grid_plain(x, lists, q, midpoint=midpoint) + 0.0
+        check(same_bits(ref.cpu().numpy(), got.cpu().numpy()), f"{name}: bit for bit its plain version")
+        entries[name]["bitwise"] = True
+
     # the statistics: the grid, the median, the means
     rows, tags = TRANSFORM_SHAPES[0]
     for label, n in (("", rows), ("_year", TRANSFORM_YEAR)):
@@ -4525,11 +4591,20 @@ def phase_transform_kernel_check():
              lambda: sq.scaler_quantiles_grid_plain(x, whole, q),
              single_stat_bound(n, tags, TRANSFORM_Q, TRANSFORM_Q), TRANSFORM_TOLERANCE["grid"],
              library=lambda: torch.nanquantile(x[0], q, dim=0), reps=reps, plain_reps=3)
+        grid_bits(f"grid{label}", x, whole, q)
         half = put([0.5])
         hold(f"median{label}", lambda: sq.scaler_quantiles_grid(x, whole, half, midpoint=True),
              lambda: sq.scaler_quantiles_grid_plain(x, whole, half, midpoint=True),
              single_stat_bound(n, tags, 1, 1), TRANSFORM_TOLERANCE["grid"],
              library=lambda: torch.nanmedian(x[0], dim=0).values, reps=reps, plain_reps=3)
+        grid_bits(f"median{label}", x, whole, half, midpoint=True)
+        # the median through the sort (its fraction twice), beside the
+        # selection the launcher keeps for one fraction
+        halves = put([0.5, 0.5])
+        hold(f"median_sorted{label}", lambda: sq.scaler_quantiles_grid(x, whole, halves, midpoint=True),
+             lambda: sq.scaler_quantiles_grid_plain(x, whole, halves, midpoint=True),
+             single_stat_bound(n, tags, 2, 2), TRANSFORM_TOLERANCE["grid"], reps=reps, plain_reps=3)
+        grid_bits(f"median_sorted{label}", x, whole, halves, midpoint=True)
         # Robust's path, unchanged: its plain version's values exactly (a
         # zero may come out as -0.0 on one side: the kernel ranks -0 first,
         # torch.sort keeps the rows' order)
@@ -4547,6 +4622,31 @@ def phase_transform_kernel_check():
              lambda: ss.scaler_stats_plain(xm, whole, stat="nanmean")[0],
              single_stat_bound(n, tags, 0, 1), TRANSFORM_TOLERANCE["mean"],
              library=lambda: torch.nanmean(xm, dim=1), reps=reps, plain_reps=3)
+
+    # the grid's sort at its edges: quantised rows (tied keys) with NaN
+    # rows and an all-NaN column, at Q 1,000 on the first shape, at 27,000
+    # rows (a cluster of 4 blocks) and at QS_MAX_ROWS (57,344, of 8); a
+    # one-row list
+    for label, n, nq in (("q1000", rows, 1000), ("27000", 27_000, TRANSFORM_Q),
+                         ("max_rows", sq.MAX_ROWS, TRANSFORM_Q)):
+        X = np.round(bench_fleet(rng, 1, n, tags) * 8) / 8
+        X[0, rng.random(n) < 0.01] = np.nan
+        X[0, :, 1] = np.nan
+        x = put(X)
+        whole = [np.arange(n)]
+        q = put(ca.percentile_fractions(nq))
+        hold(f"grid_{label}", lambda: sq.scaler_quantiles_grid(x, whole, q),
+             lambda: sq.scaler_quantiles_grid_plain(x, whole, q),
+             single_stat_bound(n, tags, nq, nq), TRANSFORM_TOLERANCE["grid"],
+             library=lambda: torch.nanquantile(x[0], q, dim=0), reps=5, plain_reps=2)
+        grid_bits(f"grid_{label}", x, whole, q)
+    x = put(np.round(bench_fleet(rng, 1, rows, tags) * 8) / 8)
+    one = [np.array([rows // 2])]
+    q = put(ca.percentile_fractions(TRANSFORM_Q))
+    hold("grid_one_row", lambda: sq.scaler_quantiles_grid(x, one, q),
+         lambda: sq.scaler_quantiles_grid_plain(x, one, q),
+         single_stat_bound(1, tags, TRANSFORM_Q, TRANSFORM_Q), TRANSFORM_TOLERANCE["grid"], reps=5, plain_reps=2)
+    grid_bits("grid_one_row", x, one, q)
 
     # chain_apply: every step form, both quantile outputs, chains A and B
     for n, f in TRANSFORM_SHAPES:
@@ -4574,6 +4674,13 @@ def phase_transform_kernel_check():
                      ca.Step(ca.AFFINE, put(rng.uniform(0.5, 2, k)), put(rng.uniform(-1, 1, k)))]
             hold(f"every_form_{n}x{f}_k{k}", lambda: ca.chain_apply(xn, steps), lambda: ca.chain_apply_plain(xn, steps),
                  chain_apply_bound(n, steps, f), TRANSFORM_TOLERANCE["chain_apply"])
+        # the forward PCA step alone at the full width, beside torch.mm of
+        # the rows centred beforehand (the library call's part of the work)
+        pca = [ca.Step(ca.PCA, mean, vt.t().contiguous())]
+        centred = x - mean
+        hold(f"pca_k{f}_{n}x{f}", lambda: ca.chain_apply(x, pca), lambda: ca.chain_apply_plain(x, pca),
+             chain_apply_bound(n, pca, f), TRANSFORM_TOLERANCE["chain_apply"],
+             library=lambda: torch.mm(centred, pca[0].b))
         for label, steps, rows_in in (
             ("quantile_uniform", [ca.Step(ca.QUANTILE, grid, qs)], xq_nan),
             ("quantile_normal", [ca.Step(ca.QUANTILE, grid, qs, normal=True)], xq_nan),
@@ -5692,15 +5799,82 @@ def phase_container_kernel_check():
         ds, do = put(scale), put(-lo * scale)
         thr = put(rng.uniform(0.5, 2.0, m))
         for with_thr in (False, True):
-            kw = dict(det_scale=ds, det_offset=do, agg_thr=thr if with_thr else None, y=y)
+            kw = dict(det=minmax_step(ds, do), agg_thr=thr if with_thr else None, y=y)
             hold(f"epilogue_{'thresholds_' if with_thr else ''}{label}",
                  lambda kw=kw: fs.fleet_score(pred, [], [], **kw),
                  lambda kw=kw: fs.fleet_score_plain(pred, [], [], **kw),
                  epilogue_bound(m, n, f, m, with_thr), CONTAINER_TOLERANCE["fleet_score_epilogue"])
+    pca_forms_check(rng, put, entries)
     emit({"phase": "container_kernel_check", "shapes": CONTAINER_SHAPES, "kernels": entries})
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return entries
+
+
+#: the PCA forms' sweep: slots of 128 tags, their machines and valid rows,
+#: the output's spare columns before the step's (a column range)
+PCA_FORMS = {"rows": 512, "tags": 128, "idx": [2, 0, 1, 2], "n_rows": [512, 300, 1, 77], "out_col": 2,
+             "ks": (1, 8, 10, 127, 128)}
+
+
+def _sequential_fma(x: torch.Tensor, comps: torch.Tensor, mean: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """One machine's PCA (or PCA_INV) step as the kernel sums it: per output
+    a chain of FMAs, c ascending (each in float64, rounded once), PCA_INV's
+    mean added after, PCA's subtracted from each value first."""
+    v = x if inverse else x - mean
+    acc = torch.zeros((x.shape[0], comps.shape[1]), dtype=torch.float32, device=x.device)
+    for c in range(comps.shape[0]):
+        acc = (v[:, c:c + 1].double() * comps[c].double() + acc.double()).float()
+    return acc + mean if inverse else acc
+
+
+def pca_forms_check(rng, put, entries) -> None:
+    """``chain_apply``'s PCA and PCA_INV steps at k in PCA_FORMS["ks"]
+    against their plain version on the card: stacked slots with ``idx``,
+    ``n_rows`` and a column range, at each instantiation (float32 rows and
+    output; bf16 rows, float32 output; bf16 both), each slot's valid rows
+    only; and PCA_INV at k 128 over 4,096 rows against the FMA chain it
+    sums (its bits)."""
+    from gordo_tpu_torch.kernels import chain_apply as ca
+
+    n, f, idx, counts, col = (PCA_FORMS[k] for k in ("rows", "tags", "idx", "n_rows", "out_col"))
+    machines = max(idx) + 1
+    worst = {}
+    for k in PCA_FORMS["ks"]:
+        comps = np.linalg.qr(rng.standard_normal((machines, f, f)))[0][:, :, :k].transpose(0, 2, 1)  # (M, k, f)
+        mean = rng.standard_normal((machines, f))
+        for form, w_in, w_out, b in ((ca.PCA, f, k, comps.transpose(0, 2, 1)), (ca.PCA_INV, k, f, comps)):
+            X = bench_fleet(rng, len(idx), n, w_in) * 3
+            X[rng.random(X.shape) < 0.002] = np.nan
+            for store, out_dtype in ((torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)):
+                steps = [ca.Step(form, put(mean).to(store), put(b).to(store), stacked=True)]
+                x = put(X).to(store)
+                kw = dict(idx=idx, n_rows=counts, out_dtype=out_dtype, out_col=col)
+                out = lambda: torch.zeros((len(idx), n, w_out + col + 1), dtype=out_dtype, device=DEVICE)  # noqa: E731
+                got = ca.chain_apply(x, steps, out=out(), **kw)
+                ref = ca.chain_apply_plain(x, steps, out=out(), **kw)
+                valid = torch.zeros((len(idx), n), dtype=torch.bool, device=DEVICE)
+                for slot, c in enumerate(counts):
+                    valid[slot, :c] = True
+                name = f"{ca.FORM_NAMES[form]}_k{k}_{str(store)[6:]}_to_{str(out_dtype)[6:]}"
+                check(bool((got[..., :col] == 0).all() and (got[..., col + w_out:] == 0).all()),
+                      f"{name}: only its column range written")
+                e, _ = _masked_err(ref[..., col:col + w_out][valid].float(), got[..., col:col + w_out][valid].float(),
+                                   name)
+                tol = (TRANSFORM_SERVE_TOLERANCE["bfloat16_out"] if out_dtype == torch.bfloat16
+                       else TRANSFORM_TOLERANCE["chain_apply"])
+                check(e <= tol, f"{name} within {tol}: {e}")
+                worst[name] = e
+    # the register-tiled product sums each output as the FMA chain it replaced
+    comps = put(np.linalg.qr(rng.standard_normal((128, 128)))[0].T)    # (k, F)
+    z = put(rng.standard_normal((4096, 128)))
+    pmean = put(rng.standard_normal(128))
+    got = ca.chain_apply(z, [ca.Step(ca.PCA_INV, pmean, comps)])
+    ref = _sequential_fma(z, comps, pmean, inverse=True)
+    mismatched = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
+    check(mismatched == 0, f"PCA_INV k 128: {mismatched} outputs differ from the FMA chain's bits")
+    entries["pca_forms"] = {"max_norm_err": worst, "cases": len(worst), "pca_inv_k128_fma_chain_mismatches": mismatched}
 
 
 def _container_counters():
@@ -5984,6 +6158,122 @@ def container_summary(summary: list, kernels: dict, build: dict) -> None:
         })
 
 
+UNCENTRED_SHAPE = (64, 576, 10)
+#: a level far from zero against the tags' spread (a pressure of 100 +- 1, a
+#: temperature in kelvin), added to every tag
+UNCENTRED_LEVEL = 1e3
+#: the two chains, each with a Standard detector scaler
+UNCENTRED_CHAINS = {
+    "robust_minmax": ["gordo_tpu.ops.scalers.RobustScaler", "gordo_tpu.ops.scalers.MinMaxScaler"],
+    "minmax_standard": ["gordo_tpu.ops.scalers.MinMaxScaler", "gordo_tpu.ops.scalers.StandardScaler"],
+}
+UNCENTRED_REQUEST_ROWS = 2048
+UNCENTRED_SERVED = 4
+UNCENTRED_STREAM = {"machines": 4, "rows": 24}
+#: the builds held to their plain program on the card: the fits' tolerance,
+#: each chain step's and the detector's stats as their kernels'
+UNCENTRED_BUILD_TOLERANCE = {"params": TRAIN_TOLERANCE["fleet_fit"], "history": TRAIN_TOLERANCE["fleet_fit_history"],
+                             "scaler": SCALER_TOLERANCE["standard"], "detector": SCALER_TOLERANCE["standard"],
+                             **BUILD_TOLERANCE}
+
+
+def uncentred_model(steps) -> dict:
+    return {"gordo_tpu.anomaly.diff.DiffBasedAnomalyDetector": {
+        "scaler": "gordo_tpu.ops.scalers.StandardScaler",
+        "base_estimator": {"gordo_tpu.pipeline.Pipeline": {"steps": [
+            *steps, {"gordo_tpu.models.estimator.AutoEncoder": {"kind": "feedforward_hourglass"}}]}}}}
+
+
+def phase_uncentred_chain():
+    """Scaler chains on uncentred columns: UNCENTRED_SHAPE's fleet (the
+    bench's random tags plus UNCENTRED_LEVEL) as detectors of each of
+    UNCENTRED_CHAINS, each step applied in turn in its own form by the
+    kernels that load scaled rows (``csrc/scaler_prefix.cuh``).  Each chain
+    is built twice, the second counted (seconds, launches of every kernel
+    set to 0 just before), and held per machine to the same program through
+    the plain versions on the card; UNCENTRED_SERVED machines served
+    UNCENTRED_REQUEST_ROWS rows at float32 and at bfloat16, each held to
+    the plain scorer on the CPU at the same dtype at TOLERANCE, one
+    ``fleet_score`` launch a request (bf16 against f32 is recorded: rows of
+    1e3 stored in bf16 keep steps of 4, far coarser than the tags' spread);
+    UNCENTRED_STREAM rows streamed into a few, every verdict the request
+    path's bit for bit."""
+    from gordo_tpu_torch.kernels import fleet_score as fs
+    from gordo_tpu_torch.kernels import stream_step as sk
+    from gordo_tpu_torch.parallel.anomaly import FleetDiffBuilder, analyze_definition
+    from gordo_tpu_torch.serializer import from_definition
+    from gordo_tpu_torch.serve.scorer import CompiledScorer
+    from gordo_tpu_torch.serve.stream import MachineStream, reference_verdict
+
+    machines, rows, tags = UNCENTRED_SHAPE
+    rng = np.random.default_rng(SEED + 53)
+    Xs = list(bench_fleet(rng, machines, rows, tags) + np.float32(UNCENTRED_LEVEL))
+    requests = bench_fleet(rng, UNCENTRED_SERVED, UNCENTRED_REQUEST_ROWS, tags) + np.float32(UNCENTRED_LEVEL)
+    out = {"shape": list(UNCENTRED_SHAPE), "level": UNCENTRED_LEVEL, "launches": {}, "chains": {}}
+    for name, steps in UNCENTRED_CHAINS.items():
+        spec = analyze_definition(from_definition(uncentred_model(steps)))
+        check(spec is not None, f"the {name} detector is fleetable")
+        builder = FleetDiffBuilder(spec, device=DEVICE)
+        detectors, info, pending = _build_counted(spec, builder, Xs, _ff_counters())
+        for det in detectors:
+            check(bool(np.isfinite(det.feature_thresholds_).all()), f"{name}: finite thresholds")
+        worst, admitted = _hold_to_plain_program(spec, builder, pending, detectors, UNCENTRED_BUILD_TOLERANCE)
+        _check_worst(worst, UNCENTRED_BUILD_TOLERANCE, f"{name} build against its plain program")
+        info.update(vs_plain_max_norm_err=worst, vs_plain_held_to_one_ulp_movement=admitted)
+        for key, n in info["launches"].items():
+            out["launches"][key] = out["launches"].get(key, 0) + n
+
+        served = {"float32": {}, "bfloat16": {}}
+        bf16_err, per_request, seconds = {}, [], []
+        for i in range(UNCENTRED_SERVED):
+            X = requests[i]
+            got = {}
+            for dtype in served:
+                scorer = CompiledScorer(detectors[i], device=None if DEVICE == "cuda" else DEVICE, dtype=dtype)
+                fs.launches = 0
+                t0 = time.perf_counter()
+                got[dtype] = scorer.anomaly_arrays(X)
+                seconds.append(time.perf_counter() - t0)
+                per_request.append(fs.launches)
+                ref = CompiledScorer(detectors[i], device="cpu", dtype=dtype).anomaly_arrays(X)
+                for k, err in _served_error(ref, got[dtype], dict.fromkeys(OUTPUTS)).items():
+                    served[dtype][k] = max(served[dtype].get(k, 0.0), err)
+            for k, err in _served_error(got["float32"], got["bfloat16"], dict.fromkeys(OUTPUTS)).items():
+                bf16_err[k] = max(bf16_err.get(k, 0.0), err)
+        check(all(v <= TOLERANCE for d in served.values() for v in d.values()),
+              f"{name}: served within {TOLERANCE} of the plain scorer: {served}")
+        if DEVICE == "cuda":
+            check(set(per_request) == {1}, f"{name}: one fleet_score launch a request, got {per_request}")
+        out["launches"]["fleet_score"] = out["launches"].get("fleet_score", 0) + sum(per_request)
+
+        sk.launches = 0
+        checked = 0
+        for i in range(UNCENTRED_STREAM["machines"]):
+            scorer = CompiledScorer(detectors[i], device=None if DEVICE == "cuda" else DEVICE, dtype="float32")
+            ms = MachineStream(f"{name}-{i}", scorer)
+            H = ms.state_rows
+            for t, row in enumerate(Xs[i][:UNCENTRED_STREAM["rows"]], start=1):
+                v = ms.ingest(row)
+                if t < H:
+                    continue
+                ref = reference_verdict(scorer, Xs[i][t - H:t])
+                for k in ref:
+                    check(np.asarray(v[k], np.float32).tobytes() == np.asarray(ref[k], np.float32).tobytes(),
+                          f"{name} machine {i} step {t} {k}: the streamed verdict is the request path's bit for bit")
+                checked += 1
+        stream_launches = sk.launches
+        if DEVICE == "cuda":
+            want = UNCENTRED_STREAM["machines"] * UNCENTRED_STREAM["rows"]
+            check(stream_launches == want, f"{name}: stream_step launched {stream_launches} times, expected {want}")
+        out["launches"]["stream_step"] = out["launches"].get("stream_step", 0) + stream_launches
+        info.update(served_machines=UNCENTRED_SERVED, request_rows=UNCENTRED_REQUEST_ROWS,
+                    served_max_norm_err=served, bf16_vs_f32_max_norm_err=bf16_err,
+                    fleet_score_launches_per_request=per_request, request_seconds=seconds,
+                    stream_launches=stream_launches, verdicts_checked_bitwise=checked)
+        out["chains"][name] = info
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU", file=sys.stderr)
@@ -6042,6 +6332,8 @@ def main() -> int:
     container_kernels = phase_container_kernel_check()
     container_build = phase_container_build()
     emit({"phase": "container_build", **container_build})
+    uncentred = phase_uncentred_chain()
+    emit({"phase": "uncentred_chain", **uncentred})
     main_shape = shapes[0]
     head = lstm_kernels["fleet_score_lstm_head"]
     summary = [{
@@ -6332,6 +6624,12 @@ def main() -> int:
         })
     transform_serve_summary(summary, transform_serve_kernels, transform_serve)
     container_summary(summary, container_kernels, container_build)
+    # the uncentred chains: their builds', requests' and streams' launches
+    for entry in summary:
+        name = entry["name"]
+        if name in uncentred["launches"]:
+            entry["launches_by_path"]["uncentred_chain"] = uncentred["launches"][name]
+            entry["launches"] = sum(entry["launches_by_path"].values())
     apply_entry = resume_kernels["fleet_apply"]
     summary.append({
         "name": "fleet_apply", "route": "cuda", "source": fa.SOURCE, "replaces": fa.REPLACES,

@@ -74,12 +74,16 @@
 // fleet_score and stream_step (which read an f32 input over bf16 weights),
 // and the storage type for lstm_layer's first layer (which reads its rows
 // at the weights' type).  So three instantiations: <float, float>,
-// <bf16, float> and <bf16, bf16>.
+// <bf16, float> and <bf16, bf16>, each with and without the PCA step's
+// register tile (below).
 //
 // Bound: each input value is read once and each output written once; a
 // quantile step reads O(log Q) grid entries per value from the L1/L2
 // cache, a PCA or PCA_INV step does 2 F k operations per row.  At the widths of the
-// main path (F <= 128) this is bound by device memory.
+// main path (F <= 128) this is bound by device memory: at 4,096 x 128 with
+// k = 128, 4 MB of rows in and out (1.3 us at 3.35 TB/s) against 134
+// MFLOP of fp32 FMAs (2.0 us at 67 TFLOP/s), so the PCA step alone is
+// just above the ridge and bound by its arithmetic.
 //
 // Design: one block per tile of R rows of one slot (grid: tiles x slots;
 // R = 32..256, the most whose two buffers of R x max_width floats stay
@@ -89,11 +93,28 @@
 // rows are contiguous) and every step runs on it there, all threads
 // striding over the tile's (row, column) values; a PCA step writes its k
 // outputs per row (PCA_INV its F) into the second buffer, and the buffers
-// swap.  The
+// swap.  The other
 // steps' stats stay in global memory, read through the read-only cache: a
 // quantile grid of Q <= 1,000 entries per column would not fit a block's
 // shared memory at 128 columns.  The last buffer is written out coalesced.
 // Steps run in order with a barrier between them.
+//
+// A PCA or PCA_INV step is a small product, (R, w) by (w, k).  Its first
+// version gave each thread one output, a w-long chain of FMAs that read a
+// component from global memory for every term: at k 128 it ran at 0.69%
+// of its bound, 5.9x slower than torch.addmm (PERF.md).  So the step's
+// components (up to 128 x 128 floats, 64 KB, the machine's own on a
+// stacked call) are staged in shared memory once per block, past the two
+// tile buffers (dynamic shared memory over 48 KB: two blocks of 96 KB an
+// SM at 128 columns), each row padded to a multiple of CA_CT columns with
+// zeros; PCA centres the tile in place first (the same `x - mean` the
+// terms took one by one).  Each thread then computes a CA_RT x CA_CT tile
+// of outputs in registers: per term it reads CA_RT values of the tile
+// (one row of a warp: a broadcast) and CA_CT components (one float4), and
+// does CA_RT x CA_CT FMAs.  Every output keeps its accumulation order, c
+// ascending, one __fmaf_rn a term, and PCA_INV adds the mean after, so
+// the outputs are the one-output-a-thread version's bit for bit.  Tensor
+// cores would round otherwise, so the step stays on fp32 FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,6 +127,10 @@
 #define CA_MAX_WIDTH 128
 #define CA_MAX_Q 1000
 #define CA_MAX_SLOTS 65535
+#define CA_COMP_BATCH 8    // loads in flight a thread as a PCA step's components load
+#define CA_RT 4            // rows of a PCA step's register tile
+#define CA_CT 4            // columns of it (one float4 of components)
+#define CA_SMEM_LIMIT 232448
 
 #define CA_AFFINE 0
 #define CA_CENTER 1
@@ -321,8 +346,12 @@ __device__ __forceinline__ float elementwise(const ChainStep& s, const T* a, con
   }
 }
 
-template <typename T, typename TO>
-__global__ void __launch_bounds__(CA_THREADS) chain_apply_kernel(const ChainApplyArgs a) {
+// PCA: the chain has a PCA or PCA_INV step.  Its register tile takes 48
+// registers a thread (five blocks an SM); a chain without one runs an
+// instantiation without the tile, at the 32 registers and eight blocks an
+// SM that its elementwise steps, bound by device memory, had before.
+template <typename T, typename TO, bool PCA>
+__global__ void __launch_bounds__(CA_THREADS, PCA ? 5 : 8) chain_apply_kernel(const ChainApplyArgs a) {
   extern __shared__ float smem[];
   __shared__ float s_qs[CA_MAX_Q];
   const int slot = blockIdx.y;
@@ -347,17 +376,66 @@ __global__ void __launch_bounds__(CA_THREADS) chain_apply_kernel(const ChainAppl
     const T* sa = static_cast<const T*>(s.a) + mach * s.a_stride;
     const T* sb = static_cast<const T*>(s.b) + mach * s.b_stride;
     const int w = s.width_in;
-    if (s.form == CA_PCA || s.form == CA_PCA_INV) {
+    if (PCA && (s.form == CA_PCA || s.form == CA_PCA_INV)) {
       const int ko = s.width_out;
+      const int kp = (ko + CA_CT - 1) / CA_CT * CA_CT;
       const bool inv = s.form == CA_PCA_INV;
-      for (int i = t; i < rows * ko; i += blockDim.x) {
-        const int r = i / ko, j = i - r * ko;
-        float acc = 0.f;
-        for (int c = 0; c < w; ++c) {
-          const float v = inv ? cur[r * W + c] : __fsub_rn(cur[r * W + c], ld(sa + c));
-          acc = __fmaf_rn(v, ld(sb + (size_t)c * ko + j), acc);
+      float* comp = smem + 2 * a.rows_per_tile * W;  // (w, kp), 16-byte aligned
+      // CA_COMP_BATCH loads in flight a thread before it stores any: a
+      // store to shared memory through a generic pointer may alias a later
+      // load for all the compiler knows, so a load and store at a time
+      // would wait a full memory latency each (the k 128 step at 4,096 x
+      // 128 took 0.0300 ms that way, 0.0255 batched, on an H100 80GB HBM3
+      // at 700 W)
+      for (int i0 = t; i0 < w * kp; i0 += CA_COMP_BATCH * blockDim.x) {
+        float v[CA_COMP_BATCH];
+#pragma unroll
+        for (int u = 0; u < CA_COMP_BATCH; ++u) {
+          const int i = i0 + u * blockDim.x;
+          const int c = i / kp, j = i - c * kp;
+          v[u] = i < w * kp && j < ko ? ld(sb + (size_t)c * ko + j) : 0.f;
         }
-        nxt[r * W + j] = inv ? __fadd_rn(acc, ld(sa + j)) : acc;
+#pragma unroll
+        for (int u = 0; u < CA_COMP_BATCH; ++u)
+          if (i0 + u * blockDim.x < w * kp) comp[i0 + u * blockDim.x] = v[u];
+      }
+      if (!inv)
+        for (int i = t; i < rows * w; i += blockDim.x) {
+          const int r = i / w, c = i - r * w;
+          cur[r * W + c] = __fsub_rn(cur[r * W + c], ld(sa + c));
+        }
+      __syncthreads();
+      // tiles past the last row read stale rows of the buffer and write nothing
+      const int ncg = kp / CA_CT;
+      const int n_tiles = (rows + CA_RT - 1) / CA_RT * ncg;
+      for (int tile = t; tile < n_tiles; tile += blockDim.x) {
+        const int rg = tile / ncg;
+        const int r0 = rg * CA_RT, j0 = (tile - rg * ncg) * CA_CT;
+        float acc[CA_RT][CA_CT];
+#pragma unroll
+        for (int rr = 0; rr < CA_RT; ++rr)
+#pragma unroll
+          for (int jj = 0; jj < CA_CT; ++jj) acc[rr][jj] = 0.f;
+        const float* xr = cur + r0 * W;
+        for (int c = 0; c < w; ++c) {
+          const float4 b4 = *reinterpret_cast<const float4*>(comp + c * kp + j0);
+          const float bv[CA_CT] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+          for (int rr = 0; rr < CA_RT; ++rr) {
+            const float v = xr[rr * W + c];
+#pragma unroll
+            for (int jj = 0; jj < CA_CT; ++jj) acc[rr][jj] = __fmaf_rn(v, bv[jj], acc[rr][jj]);
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < CA_RT; ++rr) {
+          if (r0 + rr >= rows) break;
+#pragma unroll
+          for (int jj = 0; jj < CA_CT; ++jj) {
+            const int j = j0 + jj;
+            if (j < ko) nxt[(r0 + rr) * W + j] = inv ? __fadd_rn(acc[rr][jj], ld(sa + j)) : acc[rr][jj];
+          }
+        }
       }
       __syncthreads();
       float* tmp = cur;
@@ -411,19 +489,44 @@ extern "C" const char* chain_apply_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// dynamic shared memory: the two tile buffers, then the largest PCA or
+// PCA_INV step's padded components
+static size_t smem_bytes(const ChainApplyArgs* a) {
+  size_t comp = 0;
+  for (int k = 0; k < a->n_steps; ++k) {
+    const ChainStep& s = a->steps[k];
+    if (s.form == CA_PCA || s.form == CA_PCA_INV) {
+      const size_t kp = (size_t)(s.width_out + CA_CT - 1) / CA_CT * CA_CT;
+      comp = comp > s.width_in * kp ? comp : s.width_in * kp;
+    }
+  }
+  return ((size_t)2 * a->rows_per_tile * a->max_width + comp) * sizeof(float);
+}
+
+template <typename T, typename TO, bool PCA>
+static int launch_with(const ChainApplyArgs* a, size_t smem, cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(chain_apply_kernel<T, TO, PCA>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((a->n + a->rows_per_tile - 1) / a->rows_per_tile, a->m);
+  chain_apply_kernel<T, TO, PCA><<<grid, CA_THREADS, smem, stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, typename TO>
 static int launch(const ChainApplyArgs* a, cudaStream_t stream) {
-  const size_t smem = (size_t)2 * a->rows_per_tile * a->max_width * sizeof(float);
-  const dim3 grid((a->n + a->rows_per_tile - 1) / a->rows_per_tile, a->m);
-  chain_apply_kernel<T, TO><<<grid, CA_THREADS, smem, stream>>>(*a);
-  return (int)cudaGetLastError();
+  const size_t smem = smem_bytes(a);
+  const bool pca = smem > (size_t)2 * a->rows_per_tile * a->max_width * sizeof(float);
+  return pca ? launch_with<T, TO, true>(a, smem, stream) : launch_with<T, TO, false>(a, smem, stream);
 }
 
 // Launches on `stream` without synchronising; returns cudaGetLastError(),
 // or cudaErrorInvalidValue for arguments past the kernel's limits.
 extern "C" int chain_apply_launch(const ChainApplyArgs* a, void* stream) {
   if (a->n < 1 || a->m < 1 || a->m > CA_MAX_SLOTS || a->n_steps < 1 || a->n_steps > CA_MAX_STEPS ||
-      a->max_width < 1 || a->max_width > CA_MAX_WIDTH || a->rows_per_tile < 1 ||
+      a->max_width < 1 || a->max_width > CA_MAX_WIDTH || a->rows_per_tile < 1 || a->rows_per_tile % CA_RT ||
       (size_t)2 * a->rows_per_tile * a->max_width * sizeof(float) > 48 * 1024 || (a->out_bf16 && !a->bf16) ||
       a->out_col < 0 || a->out_col + a->f_out > a->out_stride)
     return (int)cudaErrorInvalidValue;
@@ -431,6 +534,7 @@ extern "C" int chain_apply_launch(const ChainApplyArgs* a, void* stream) {
     if ((a->steps[k].form == CA_QUANTILE || a->steps[k].form == CA_QUANTILE_INV) &&
         (a->steps[k].q < 2 || a->steps[k].q > CA_MAX_Q))
       return (int)cudaErrorInvalidValue;
+  if (smem_bytes(a) + CA_MAX_Q * sizeof(float) > CA_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (!a->bf16) return launch<float, float>(a, s);
   if (a->out_bf16) return launch<__nv_bfloat16, __nv_bfloat16>(a, s);

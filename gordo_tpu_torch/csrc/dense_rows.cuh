@@ -1,5 +1,6 @@
 // The per-row body that fleet_score.cu and stream_step.cu share: loads at
-// the storage type, the pipeline scaler, the dense stack over a tile of
+// the storage type, the pipeline's scaler steps (scaler_prefix.cuh), the
+// dense stack over a tile of
 // rows in shared memory, the detector's tag score, the L2 total and the
 // confidence's threshold.  Both kernels include this one copy, so a
 // streamed verdict is computed by the same instructions as the request
@@ -15,6 +16,7 @@
 #include <math.h>
 
 #include "activations.cuh"
+#include "scaler_prefix.cuh"
 #include "storage.cuh"
 
 #define DR_MAX_LAYERS 16
@@ -41,9 +43,6 @@ __device__ __forceinline__ void walk2d(int nq, int nc, Body body) {
     }
   }
 }
-
-// the pipeline MinMax of one raw value
-__device__ __forceinline__ float scale_in(float v, float s, float o) { return v * s + o; }
 
 // the chain's layers: W (M, dims[l], dims[l+1]) and b (M, dims[l+1]) at
 // the storage type, one activation code each
@@ -121,9 +120,12 @@ __device__ __forceinline__ float* dense_rows(const DenseChain& ch, int mach, flo
   return in;
 }
 
-// the detector's score of one tag: |(p * s + c) - (y * s + c)|
-__device__ __forceinline__ float tag_score(float p, float y, float s, float c) {
-  return fabsf((p * s + c) - (y * s + c));
+// The detector's score of one tag, its scaler a step of `form` with stats
+// a, b applied to the prediction and the target alike: |d(p) - d(y)|, a
+// MinMax as one FMA each, as XLA:CPU fuses `anomaly.scores`' `y * scale +
+// offset`; a Standard or Robust scaler as (v - a) / b.
+__device__ __forceinline__ float tag_score(int form, float p, float y, float a, float b) {
+  return fabsf(__fsub_rn(step_apply<true>(form, p, a, b), step_apply<true>(form, y, a, b)));
 }
 
 // The L2 norm of a row's fo squared tag scores `sq`, summed from the tag

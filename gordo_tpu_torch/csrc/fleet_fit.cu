@@ -11,7 +11,7 @@
 // and fit, for each epoch and minibatch:
 //
 //   rows  = perm[e][s*bs : (s+1)*bs]        (rows >= n are padding, w = 0)
-//   x     = X[row] * scale + offset         (the fit's MinMax, applied at load)
+//   x     = chain(X[row])                   (the fit's scaler steps, applied at load)
 //   pred  = dense stack (tanh / linear)
 //   loss  = sum_rows(w * mean_j (pred - y)^2) / max(sum_rows w, 1)
 //   grads = backward of loss; Adam (optax's op order) on every leaf
@@ -63,13 +63,16 @@
 //   3. after one barrier, each thread owns some of the weights: it sums
 //      their gradient over the minibatch's rows and applies Adam in place.
 // Two barriers per step.  Row storage has an odd stride, so the threads of
-// a warp (one row each) hit distinct banks.  The input scale is applied
-// with __fmul_rn/__fadd_rn (no FMA contraction), the same rounding as the
-// host's `X * scale + offset`, so a machine fitted on pre-scaled rows gets
-// the same weights.
+// a warp (one row each) hit distinct banks.  The pipeline's scaler steps
+// apply to each value as it loads, each in its own form (scaler_prefix.cuh;
+// a MinMax step with __fmul_rn/__fadd_rn, no FMA contraction, the same
+// rounding as the host's `X * scale + offset`), so a machine fitted on
+// pre-scaled rows gets the same weights.
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "scaler_prefix.cuh"
 
 #define FF_MAX_LAYERS 16
 #define FF_MAX_FITS 16
@@ -83,8 +86,7 @@ struct FleetFitArgs {
   const float* x;        // (M, N, F) raw rows
   const float* y;        // (M, N, Fo) raw targets
   const int* rows;       // the fits' row lists, concatenated
-  const float* scale;    // (M, G, F) MinMax of each fit
-  const float* offset;   // (M, G, F)
+  ScalerPrefix chain;    // the scaler steps of each fit, stats (M, G, F) float
   const int* perms;      // (D, perm_len): per fit, epochs x n_total row permutations
   const int* draw;       // (M,) row of params0 each machine uses
   const int* perm_draw;  // (M,) row of perms each machine uses
@@ -216,8 +218,7 @@ __global__ void fleet_fit_kernel(const FleetFitArgs a) {
 
   const float* xm = a.x + (size_t)mach * a.n * F;
   const float* ym = a.y + (size_t)mach * a.n * Fo;
-  const float* sc = a.scale + ((size_t)mach * a.g + fit) * F;
-  const float* of = a.offset + ((size_t)mach * a.g + fit) * F;
+  const size_t at = ((size_t)mach * a.g + fit) * F;  // the fit's stats
   const int* perm = a.perms + (size_t)a.perm_draw[mach] * a.perm_len + a.fit_perm_off[fit];
   const float one_b1 = a.one_b1;
   const float one_b2 = a.one_b2;
@@ -256,8 +257,9 @@ __global__ void fleet_fit_kernel(const FleetFitArgs a) {
         float* R = rowbuf + (size_t)(base + __popc(ballot & ((1u << lane) - 1u))) * a.row_stride;
         const int src = rows[p];
         const float* xr = xm + (size_t)src * F;
-        for (int j = 0; j < F; ++j)
-          R[j] = __fadd_rn(__fmul_rn(__ldg(xr + j), __ldg(sc + j)), __ldg(of + j));
+        with_chain<float, false>(a.chain, [&](auto apply) {
+          for (int j = 0; j < F; ++j) R[j] = apply(at + j, __ldg(xr + j));
+        });
         for (int l = 0; l < L; ++l) {
           const int din = a.dims[l], dout = a.dims[l + 1];
           const float* W = params + p_off[l];

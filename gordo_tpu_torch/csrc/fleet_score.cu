@@ -7,10 +7,10 @@
 // feedforward / MinMax chain, and the LSTM chain's head (below); a
 // detector window is rolling_median's.  Per machine and row:
 //
-//   xs    = x * scale + offset                      (pipeline MinMax)
+//   xs    = chain(x)                                (the pipeline's scaler steps)
 //   h     = act_l(h @ W_l + b_l)  for every layer   (dense stack)
-//   tag   = |(h * ds + do) - (y * ds + do)|         (detector MinMax, y = x
-//                                                    or given targets)
+//   tag   = |d(h) - d(y)|                           (d the detector scaler's step,
+//                                                    y = x or given targets)
 //   total = sqrt(sum_j tag_j^2)
 //   conf  = total / max(threshold, 1e-12)
 //
@@ -54,7 +54,7 @@
 // global reads as cp.async instead of loads made no difference there.
 //
 // Reduced-precision serving (K10, gordo_tpu/serve/precision.py): the rows,
-// weights, biases and the scaler and detector stats may be stored in
+// weights, biases and the scaler steps' and detector's stats may be stored in
 // bf16; the kernel widens each value to f32 as it loads it, and computes,
 // keeps in shared memory and writes f32, as at f32 (the thresholds stay
 // f32).  Template parameters: TX, the type of x (float for an LSTM head,
@@ -80,15 +80,13 @@ struct FleetScoreArgs {
   const void* y;            // (m, y_n, f_out) targets from row y_row0, T, or null: y = x
   const int* idx;           // (m,) stacked machine of each slot, or null: slot
   const int* n_rows;        // (m,) valid rows of each slot, or null: n
-  const void* scale;        // (M, f) pipeline MinMax, T, or null: none
-  const void* offset;       // (M, f)
+  ScalerPrefix scalers;     // the pipeline's scaler steps, stats (M, f) T; n 0: none
   DenseChain chain;         // the dense stack, T
-  const void* det_scale;    // (M, f) detector MinMax, T, or null: prediction only
-  const void* det_offset;   // (M, f)
+  ScalerPrefix det;         // the detector scaler, one step, stats (M, f_out) T; n 0: prediction only
   const float* agg_thr;     // (M,) aggregate thresholds, or null: no confidence
   float* pred;              // (m, n, f_out), or null: not written
-  float* tag;               // (m, n, f_out)  written when det_scale is set
-  float* total;             // (m, n)         written when det_scale is set
+  float* tag;               // (m, n, f_out)  written with the detector scaler
+  float* total;             // (m, n)         written with the detector scaler
   float* conf;              // (m, n)         written when agg_thr is set
   int m;
   int n;
@@ -117,10 +115,10 @@ fleet_score_kernel(const FleetScoreArgs a) {
   const int F = a.f;
   const int D = a.max_dim;
   const int fo = a.chain.dims[a.chain.n_layers];
-  const bool det = a.det_scale != nullptr;
+  const bool det = a.det.n > 0;
 
   float* wbuf = smem;                  // weights: W then b, layer after layer
-  float* sdet = wbuf + a.wbuf_floats;  // detector scale (fo), offset (fo)
+  float* sdet = wbuf + a.wbuf_floats;  // detector stats a (fo), b (fo)
   float* yraw = sdet + 2 * fo;         // R x fo raw targets (detector only)
   float* bufa = yraw + (det ? R * fo : 0);  // R x D activations
   float* bufb = bufa + R * D;              // R x D activations
@@ -128,20 +126,21 @@ fleet_score_kernel(const FleetScoreArgs a) {
   // device memory → shared: rows, stats, resident weights
   const size_t row_base = (size_t)slot * a.n + row0;
   const TX* xt = static_cast<const TX*>(a.x) + row_base * F;
-  const T* sc = a.scale ? static_cast<const T*>(a.scale) + (size_t)mach * F : nullptr;
-  const T* of = a.scale ? static_cast<const T*>(a.offset) + (size_t)mach * F : nullptr;
+  const size_t at = (size_t)mach * F;  // the machine's scaler stats
   // without y, F == fo and the raw rows are the targets
   const bool y_is_x = det && !a.y;
-  walk2d(R, F, [&](int r, int j) {
-    float v = 0.f;
-    float t = 0.f;
-    if (r < rows) {
-      v = ld(xt + r * F + j);
-      t = v;
-      if (sc) v = scale_in(v, ld(sc + j), ld(of + j));
-    }
-    bufa[r * D + j] = v;
-    if (y_is_x) yraw[r * fo + j] = t;
+  with_chain<T, true>(a.scalers, [&](auto apply) {
+    walk2d(R, F, [&](int r, int j) {
+      float v = 0.f;
+      float t = 0.f;
+      if (r < rows) {
+        v = ld(xt + r * F + j);
+        t = v;
+        v = apply(at + j, v);
+      }
+      bufa[r * D + j] = v;
+      if (y_is_x) yraw[r * fo + j] = t;
+    });
   });
   if (det && a.y) {
     const T* yt = static_cast<const T*>(a.y) + ((size_t)slot * a.y_n + a.y_row0 + row0) * fo;
@@ -150,8 +149,8 @@ fleet_score_kernel(const FleetScoreArgs a) {
     });
   }
   if (det) {
-    const T* ds = static_cast<const T*>(a.det_scale) + (size_t)mach * fo;
-    const T* dof = static_cast<const T*>(a.det_offset) + (size_t)mach * fo;
+    const T* ds = static_cast<const T*>(a.det.a[0]) + (size_t)mach * fo;
+    const T* dof = static_cast<const T*>(a.det.b[0]) + (size_t)mach * fo;
     for (int j = threadIdx.x; j < fo; j += DR_THREADS) {
       sdet[j] = ld(ds + j);
       sdet[fo + j] = ld(dof + j);
@@ -164,15 +163,17 @@ fleet_score_kernel(const FleetScoreArgs a) {
 
   // epilogue from shared memory, elementwise over every lane; `in` holds
   // the predictions, and each y element, once read, holds its tag's square
-  walk2d(rows, fo, [&](int r, int j) {
-    const float p = in[r * D + j];
-    const size_t o = (row_base + r) * fo + j;
-    if (a.pred) a.pred[o] = p;
-    if (det) {
-      const float t = tag_score(p, yraw[r * fo + j], sdet[j], sdet[fo + j]);
-      a.tag[o] = t;
-      yraw[r * fo + j] = t * t;
-    }
+  with_form(det ? a.det.form[0] : SP_AFFINE, [&](auto form) {
+    walk2d(rows, fo, [&](int r, int j) {
+      const float p = in[r * D + j];
+      const size_t o = (row_base + r) * fo + j;
+      if (a.pred) a.pred[o] = p;
+      if (det) {
+        const float t = tag_score(decltype(form)::value, p, yraw[r * fo + j], sdet[j], sdet[fo + j]);
+        a.tag[o] = t;
+        yraw[r * fo + j] = t * t;
+      }
+    });
   });
   if (det) {
     __syncthreads();

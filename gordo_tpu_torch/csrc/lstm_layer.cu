@@ -8,7 +8,7 @@
 // `make_windows` (gordo_tpu/ops/windows.py:18), which the first layer
 // fuses into its loads.  Per machine, window b and step t:
 //
-//   x_t  = layer 0: rows[b + t] * scale + offset   (pipeline MinMax)
+//   x_t  = layer 0: chain(rows[b + t])         (the pipeline's scaler steps)
 //          later:   in[b, t]                       (previous layer's func(h))
 //   xp   = x_t @ W_i                               (computed first)
 //   z    = (h @ W_h + bias) + xp                   (gates i, f, g, o)
@@ -56,6 +56,7 @@
 #include <math.h>
 
 #include "activations.cuh"
+#include "scaler_prefix.cuh"
 #include "storage.cuh"
 
 #define LL_THREADS 512
@@ -65,8 +66,7 @@
 // lstm_layer_args_size() lets the wrapper check the two agree.
 struct LstmLayerArgs {
   const void* x;           // rows_input: (m, n, in) raw rows, T; else (m, nw, L, in) float
-  const void* scale;       // (M, in) pipeline MinMax, T, or null (rows_input only)
-  const void* offset;      // (M, in)
+  ScalerPrefix scalers;    // the pipeline's scaler steps, stats (M, in) T (rows_input only; n 0: none)
   const void* w_i;         // (M, in, 4H), T
   const void* w_h;         // (M, H, 4H), T
   const void* bias;        // (M, 4H), T
@@ -141,8 +141,7 @@ lstm_layer_kernel(const LstmLayerArgs a) {
   for (int e = threadIdx.x; e < 2 * Tw * HP; e += blockDim.x) hbuf[e] = 0.f;
 
   const int xm = TRAIN ? a.x_mach[slot] : slot;
-  const T* sc = (a.rows_input && a.scale) ? static_cast<const T*>(a.scale) + (size_t)mach * IN : nullptr;
-  const T* of = (a.rows_input && a.scale) ? static_cast<const T*>(a.offset) + (size_t)mach * IN : nullptr;
+  const size_t at = (size_t)mach * IN;  // the machine's scaler stats
 
   const int j = threadIdx.x % H;
   const int g = threadIdx.x / H;
@@ -155,23 +154,25 @@ lstm_layer_kernel(const LstmLayerArgs a) {
     const float* hprev = hbuf + (t & 1) * Tw * HP;
     float* hnext = hbuf + ((t + 1) & 1) * Tw * HP;
     // the tile's inputs of step t; windows past the slot's end read zeros
-    for (int e = threadIdx.x; e < Tw * IP; e += blockDim.x) {
-      const int wl = e / IP;
-      const int k = e - wl * IP;
-      float v = 0.f;
-      if (k < IN && wl < tiles) {
-        if (a.rows_input) {
-          const size_t row =
-              TRAIN ? (size_t)xm * a.n + a.rows[a.row_off[slot] + a.win[(size_t)slot * a.nw + w0 + wl] + t]
-                    : (size_t)slot * a.n + w0 + wl + t;
-          v = ld(static_cast<const T*>(a.x) + row * IN + k);
-          if (sc) v = __fadd_rn(__fmul_rn(v, ld(sc + k)), ld(of + k));
-        } else {
-          v = __ldg(static_cast<const float*>(a.x) + (((size_t)slot * a.nw + w0 + wl) * L + t) * IN + k);
+    with_chain<T, false>(a.scalers, [&](auto apply) {
+      for (int e = threadIdx.x; e < Tw * IP; e += blockDim.x) {
+        const int wl = e / IP;
+        const int k = e - wl * IP;
+        float v = 0.f;
+        if (k < IN && wl < tiles) {
+          if (a.rows_input) {
+            const size_t row =
+                TRAIN ? (size_t)xm * a.n + a.rows[a.row_off[slot] + a.win[(size_t)slot * a.nw + w0 + wl] + t]
+                      : (size_t)slot * a.n + w0 + wl + t;
+            v = ld(static_cast<const T*>(a.x) + row * IN + k);
+            v = apply(at + k, v);
+          } else {
+            v = __ldg(static_cast<const float*>(a.x) + (((size_t)slot * a.nw + w0 + wl) * L + t) * IN + k);
+          }
         }
+        xb[e] = v;
       }
-      xb[e] = v;
-    }
+    });
     __syncthreads();
 
     float xp[4][LL_WPT];

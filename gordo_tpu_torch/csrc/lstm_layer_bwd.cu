@@ -21,8 +21,8 @@
 //
 // with the derivatives in the forms JAX transposes them to (tanh'(v) =
 // u + u * y with u = v * (1 - y); sigmoid'(v) = v * (y * (1 - y))).  Window
-// w of layer 0 is rows rows[row_off + w + t] of machine x_mach, scaled by
-// the slot's MinMax as they load, as in the forward.
+// w of layer 0 is rows rows[row_off + w + t] of machine x_mach, taken
+// through the slot's scaler steps as they load, as in the forward.
 //
 // Bound: per window-step the three products (dh_rec, dx, and the two
 // weight gradients) cost 8H(in + H) FLOP, as much as the forward, with
@@ -50,6 +50,7 @@
 #include <math.h>
 
 #include "activations.cuh"
+#include "scaler_prefix.cuh"
 
 #define LB_THREADS 512
 
@@ -57,8 +58,7 @@
 // lstm_layer_bwd_args_size() lets the wrapper check the two agree.
 struct LstmLayerBwdArgs {
   const float* x;          // first layer: (M, n, in) raw rows; else (m, nw, L, in)
-  const float* scale;      // first layer: (m, in) each slot's MinMax, or null
-  const float* offset;     // (m, in)
+  ScalerPrefix scalers;    // first layer: the scaler steps, stats (m, in) float each slot's; n 0: none
   const int* win;          // (m, nw) window ids of each slot's minibatch
   const int* rows;         // first layer: the fits' row lists, concatenated
   const int* row_off;      // (m,) where each slot's row list starts in `rows`
@@ -129,8 +129,7 @@ lstm_layer_bwd_kernel(const LstmLayerBwdArgs a) {
   __syncthreads();
 
   const int xm = a.x_mach ? a.x_mach[slot] : slot;
-  const float* sc = (a.rows_input && a.scale) ? a.scale + (size_t)slot * IN : nullptr;
-  const float* of = (a.rows_input && a.scale) ? a.offset + (size_t)slot * IN : nullptr;
+  const size_t at = (size_t)slot * IN;  // the slot's scaler stats
   const int* wins = a.win + (size_t)slot * a.nw;
   const int* rows = a.rows_input ? a.rows + a.row_off[slot] : nullptr;
   const int j = tid % H;
@@ -144,19 +143,21 @@ lstm_layer_bwd_kernel(const LstmLayerBwdArgs a) {
     if (mine) dhr[g * H + j] = 0.f;
     for (int t = L - 1; t >= 0; --t) {
       // phase A: the tile's inputs of step t, h_{t-1}, and dz
-      for (int e = tid; e < tn * IN; e += nthr) {
-        const int wl = e / IN;
-        const int k = e - wl * IN;
-        float v;
-        if (a.rows_input) {
-          const int row = rows[wins[w0 + wl] + t];
-          v = __ldg(a.x + ((size_t)xm * a.n + row) * IN + k);
-          if (sc) v = __fadd_rn(__fmul_rn(v, __ldg(sc + k)), __ldg(of + k));
-        } else {
-          v = __ldg(a.x + (((size_t)slot * a.nw + w0 + wl) * L + t) * IN + k);
+      with_chain<float, false>(a.scalers, [&](auto apply) {
+        for (int e = tid; e < tn * IN; e += nthr) {
+          const int wl = e / IN;
+          const int k = e - wl * IN;
+          float v;
+          if (a.rows_input) {
+            const int row = rows[wins[w0 + wl] + t];
+            v = __ldg(a.x + ((size_t)xm * a.n + row) * IN + k);
+            v = apply(at + k, v);
+          } else {
+            v = __ldg(a.x + (((size_t)slot * a.nw + w0 + wl) * L + t) * IN + k);
+          }
+          xs[wl * IN + k] = v;
         }
-        xs[wl * IN + k] = v;
-      }
+      });
       if (mine) {
         const float* gt = a.gates + (base + t) * H4;
         const float ig = gt[j], fg = gt[H + j], gg = gt[2 * H + j], og = gt[3 * H + j];

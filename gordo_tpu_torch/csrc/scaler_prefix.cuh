@@ -1,39 +1,99 @@
-// The chain prefix of the scaler-stat kernels (scaler_stats.cu,
-// scaler_quantiles.cu): the maps of a pipeline's earlier scaler steps,
-// applied to each value as the kernel loads it, so that step i's stats are
-// taken on step i-1's output (gordo_tpu/parallel/anomaly.py:196-214
-// `_make_scale_chain`) without writing the transformed rows.
+// A pipeline's scaler chain, applied step by step to each value as a
+// kernel loads it, each step in its own form (gordo_tpu/parallel/
+// anomaly.py:196-224 `_make_scale_chain`, `_make_apply_chain`;
+// gordo_tpu/ops/scalers.py:148,180,220 the steps' `apply`).
+//
+// The stat kernels (scaler_stats.cu, scaler_quantiles.cu) take the steps
+// before the one whose stats they compute (at most SP_MAX_PREFIX), so that
+// step i's stats are taken on step i-1's output without writing the
+// transformed rows.  The kernels that load scaled rows take the whole
+// chain: fleet_fit.cu, fleet_score.cu, stream_step.cu and the first layer
+// of lstm_layer.cu and lstm_layer_bwd.cu; fleet_score.cu and
+// stream_step.cu also take the detector scaler as a chain of one step, on
+// the prediction and the target alike (gordo_tpu/anomaly/diff.py:41-48).
+// Folding a chain into one `x * scale + offset` would cancel on a column
+// whose level is large against its spread (a pressure of 100 +- 1, a
+// temperature in kelvin), where each step in turn rounds as the reference
+// does.
 //
 // Each step keeps the reference's form and its own roundings: MinMax as
 // `x * a + b` (its stats scale and offset), Standard and Robust as
-// `(x - a) / b` (mean and std; center and scale).  The intrinsics keep the
-// compiler from contracting a multiply and an add into an FMA.  A NaN stays
-// NaN.
+// `(x - a) / b` (mean and std; center and scale).  The intrinsics fix each
+// rounding.  An AFFINE step is two roundings (`__fmul_rn`, `__fadd_rn`)
+// where the reference's value is taken op by op (the stats and the fits),
+// and one FMA (`FMA` true) where XLA:CPU fuses the jitted scorer's
+// `x * scale + offset` into one (the serving kernels; measured bit for bit
+// against jax.jit on the CPU).  A NaN stays NaN.
+//
+// The stats are (M, G, F) for the stat kernels and the fits (one set per
+// machine and fit), (M, F) for the serving kernels, at the kernel's
+// storage type T (float, or __nv_bfloat16 for reduced-precision serving,
+// widened as loaded); `at` indexes a value's stats.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
-#define SP_MAX_PREFIX 4
+#include <type_traits>
+
+#include "storage.cuh"
+
+#define SP_MAX_STEPS 5
+#define SP_MAX_PREFIX (SP_MAX_STEPS - 1)
 #define SP_AFFINE 0
 #define SP_CENTER 1
 
-// Mirrored field by field by `_Prefix` in gordo_tpu_torch/kernels/scaler_stats.py.
+// Mirrored field by field by `ScalerChain` in gordo_tpu_torch/kernels/scaler_stats.py.
 struct ScalerPrefix {
-  int n;                          // earlier steps, 0..SP_MAX_PREFIX
-  int form[SP_MAX_PREFIX];        // SP_AFFINE or SP_CENTER
-  const float* a[SP_MAX_PREFIX];  // (M, G, F) each
-  const float* b[SP_MAX_PREFIX];  // (M, G, F) each
+  int n;                         // steps, 0..SP_MAX_STEPS (0: the identity)
+  int form[SP_MAX_STEPS];        // SP_AFFINE or SP_CENTER
+  const void* a[SP_MAX_STEPS];   // T, (M, G, F) or (M, F) each
+  const void* b[SP_MAX_STEPS];   // T
 };
 
-// `v` through the prefix's steps; `at` indexes (machine, fit, column) in
-// the (M, G, F) stats
+// one step of form `form` with stats `pa`, `pb`
+template <bool FMA = false>
+__device__ __forceinline__ float step_apply(int form, float v, float pa, float pb) {
+  if (form == SP_AFFINE) return FMA ? __fmaf_rn(v, pa, pb) : __fadd_rn(__fmul_rn(v, pa), pb);
+  return __fdiv_rn(__fsub_rn(v, pa), pb);
+}
+
+// `v` through the chain's steps, `at` the index of its stats
+template <typename T = float, bool FMA = false>
 __device__ __forceinline__ float prefix_apply(const ScalerPrefix& p, size_t at, float v) {
-  for (int i = 0; i < p.n; ++i) {
-    const float pa = __ldg(p.a[i] + at);
-    const float pb = __ldg(p.b[i] + at);
-    v = p.form[i] == SP_AFFINE ? __fadd_rn(__fmul_rn(v, pa), pb)
-                               : __fdiv_rn(__fsub_rn(v, pa), pb);
-  }
+  for (int i = 0; i < p.n; ++i)
+    v = step_apply<FMA>(p.form[i], v, ld(static_cast<const T*>(p.a[i]) + at),
+                        ld(static_cast<const T*>(p.b[i]) + at));
   return v;
+}
+
+// body(apply), `apply(at, v)` the chain's map of `v` with the stats at
+// `at`, chosen once, outside body's loops: no step (the identity), one
+// AFFINE step (a MinMax alone: the default pipeline's chain, its two
+// pointers in registers), or the step loop above, so that the loop's
+// registers and its division stay off the common chains' path (the loop
+// in their path, rolled or unrolled, cost the serving kernels registers
+// and time on the H100: PERF.md).
+template <typename T, bool FMA, typename Body>
+__device__ __forceinline__ void with_chain(const ScalerPrefix& p, Body body) {
+  if (p.n == 0) {
+    body([](size_t, float v) { return v; });
+  } else if (p.n == 1 && p.form[0] == SP_AFFINE) {
+    const T* A = static_cast<const T*>(p.a[0]);
+    const T* B = static_cast<const T*>(p.b[0]);
+    body([=](size_t at, float v) { return step_apply<FMA>(SP_AFFINE, v, ld(A + at), ld(B + at)); });
+  } else {
+    body([&](size_t at, float v) { return prefix_apply<T, FMA>(p, at, v); });
+  }
+}
+
+// body(form) with `decltype(form)::value` a compile-time step form equal
+// to `form_value`, so that a loop over one step's map carries only its
+// own form's code
+template <typename Body>
+__device__ __forceinline__ void with_form(int form_value, Body body) {
+  if (form_value == SP_AFFINE)
+    body(std::integral_constant<int, SP_AFFINE>());
+  else
+    body(std::integral_constant<int, SP_CENTER>());
 }

@@ -13,7 +13,8 @@
 //     pos = q * (count - 1)             q = p / 100, taken in f32 on the host
 //     l = floor(pos), h = ceil(pos)     each clamped to [0, count - 1]
 //     hw = pos - floor(pos), lw = 1 - hw
-//     quantile = v[l] * lw + v[h] * hw  (no FMA)
+//     quantile = fma(v[h], hw, v[l] * lw)  (XLA:CPU fuses the program's
+//                                          v[l] * lw + v[h] * hw so)
 //   center = q50, scale = max(q_hi - q_lo, 1e-12)   (the max keeps a NaN)
 //   with_centering=False: center 0; with_scaling=False: scale 1.
 //
@@ -46,23 +47,61 @@
 // scalers.py:240-246, jnp.nanpercentile at jnp.linspace(0, 100, Q)) and
 // `SimpleImputer(strategy="median")`'s fill (:288-299, jnp.nanmedian, the
 // same _quantile at q = 0.5 with method "midpoint": (v[l] + v[h]) * 0.5).
-// Its linear interpolation rounds as XLA:CPU's program does, which fuses
-// `v[l] * lw + v[h] * hw` into fma(v[h], hw, v[l] * lw) (measured bit for
-// bit against the JAX package); the Robust kernel above keeps its own
-// separate roundings.  The keys load as above but through no chain prefix
-// (the transforms' fits take rows that chain_apply has transformed); the
-// 2Q ranks, ascending with q, are selected one after another by the same
-// radix selection, a rank equal to the one before reusing its value.
+// Its linear interpolation rounds as the Robust kernel's does, as XLA:CPU's
+// program does (measured bit for bit against the JAX package; on a column
+// far from zero against its spread, separate roundings moved Robust's
+// scale by ulps of the level).  The keys load as above but through no chain prefix
+// (the transforms' fits take rows that chain_apply has transformed).
 // Bound as above: each value read once, the Q * F outputs written once.
+//
+// Its first design selected the 2Q ranks one after another by the same
+// radix selection, in one block per (column, machine, fit): 800 dependent
+// sweeps of the column's keys at Q 100, with ten blocks on 132 SMs for
+// one machine's fit.  It ran 29x slower than torch.nanquantile at a year
+// of rows (PERF.md).  So the grid now sorts each column once and reads
+// every rank from the sorted keys (`scaler_quantiles_grid_sort_kernel`):
+//
+// - The column's keys (as above; past the row list, the NaN key, which
+//   sorts last and is never a rank below the count) are padded to P, a
+//   power of two >= QS_SORT_MIN, and sorted by a bitonic network: a
+//   comparison network needs no scratch buffer and no stable scatter, so
+//   each key needs 4 bytes of shared memory, and it is exact (equal keys
+//   are equal values, every NaN one key).
+// - A column of up to QS_SORT_CHUNK (8,192) keys is one block.  A longer
+//   one (a year, 52,560 rows, P 65,536) is one thread-block cluster of
+//   P / QS_SORT_CHUNK blocks (at most 8) on neighbouring SMs, each holding
+//   8,192 keys (32 KB).  The network's stages whose partners lie 8,192 or
+//   more apart compare a key with one in another block's shared memory
+//   (distributed shared memory, `map_shared_rank`), between cluster
+//   barriers; every other stage is local.  Of 136 stages at a year, 6
+//   cross blocks.  So a machine's ten columns take 80 SMs, not 10.
+// - The ranks and their interpolation are the selection's, read from the
+//   sorted keys by every thread of the cluster in parallel (each rank's
+//   key from the block that holds its position).  So the outputs are the
+//   selection's bit for bit.
+//
+// The median (SimpleImputer's, one q: two ranks) of a column that one
+// block sorts keeps the selection, whose four sweeps for two ranks cost
+// less than a sort there (0.0184 against 0.0247 ms at 576 x 10 on an
+// H100 80GB HBM3 at 700 W); past one block the sort wins (0.111 against
+// 0.199 ms at a year).  The launcher picks by the number of fractions
+// (QS_SELECT_MAX_Q) and the longest row list.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "scaler_prefix.cuh"
 
+namespace cg = cooperative_groups;
+
 #define QS_MAX_FITS 16
 #define QS_THREADS 256
 #define QS_MAX_ROWS 57344
+#define QS_SORT_CHUNK 8192    // keys one block of the sort holds
+#define QS_SORT_THREADS 1024
+#define QS_SORT_MIN 64        // the shortest sort, one warp of pairs
+#define QS_SELECT_MAX_Q 1     // up to this many fractions, the selection
 
 // Mirrored field by field by `_Args` in gordo_tpu_torch/kernels/scaler_quantiles.py.
 struct ScalerQuantilesArgs {
@@ -197,8 +236,7 @@ __global__ void __launch_bounds__(QS_THREADS) scaler_quantiles_kernel(const Scal
     float qv[3];
 #pragma unroll
     for (int i = 0; i < 3; ++i)
-      qv[i] = __fadd_rn(__fmul_rn(value[2 * i], weight[2 * i]),
-                        __fmul_rn(value[2 * i + 1], weight[2 * i + 1]));
+      qv[i] = __fmaf_rn(value[2 * i + 1], weight[2 * i + 1], __fmul_rn(value[2 * i], weight[2 * i]));
     a.center[at] = a.with_centering ? qv[1] : 0.0f;
     a.scale[at] = a.with_scaling ? floor_eps(__fsub_rn(qv[2], qv[0])) : 1.0f;
   }
@@ -278,6 +316,95 @@ __global__ void __launch_bounds__(QS_THREADS) scaler_quantiles_grid_kernel(const
   }
 }
 
+__device__ __forceinline__ void compare_swap(unsigned* x, unsigned* y, bool ascending) {
+  const unsigned u = *x, v = *y;
+  if ((u > v) == ascending) {
+    *x = v;
+    *y = u;
+  }
+}
+
+// One cluster of C blocks per (column, machine, fit), grid (F * C, M, G);
+// each block holds `chunk` keys, positions rank * chunk .. of the P sorted.
+__global__ void __launch_bounds__(QS_SORT_THREADS)
+scaler_quantiles_grid_sort_kernel(const ScalerGridArgs a, int chunk) {
+  extern __shared__ unsigned keys[];
+  __shared__ int s_count;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int col = blockIdx.x / C;
+  const int mach = blockIdx.y;
+  const int fit = blockIdx.z;
+  const int t = threadIdx.x;
+  const int nt = blockDim.x;
+  const int F = a.f;
+  const int n = a.fit_rows[fit];
+  const int* rows = a.rows + a.fit_row_off[fit];
+  const float* xm = a.x + (size_t)mach * a.n * F + col;
+  const int base = rank * chunk;
+  const int P = chunk * C;
+  if (t == 0) s_count = 0;
+  __syncthreads();
+  int count = 0;
+  for (int i = t; i < chunk; i += nt) {
+    unsigned key = 0xFFFFFFFFu;
+    if (base + i < n) {
+      const float v = __ldg(xm + (size_t)rows[base + i] * F);
+      key = order_key(v);
+      count += v == v;
+    }
+    keys[i] = key;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
+  if ((t & 31) == 0) atomicAdd(&s_count, count);
+
+  // the bitonic network over the cluster's P keys: pair (i, i + j), i with
+  // bit j clear, ascending where bit k of i is clear
+  for (int k = 2; k <= P; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      if (j >= chunk) {
+        // the partner is block rank + j / chunk: the lower block of the
+        // pair compares and writes both keys
+        cluster.sync();
+        const int step = j / chunk;
+        if ((rank & step) == 0) {
+          unsigned* other = cluster.map_shared_rank(keys, rank + step);
+          for (int i = t; i < chunk; i += nt) compare_swap(keys + i, other + i, ((base + i) & k) == 0);
+        }
+        cluster.sync();
+      } else {
+        __syncthreads();
+        for (int e = t; e < chunk / 2; e += nt) {
+          const int i = ((e & ~(j - 1)) << 1) | (e & (j - 1));
+          compare_swap(keys + i, keys + i + j, ((base + i) & k) == 0);
+        }
+      }
+    }
+  }
+  cluster.sync();  // every block's keys sorted and counted
+
+  int total = 0;
+  for (int r = 0; r < C; ++r) total += *cluster.map_shared_rank(&s_count, r);
+  const float cm1 = __fsub_rn((float)total, 1.0f);
+  float* out = a.out + (((size_t)mach * a.g + fit) * a.nq) * F + col;
+  for (int q = rank * nt + t; q < a.nq; q += C * nt) {
+    const float pos = __fmul_rn(__ldg(a.q + q), cm1);
+    const float lo = floorf(pos);
+    const float hi = ceilf(pos);
+    const float hw = __fsub_rn(pos, lo);
+    const float lw = __fsub_rn(1.0f, hw);
+    const int r_lo = (int)fmaxf(0.0f, fminf(lo, cm1));
+    const int r_hi = (int)fmaxf(0.0f, fminf(hi, cm1));
+    const float v_lo = key_value(*cluster.map_shared_rank(keys + r_lo % chunk, r_lo / chunk));
+    const float v_hi = key_value(*cluster.map_shared_rank(keys + r_hi % chunk, r_hi / chunk));
+    out[(size_t)q * F] = a.midpoint ? __fmul_rn(__fadd_rn(v_lo, v_hi), 0.5f)
+                                    : __fmaf_rn(v_hi, hw, __fmul_rn(v_lo, lw));
+  }
+  cluster.sync();  // no block leaves while another may read its keys
+}
+
 extern "C" int scaler_quantiles_args_size() { return (int)sizeof(ScalerQuantilesArgs); }
 
 extern "C" int scaler_quantiles_grid_args_size() { return (int)sizeof(ScalerGridArgs); }
@@ -302,9 +429,36 @@ extern "C" int scaler_quantiles_launch(const ScalerQuantilesArgs* a, int max_row
   return (int)cudaGetLastError();
 }
 
-// The grid variant, as scaler_quantiles_launch.
+// The sort of the grid variant: P the longest row list rounded up to a
+// power of two, in clusters of P / QS_SORT_CHUNK blocks past one chunk.
+static int grid_sort_launch(const ScalerGridArgs* a, int max_rows, cudaStream_t stream) {
+  int P = QS_SORT_MIN;
+  while (P < max_rows) P <<= 1;
+  const int chunk = P < QS_SORT_CHUNK ? P : QS_SORT_CHUNK;
+  const int C = P / chunk;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a->f * C, a->m, a->g);
+  cfg.blockDim = dim3(chunk / 2 < QS_SORT_THREADS ? chunk / 2 : QS_SORT_THREADS);
+  cfg.dynamicSmemBytes = (size_t)chunk * sizeof(unsigned);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, scaler_quantiles_grid_sort_kernel, *a, chunk);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The grid variant, as scaler_quantiles_launch: the selection for up to
+// QS_SELECT_MAX_Q fractions of row lists one block sorts, else the sort.
 extern "C" int scaler_quantiles_grid_launch(const ScalerGridArgs* a, int max_rows, void* stream) {
   if (max_rows < 1 || max_rows > QS_MAX_ROWS || a->nq < 1) return (int)cudaErrorInvalidValue;
+  if (a->nq > QS_SELECT_MAX_Q || max_rows > QS_SORT_CHUNK)
+    return grid_sort_launch(a, max_rows, (cudaStream_t)stream);
   const size_t smem = (size_t)max_rows * sizeof(unsigned);
   cudaError_t err = cudaFuncSetAttribute(scaler_quantiles_grid_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

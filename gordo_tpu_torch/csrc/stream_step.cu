@@ -9,7 +9,7 @@
 //                                                       of a double buffer)
 //   the W newest rows (or, for an LSTM, lstm_layer's state of the ring's W
 //   windows) through the dense stack, scored against the raw ring rows
-//   from `offset` on:  tag = |(p*ds + do) - (y*ds + do)|,  total = L2(tag)
+//   from `offset` on:  tag = |d(p) - d(y)|,  total = L2(tag)  (d the detector scaler's step)
 //   n_valid = clip(count' - offset, 0, W): the newest n_valid raw scores
 //   are real, the older ones masked to NaN
 //   verdict = nanmedian over the W (masked) raw scores of each tag and of
@@ -65,11 +65,9 @@ struct StreamStepArgs {
   void* ring_out;           // (H, F) T: ring_in shifted with x last (when x is set)
   int* count;               // (1,) rows ingested; + 1 when x is set
   const float* h;           // (W, f_in) an LSTM's last-layer state, or null: the ring's W newest rows
-  const void* scale;        // (F,) pipeline MinMax, T, or null (ring rows only)
-  const void* offset;       // (F,)
+  ScalerPrefix scalers;     // the pipeline's scaler steps, stats (F,) T (ring rows only; n 0: none)
   DenseChain chain;         // the dense stack (an LSTM's `out` head), T
-  const void* det_scale;    // (fo,) detector MinMax, T
-  const void* det_offset;   // (fo,)
+  ScalerPrefix det;         // the detector scaler, one step, stats (fo,) T
   const float* agg_thr;     // (1,) aggregate threshold, or null: no confidence
   float* verdict;           // (fo + 3,): tag scores, total, confidence, valid (0 / 1)
   int H;
@@ -116,7 +114,7 @@ __global__ void __launch_bounds__(DR_THREADS) stream_step_kernel(const StreamSte
   const int ns = fo + 1;  // series: the tags, then the total
 
   float* wbuf = smem;                   // weights, as fleet_score
-  float* sdet = wbuf + a.wbuf_floats;   // detector scale (fo), offset (fo)
+  float* sdet = wbuf + a.wbuf_floats;   // detector stats a (fo), b (fo)
   float* raw = sdet + 2 * fo;           // W x ns raw scores
   float* yraw = raw + W * ns;           // R x fo targets, then squared tags
   float* bufa = yraw + R * fo;          // R x D activations
@@ -125,10 +123,8 @@ __global__ void __launch_bounds__(DR_THREADS) stream_step_kernel(const StreamSte
   float* hi = lo + ns;                  // ns: the upper one
   int* cnt = reinterpret_cast<int*>(hi + ns);  // ns: valid non-NaN values
 
-  const T* sc = static_cast<const T*>(a.scale);
-  const T* of = static_cast<const T*>(a.offset);
-  const T* ds = static_cast<const T*>(a.det_scale);
-  const T* dof = static_cast<const T*>(a.det_offset);
+  const T* ds = static_cast<const T*>(a.det.a[0]);
+  const T* dof = static_cast<const T*>(a.det.b[0]);
   for (int j = threadIdx.x; j < fo; j += DR_THREADS) {
     sdet[j] = ld(ds + j);
     sdet[fo + j] = ld(dof + j);
@@ -138,27 +134,31 @@ __global__ void __launch_bounds__(DR_THREADS) stream_step_kernel(const StreamSte
   for (int t0 = 0; t0 < W; t0 += R) {
     const int rows = min(R, W - t0);
     __syncthreads();  // the previous tile's readers of yraw and bufa are done
-    walk2d(R, f_in, [&](int r, int j) {
-      float v = 0.f;
-      if (r < rows) {
-        if (a.h) {
-          v = __ldg(a.h + (size_t)(t0 + r) * f_in + j);
-        } else {
-          v = ring_value<T>(a, a.mode_offset + t0 + r, j);
-          if (sc) v = scale_in(v, ld(sc + j), ld(of + j));
+    with_chain<T, true>(a.scalers, [&](auto apply) {
+      walk2d(R, f_in, [&](int r, int j) {
+        float v = 0.f;
+        if (r < rows) {
+          if (a.h) {
+            v = __ldg(a.h + (size_t)(t0 + r) * f_in + j);
+          } else {
+            v = ring_value<T>(a, a.mode_offset + t0 + r, j);
+            v = apply(j, v);
+          }
         }
-      }
-      bufa[r * D + j] = v;
+        bufa[r * D + j] = v;
+      });
     });
     walk2d(R, fo, [&](int r, int j) {
       yraw[r * fo + j] = r < rows ? ring_value<T>(a, a.mode_offset + t0 + r, j) : 0.f;
     });
     const float* in = dense_rows<T>(a.chain, 0, wbuf, bufa, bufb, R, D);
     __syncthreads();
-    walk2d(rows, fo, [&](int r, int j) {
-      const float t = tag_score(in[r * D + j], yraw[r * fo + j], sdet[j], sdet[fo + j]);
-      raw[(t0 + r) * ns + j] = t;
-      yraw[r * fo + j] = t * t;
+    with_form(a.det.form[0], [&](auto form) {
+      walk2d(rows, fo, [&](int r, int j) {
+        const float t = tag_score(decltype(form)::value, in[r * D + j], yraw[r * fo + j], sdet[j], sdet[fo + j]);
+        raw[(t0 + r) * ns + j] = t;
+        yraw[r * fo + j] = t * t;
+      });
     });
     __syncthreads();
     for (int r = threadIdx.x; r < rows; r += DR_THREADS)

@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from gordo_tpu_torch.kernels import build
+from gordo_tpu_torch.kernels.fleet_init import fma
 
 SOURCE = "gordo_tpu_torch/csrc/chain_apply.cu"
 REPLACES = "gordo_tpu/ops/scalers.py:248"
@@ -463,12 +464,6 @@ def chain_apply_union(x: torch.Tensor, branches: Sequence[Sequence[Step]], *,
 # The plain version
 # ---------------------------------------------------------------------------
 
-def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` rounded once to float32 (the product is exact in
-    float64), as XLA:CPU's fused multiply-add."""
-    return (a.double() * b.double() + c.double()).float()
-
-
 _CEPHES = {
     "p0": [-5.99633501014107895267E1, 9.80010754185999661536E1, -5.66762857469070293439E1,
            1.39312609387279679503E1, -1.23916583867381258016E0],
@@ -493,7 +488,7 @@ _CEPHES = {
 def _polyval(name: str, x: torch.Tensor) -> torch.Tensor:
     y = torch.zeros_like(x)
     for p in np.asarray(_CEPHES[name], np.float32):
-        y = _fma(y, x, torch.full_like(x, float(p)))
+        y = fma(y, x, torch.full_like(x, float(p)))
     return y
 
 
@@ -540,7 +535,7 @@ def _horner(name: str, x: torch.Tensor) -> torch.Tensor:
     cs = np.asarray(_XLA_ERF[name], np.float32)
     y = torch.full_like(x, float(cs[0]))
     for c in cs[1:]:
-        y = _fma(y, x, torch.full_like(x, float(c)))
+        y = fma(y, x, torch.full_like(x, float(c)))
     return y
 
 
@@ -559,7 +554,7 @@ def _erf_plain(x: torch.Tensor) -> torch.Tensor:
 def _erfc_plain(x: torch.Tensor) -> torch.Tensor:
     """XLA's float32 ``erfc`` of ``x >= 0`` (ndtr's argument)."""
     x2 = x * x
-    small = _fma(-x, _horner("E", x2), torch.ones_like(x))
+    small = fma(-x, _horner("E", x2), torch.ones_like(x))
     z = -x2
     p = torch.where(x < 2.0, _horner("P", 1.0 / x2), _horner("R", 1.0 / x2))
     # exp in float64, rounded once: the same on every path of PyTorch's exp
@@ -594,7 +589,7 @@ def _interp_cols(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.T
     x0, x1, f0, f1 = at(xp, i - 1), at(xp, i), at(fp, i - 1), at(fp, i)
     df, dx, delta = f1 - f0, x1 - x0, x - x0
     dx0 = dx.abs() <= float(np.spacing(np.finfo(np.float32).eps))
-    out = torch.where(dx0, f0, _fma(delta / torch.where(dx0, torch.ones_like(dx), dx), df, f0))
+    out = torch.where(dx0, f0, fma(delta / torch.where(dx0, torch.ones_like(dx), dx), df, f0))
     out = torch.where(x < xp[:, 0], fp[:, 0], out)
     return torch.where(x > xp[:, -1], fp[:, -1], out)
 

@@ -15,8 +15,8 @@ same function in plain PyTorch, built on
 
 A call trains ``G`` fits of each of ``M`` machines.  Fit ``g`` trains on
 the rows ``fits[g]`` of each machine's ``X``/``y`` (a fold's train rows,
-or every row), scaled by that machine's ``scale[:, g]``/``offset[:, g]``
-as they are loaded, from the initial params of draw ``draw[i]`` and the
+or every row), taken through that machine's scaler steps of fit ``g``
+(each step in its own form) as they are loaded, from the initial params of draw ``draw[i]`` and the
 epoch permutations of draw ``perm_draw[i]`` (default ``draw[i]``; a warm
 build gives each machine its own params and all of them the seed's
 permutations).  ``counts`` (M, G) is each machine's real rows of each
@@ -51,6 +51,7 @@ import torch
 
 from gordo_tpu_torch.device import to_device
 from gordo_tpu_torch.kernels import build
+from gordo_tpu_torch.kernels.scaler_stats import Prefix, ScalerChain, apply_steps, check_steps
 from gordo_tpu_torch.train.fit import AdamState, batch_geometry, fit_plain
 
 SOURCE = "gordo_tpu_torch/csrc/fleet_fit.cu"
@@ -81,8 +82,7 @@ class _Args(ctypes.Structure):
         ("x", ctypes.c_void_p),
         ("y", ctypes.c_void_p),
         ("rows", ctypes.c_void_p),
-        ("scale", ctypes.c_void_p),
-        ("offset", ctypes.c_void_p),
+        ("chain", ScalerChain),
         ("perms", ctypes.c_void_p),
         ("draw", ctypes.c_void_p),
         ("perm_draw", ctypes.c_void_p),
@@ -265,7 +265,7 @@ def _draw_index(draw, M: int, D: int, name: str) -> np.ndarray:
     return draw
 
 
-def _validate(X, y, fits, scale, offset, params0, perms, draw, acts, epochs, perm_draw=None,
+def _validate(X, y, fits, steps, params0, perms, draw, acts, epochs, perm_draw=None,
               counts=None, w=None, state=None):
     if X.dim() != 3 or y.dim() != 3 or y.shape[:2] != X.shape[:2]:
         raise ValueError(f"X (M, N, F) and y (M, N, Fo) must agree, got {tuple(X.shape)}, {tuple(y.shape)}")
@@ -296,8 +296,7 @@ def _validate(X, y, fits, scale, offset, params0, perms, draw, acts, epochs, per
         raise ValueError(f"the last layer has {dims[-1]} outputs, y {y.shape[2]} columns")
     for name, t in (("X", X), ("y", y)):
         _check(t, name, t.shape, torch.float32, X.device)
-    _check(scale, "scale", (M, G, F), torch.float32, X.device)
-    _check(offset, "offset", (M, G, F), torch.float32, X.device)
+    check_steps(steps, (M, G, F), X.device, (torch.float32,), "pipeline scaler")
     perm_len = sum(epochs * fg.n_total for fg in fits)
     if perms.dim() != 2 or int(perms.shape[1]) != perm_len:
         raise ValueError(f"perms must be (D, {perm_len}), got {tuple(perms.shape)}")
@@ -325,8 +324,6 @@ def fleet_fit(
     X: torch.Tensor,
     y: torch.Tensor,
     fits: Sequence[FitGeometry],
-    scale: torch.Tensor,
-    offset: torch.Tensor,
     params0: Layers,
     perms: torch.Tensor,
     draw,
@@ -338,12 +335,15 @@ def fleet_fit(
     w: Optional[torch.Tensor] = None,
     state: Optional[FitState] = None,
     return_state: bool = False,
+    chain: Optional[Prefix] = None,
 ):
     """Train ``len(fits)`` fits of each machine.
 
     ``X`` (M, N, F), ``y`` (M, N, Fo) raw rows; ``fits`` each fit's rows
-    and geometry (:func:`geometry`); ``scale``/``offset`` (M, G, F) each
-    fit's MinMax; ``params0`` ``[(W (D, in, out), b (D, out)), ...]`` (or
+    and geometry (:func:`geometry`); ``chain`` the pipeline's scaler steps
+    ``[(form, a (M, G, F), b (M, G, F)), ...]``, each fit's stats, applied
+    to each row as it loads (``scaler_stats.AFFINE`` or ``CENTER`` each;
+    none: the raw rows); ``params0`` ``[(W (D, in, out), b (D, out)), ...]`` (or
     ``(D, G, in, out)``, ``(D, G, out)``: params per fit) and
     ``perms`` (D, perm_len) int32 (:func:`pack_perms`) the draws, of which
     machine ``i`` uses ``draw[i]`` (of the permutations ``perm_draw[i]``,
@@ -358,15 +358,16 @@ def fleet_fit(
     Returns ``([(W (M, G, in, out), b (M, G, out)), ...], history (M, G,
     epochs))``, and the final :class:`FitState` third with
     ``return_state``."""
+    steps = list(chain or ())
     if X.device.type == "cpu":
         return fleet_fit_plain(
-            X, y, fits, scale, offset, params0, perms, draw, acts, epochs, hp, perm_draw, counts,
-            w, state, return_state,
+            X, y, fits, params0, perms, draw, acts, epochs, hp, perm_draw, counts,
+            w, state, return_state, chain=steps,
         )
     if X.device.type != "cuda":
         raise ValueError(f"fleet_fit runs on cuda or cpu tensors, got {X.device}")
     M, N, F, G, D, dims, draw, perm_draw, counts = _validate(
-        X, y, fits, scale, offset, params0, perms, draw, acts, epochs, perm_draw, counts, w, state
+        X, y, fits, steps, params0, perms, draw, acts, epochs, perm_draw, counts, w, state
     )
     device = X.device
     P = n_params(dims)
@@ -391,7 +392,7 @@ def fleet_fit(
 
     args = _Args()
     args.x, args.y, args.rows = X.data_ptr(), y.data_ptr(), rows.data_ptr()
-    args.scale, args.offset = scale.data_ptr(), offset.data_ptr()
+    args.chain.fill(steps)
     args.perms, args.draw = perms.data_ptr(), draw_dev.data_ptr()
     args.perm_draw = perm_draw_dev.data_ptr()
     args.counts = counts_dev.data_ptr()
@@ -440,8 +441,6 @@ def fleet_fit_plain(
     X: torch.Tensor,
     y: torch.Tensor,
     fits: Sequence[FitGeometry],
-    scale: torch.Tensor,
-    offset: torch.Tensor,
     params0: Layers,
     perms: torch.Tensor,
     draw,
@@ -453,13 +452,15 @@ def fleet_fit_plain(
     w: Optional[torch.Tensor] = None,
     state: Optional[FitState] = None,
     return_state: bool = False,
+    chain: Optional[Prefix] = None,
 ):
     """:func:`fleet_fit` in plain PyTorch: each fit's rows gathered, scaled,
     padded to ``steps * bs`` and fitted step for step as ``make_fit_fn``
     (``make_stateful_fit_fn`` from ``state``), each row weighted by ``w``,
     or each machine's rows from its count on weighted 0."""
+    steps = list(chain or ())
     M, N, F, G, D, dims, draw, perm_draw, counts = _validate(
-        X, y, fits, scale, offset, params0, perms, draw, acts, epochs, perm_draw, counts, w, state
+        X, y, fits, steps, params0, perms, draw, acts, epochs, perm_draw, counts, w, state
     )
     take = torch.as_tensor(draw, device=X.device)
     take_perm = torch.as_tensor(perm_draw, device=X.device)
@@ -470,7 +471,7 @@ def fleet_fit_plain(
     for g, (fg, perm) in enumerate(zip(fits, unpack_perms(perms, fits, epochs))):
         rows = torch.as_tensor(fg.rows, device=X.device)
         pad = fg.n_total - fg.n
-        xg = X.index_select(1, rows) * scale[:, g, None, :] + offset[:, g, None, :]
+        xg = apply_steps(X.index_select(1, rows), steps, lambda t: t[:, g, None, :])
         yg = y.index_select(1, rows)
         xg = torch.cat([xg, xg.new_zeros((M, pad, F))], dim=1)
         yg = torch.cat([yg, yg.new_zeros((M, pad, yg.shape[2]))], dim=1)

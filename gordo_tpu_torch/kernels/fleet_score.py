@@ -33,6 +33,7 @@ import torch
 
 from gordo_tpu_torch.device import to_device
 from gordo_tpu_torch.kernels import build
+from gordo_tpu_torch.kernels.scaler_stats import Prefix, ScalerChain, apply_steps, check_steps
 from gordo_tpu_torch.models.factories.feedforward import ACTIVATIONS
 
 SOURCE = "gordo_tpu_torch/csrc/fleet_score.cu"
@@ -63,6 +64,8 @@ epilogue_launches = 0
 _launches_lock = threading.Lock()
 
 Layers = Sequence[Tuple[torch.Tensor, torch.Tensor]]
+#: one scaler step ``(form, a, b)`` (``scaler_stats.AFFINE`` or ``CENTER``)
+Step = Tuple[int, torch.Tensor, torch.Tensor]
 
 
 class DenseChain(ctypes.Structure):
@@ -97,11 +100,9 @@ class _Args(ctypes.Structure):
         ("y", ctypes.c_void_p),
         ("idx", ctypes.c_void_p),
         ("n_rows", ctypes.c_void_p),
-        ("scale", ctypes.c_void_p),
-        ("offset", ctypes.c_void_p),
+        ("scalers", ScalerChain),
         ("chain", DenseChain),
-        ("det_scale", ctypes.c_void_p),
-        ("det_offset", ctypes.c_void_p),
+        ("det", ScalerChain),
         ("agg_thr", ctypes.c_void_p),
         ("pred", ctypes.c_void_p),
         ("tag", ctypes.c_void_p),
@@ -251,10 +252,8 @@ def fleet_score(
     layers: Layers,
     acts: Sequence[Optional[str]],
     *,
-    scale: Optional[torch.Tensor] = None,
-    offset: Optional[torch.Tensor] = None,
-    det_scale: Optional[torch.Tensor] = None,
-    det_offset: Optional[torch.Tensor] = None,
+    chain: Optional[Prefix] = None,
+    det: Optional[Step] = None,
     agg_thr: Optional[torch.Tensor] = None,
     idx=None,
     n_rows=None,
@@ -265,9 +264,10 @@ def fleet_score(
 
     ``layers``: ``[(W (M, in, out), b (M, out)), ...]`` with one activation
     name per layer in ``acts`` (the last is the output head's).
-    ``scale``/``offset`` (M, f): the pipeline's MinMax (None: no scaler).
-    ``det_scale``/``det_offset`` (M, f): the detector's MinMax; without
-    them only ``model-output`` is computed.  ``agg_thr`` (M,): aggregate
+    ``chain``: the pipeline's scaler steps ``[(form, a (M, f), b (M, f)),
+    ...]`` (``scaler_stats.AFFINE`` or ``CENTER`` each; none: no scaler).
+    ``det``: the detector scaler's step ``(form, a (M, f), b (M, f))``;
+    without it only ``model-output`` is computed.  ``agg_thr`` (M,): aggregate
     thresholds, adding ``anomaly-confidence``.  ``idx`` (m,) host ints:
     the stacked machine each slot of ``x`` is scored by (default: slot i
     is machine i, m == M).  ``n_rows`` (m,) host ints: valid rows of each
@@ -287,11 +287,12 @@ def fleet_score(
     an LSTM head's float32 states); ``agg_thr`` is float32.  Outputs are
     float32 either way.
     """
+    steps = list(chain or ())
+    dets = [] if det is None else [det]
     if x.device.type == "cpu":
         return fleet_score_plain(
-            x, layers, acts, scale=scale, offset=offset, det_scale=det_scale,
-            det_offset=det_offset, agg_thr=agg_thr, idx=idx, n_rows=n_rows, y=y,
-            y_offset=y_offset,
+            x, layers, acts, chain=steps, det=det, agg_thr=agg_thr,
+            idx=idx, n_rows=n_rows, y=y, y_offset=y_offset,
         )
     if x.device.type != "cuda":
         raise ValueError(f"fleet_score runs on cuda or cpu tensors, got {x.device}")
@@ -301,7 +302,7 @@ def fleet_score(
     m, n, f = (int(s) for s in x.shape)
     if not 1 <= m <= MAX_SLOTS or n < 1:
         raise ValueError(f"x must have 1..{MAX_SLOTS} slots and >= 1 row, got {tuple(x.shape)}")
-    M, store = _epilogue_only_check(layers, acts, scale, det_scale)
+    M, store = _epilogue_only_check(layers, acts, steps, dets)
     if M is None:
         M, store = int(layers[0][0].shape[0]), storage_of(layers[0][0])
     dims = [f]
@@ -315,20 +316,14 @@ def fleet_score(
         raise ValueError(f"every layer needs a width >= 1, got {dims}")
     fo = dims[-1]
     _check(x, "x", (m, n, f), device, (torch.float32, store))
-    if (scale is None) != (offset is None):
-        raise ValueError("scale and offset come together")
-    _check(scale, "scale", (M, f), device, store)
-    _check(offset, "offset", (M, f), device, store)
-    if (det_scale is None) != (det_offset is None):
-        raise ValueError("det_scale and det_offset come together")
-    if det_scale is None and (agg_thr is not None or y is not None):
+    check_steps(steps, (M, f), device, (store,), "pipeline scaler")
+    if not dets and (agg_thr is not None or y is not None):
         raise ValueError("agg_thr and y need the detector scaler")
-    if det_scale is not None and y is None and fo != f:
+    if dets and y is None and fo != f:
         raise ValueError(
             f"anomaly scoring against x needs as many outputs as inputs ({fo} != {f})"
         )
-    _check(det_scale, "det_scale", (M, fo), device, store)
-    _check(det_offset, "det_offset", (M, fo), device, store)
+    check_steps(dets, (M, fo), device, (store,), "detector scaler")
     _check(agg_thr, "agg_thr", (M,), device)
     y_n = n
     if y is not None:
@@ -355,11 +350,11 @@ def fleet_score(
             raise ValueError(f"n_rows needs one entry per slot ({rows_dev.numel()} != {m})")
 
     sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-    plan = launch_plan(dims, m, n, sm_count, with_detector=det_scale is not None)
+    plan = launch_plan(dims, m, n, sm_count, with_detector=bool(dets))
     pred = torch.empty((m, n, fo), dtype=torch.float32, device=device) if layers else None
     result = {"model-output": x if pred is None else pred}
     tag = total = conf = None
-    if det_scale is not None:
+    if dets:
         tag = result["tag-anomaly-scores"] = torch.empty((m, n, fo), dtype=torch.float32, device=device)
         total = result["total-anomaly-score"] = torch.empty((m, n), dtype=torch.float32, device=device)
         if agg_thr is not None:
@@ -368,9 +363,9 @@ def fleet_score(
     args = _Args()
     args.x, args.y = _ptr(x), _ptr(y)
     args.idx, args.n_rows = _ptr(idx_dev), _ptr(rows_dev)
-    args.scale, args.offset = _ptr(scale), _ptr(offset)
+    args.scalers.fill(steps)
     args.chain.fill(layers, acts, dims, plan.weights_resident)
-    args.det_scale, args.det_offset = _ptr(det_scale), _ptr(det_offset)
+    args.det.fill(dets)
     args.agg_thr = _ptr(agg_thr)
     args.pred, args.tag, args.total, args.conf = (
         _ptr(pred), _ptr(tag), _ptr(total), _ptr(conf)
@@ -400,7 +395,7 @@ def fleet_score(
     return result
 
 
-def _epilogue_only_check(layers: Layers, acts, scale, det_scale) -> Tuple[Optional[int], Optional[torch.dtype]]:
+def _epilogue_only_check(layers: Layers, acts, steps: Prefix, dets: Prefix) -> Tuple[Optional[int], Optional[torch.dtype]]:
     """``(M, storage)`` of an epilogue-only call (no layers), checked;
     ``(None, None)`` for a call with layers, whose count is checked."""
     if layers or acts:
@@ -413,10 +408,10 @@ def _epilogue_only_check(layers: Layers, acts, scale, det_scale) -> Tuple[Option
             if a not in ACT_CODES:
                 raise ValueError(f"activation {a!r} has no kernel code")
         return None, None
-    if det_scale is None or scale is not None:
+    if not dets or steps:
         raise ValueError("an epilogue-only fleet_score (no layers) needs the detector scaler, "
                          "and takes no pipeline scaler")
-    return int(det_scale.shape[0]), storage_of(det_scale)
+    return int(dets[0][1].shape[0]), storage_of(dets[0][1])
 
 
 def fleet_score_plain(
@@ -424,10 +419,8 @@ def fleet_score_plain(
     layers: Layers,
     acts: Sequence[Optional[str]],
     *,
-    scale: Optional[torch.Tensor] = None,
-    offset: Optional[torch.Tensor] = None,
-    det_scale: Optional[torch.Tensor] = None,
-    det_offset: Optional[torch.Tensor] = None,
+    chain: Optional[Prefix] = None,
+    det: Optional[Step] = None,
     agg_thr: Optional[torch.Tensor] = None,
     idx=None,
     n_rows=None,
@@ -438,12 +431,17 @@ def fleet_score_plain(
 
     ``n_rows`` only marks which output rows are meaningful; every row is
     computed.  bfloat16 inputs are widened to float32 first, as the kernel
-    widens them as it loads."""
+    widens them as it loads.  A MinMax step is one FMA, as in the kernel
+    and in the JAX package's jitted scorer (XLA:CPU fuses ``x * scale +
+    offset``)."""
+    steps = list(chain or ())
+    dets = [] if det is None else [det]
     if not layers:
-        _epilogue_only_check(layers, acts, scale, det_scale)
+        _epilogue_only_check(layers, acts, steps, dets)
     wide = lambda t: None if t is None else t.float()  # noqa: E731
-    x, y, scale, offset, det_scale, det_offset = map(wide, (x, y, scale, offset, det_scale, det_offset))
+    x, y = wide(x), wide(y)
     layers = [(W.float(), b.float()) for W, b in layers]
+    view = lambda t: t[:, None, :]  # noqa: E731
     if idx is not None:
         take = torch.as_tensor(idx.cpu() if isinstance(idx, torch.Tensor) else np.asarray(idx, np.int64),
                                dtype=torch.int64, device=x.device)
@@ -452,16 +450,15 @@ def fleet_score_plain(
             return None if t is None else t.index_select(0, take)
 
         layers = [(pick(W), pick(b)) for W, b in layers]
-        scale, offset = pick(scale), pick(offset)
-        det_scale, det_offset, agg_thr = pick(det_scale), pick(det_offset), pick(agg_thr)
-    h = x if scale is None else x * scale[:, None, :] + offset[:, None, :]
+        agg_thr = pick(agg_thr)
+        view = lambda t: pick(t)[:, None, :]  # noqa: E731
+    h = apply_steps(x, steps, view, fma=True)
     for (W, b), act in zip(layers, acts):
         h = ACTIVATIONS[act](torch.bmm(h, W) + b[:, None, :])
     result = {"model-output": h}
-    if det_scale is not None:
+    if dets:
         target = x if y is None else y[:, y_offset: y_offset + x.shape[1]]
-        ds, do = det_scale[:, None, :], det_offset[:, None, :]
-        tag = torch.abs((h * ds + do) - (target * ds + do))
+        tag = torch.abs(apply_steps(h, dets, view, fma=True) - apply_steps(target, dets, view, fma=True))
         total = torch.sqrt(torch.sum(tag * tag, dim=-1))
         result["tag-anomaly-scores"] = tag
         result["total-anomaly-score"] = total

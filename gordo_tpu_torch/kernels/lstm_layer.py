@@ -4,9 +4,9 @@ Replaces ``_fused_lstm_layer`` (``gordo_tpu/models/factories/lstm.py:92``)
 plus the activation the module applies after each layer, and, in the first
 layer, ``make_windows`` (``gordo_tpu/ops/windows.py:18``): the kernel reads
 window ``b``, step ``t`` from row ``b + t`` of the request as it loads,
-with the pipeline's MinMax applied.  The kernel is CUDA C++ for ``sm_90a``
-(``gordo_tpu_torch/csrc/lstm_layer.cu``, whose header gives its bound and
-design); :func:`lstm_layer_plain` is the same function in plain PyTorch.
+through the pipeline's scaler steps (``scaler_stats.ScalerChain``).  The
+kernel is CUDA C++ for ``sm_90a`` (``gordo_tpu_torch/csrc/lstm_layer.cu``,
+whose header gives its bound and design); :func:`lstm_layer_plain` is the same function in plain PyTorch.
 
 Training mode (:func:`lstm_layer_train`, plain version
 :func:`lstm_layer_train_plain`) runs the layer over one :class:`Minibatch`
@@ -40,6 +40,7 @@ from gordo_tpu_torch.kernels.fleet_score import (
     slot_ints,
     storage_of,
 )
+from gordo_tpu_torch.kernels.scaler_stats import Prefix, ScalerChain, apply_steps, check_steps
 from gordo_tpu_torch.models.factories.feedforward import ACTIVATIONS
 from gordo_tpu_torch.ops.windows import make_windows
 
@@ -65,8 +66,7 @@ class _Args(ctypes.Structure):
 
     _fields_ = [
         ("x", ctypes.c_void_p),
-        ("scale", ctypes.c_void_p),
-        ("offset", ctypes.c_void_p),
+        ("scalers", ScalerChain),
         ("w_i", ctypes.c_void_p),
         ("w_h", ctypes.c_void_p),
         ("bias", ctypes.c_void_p),
@@ -188,8 +188,7 @@ def lstm_layer(
     lookback: int,
     act: Optional[str] = None,
     n_windows: Optional[int] = None,
-    scale: Optional[torch.Tensor] = None,
-    offset: Optional[torch.Tensor] = None,
+    chain: Optional[Prefix] = None,
     idx=None,
     slot_windows=None,
     last: bool = False,
@@ -199,7 +198,8 @@ def lstm_layer(
     ``x``: the first layer's request rows (m, n, in), windowed as it loads
     (window ``b`` is rows ``b .. b + lookback - 1``, ``n_windows`` of them,
     default ``n - lookback + 1``; the forecast mode asks for one fewer),
-    scaled by ``scale``/``offset`` (M, in) when given; or a later layer's
+    each value through the pipeline's scaler steps ``chain`` (stats (M,
+    in), ``fleet_score``'s form) when given; or a later layer's
     input (m, nw, lookback, in).  ``kernel_i`` (M, in, 4H), ``kernel_h``
     (M, H, 4H), ``bias`` (M, 4H): flax's gate blocks i, f, g, o.  ``idx``
     (m,) host ints: the stacked machine of each slot (default slot i is
@@ -208,15 +208,16 @@ def lstm_layer(
     ``act(h)`` for every step (m, nw, lookback, H), or for the last step
     only (m, nw, H) when ``last``.
 
-    Storage: the weights, bias, ``scale``/``offset`` and the first layer's
+    Storage: the weights, bias, the scaler stats and the first layer's
     rows are all float32 or all bfloat16 (reduced-precision serving; a
     later layer's input is the float32 output of the one before); the
     output is float32 either way.
     """
+    steps = list(chain or ())
     if x.device.type == "cpu":
         return lstm_layer_plain(
             x, kernel_i, kernel_h, bias, lookback=lookback, act=act,
-            n_windows=n_windows, scale=scale, offset=offset, idx=idx, last=last,
+            n_windows=n_windows, chain=steps, idx=idx, last=last,
         )
     if x.device.type != "cuda":
         raise ValueError(f"lstm_layer runs on cuda or cpu tensors, got {x.device}")
@@ -238,12 +239,9 @@ def lstm_layer(
     _check(kernel_i, "kernel_i", (M, n_in, 4 * H), device, store)
     _check(kernel_h, "kernel_h", (M, H, 4 * H), device, store)
     _check(bias, "bias", (M, 4 * H), device, store)
-    if (scale is None) != (offset is None):
-        raise ValueError("scale and offset come together")
-    if scale is not None and not rows_input:
+    if steps and not rows_input:
         raise ValueError("the pipeline scaler applies to the first layer's rows only")
-    _check(scale, "scale", (M, n_in), device, store)
-    _check(offset, "offset", (M, n_in), device, store)
+    check_steps(steps, (M, n_in), device, (store,), "pipeline scaler")
     if idx is None:
         if m != M:
             raise ValueError(f"without idx, x needs one slot per machine ({m} != {M})")
@@ -263,7 +261,8 @@ def lstm_layer(
     shape = (m, nw, H) if last else (m, nw, lookback, H)
     out = torch.empty(shape, dtype=torch.float32, device=device)
     args = _Args()
-    args.x, args.scale, args.offset = _ptr(x), _ptr(scale), _ptr(offset)
+    args.x = _ptr(x)
+    args.scalers.fill(steps)
     args.w_i, args.w_h, args.bias = _ptr(kernel_i), _ptr(kernel_h), _ptr(bias)
     args.idx, args.n_windows, args.out = _ptr(idx_dev), _ptr(win_dev), _ptr(out)
     args.m, args.n, args.nw, args.lookback = m, n, nw, lookback
@@ -302,8 +301,7 @@ def lstm_layer_plain(
     lookback: int,
     act: Optional[str] = None,
     n_windows: Optional[int] = None,
-    scale: Optional[torch.Tensor] = None,
-    offset: Optional[torch.Tensor] = None,
+    chain: Optional[Prefix] = None,
     idx=None,
     last: bool = False,
 ) -> torch.Tensor:
@@ -312,19 +310,16 @@ def lstm_layer_plain(
     ``(h @ kernel_h + bias) + xp_t``.  Every window is computed.
     bfloat16 inputs are widened to float32 first, as the kernel widens
     them as it loads."""
+    steps = list(chain or ())
     x, kernel_i, kernel_h, bias = (t.float() for t in (x, kernel_i, kernel_h, bias))
-    if scale is not None:
-        scale, offset = scale.float(), offset.float()
+    view = lambda t: t[:, None, :]  # noqa: E731
     if idx is not None:
         take = torch.as_tensor(np.asarray(idx, np.int64), device=x.device)
         kernel_i, kernel_h, bias = (t.index_select(0, take) for t in (kernel_i, kernel_h, bias))
-        if scale is not None:
-            scale, offset = scale.index_select(0, take), offset.index_select(0, take)
+        view = lambda t: t.index_select(0, take)[:, None, :]  # noqa: E731
     nw = _windows(x, lookback, n_windows)
     if x.dim() == 3:
-        if scale is not None:
-            x = x * scale[:, None, :] + offset[:, None, :]
-        x = make_windows(x, lookback)[:, :nw]
+        x = make_windows(apply_steps(x, steps, view), lookback)[:, :nw]
     hs, _, _ = _recurrence(x, kernel_i, kernel_h, bias)
     return ACTIVATIONS[act](hs[:, :, -1] if last else hs)
 
@@ -399,8 +394,7 @@ def lstm_layer_train(
     lookback: int,
     batch: Minibatch,
     act: Optional[str] = None,
-    scale: Optional[torch.Tensor] = None,
-    offset: Optional[torch.Tensor] = None,
+    chain: Optional[Prefix] = None,
     last: bool = False,
     gates: Optional[torch.Tensor] = None,
     cell: Optional[torch.Tensor] = None,
@@ -409,18 +403,19 @@ def lstm_layer_train(
     what the backward needs.
 
     ``x``: the first layer's raw rows (M, n, in), its windows read through
-    ``batch`` and scaled by ``scale``/``offset`` (m, in), each slot's own;
-    or a later layer's input (m, B, lookback, in).  ``kernel_i`` (m, in,
+    ``batch`` and taken through the scaler steps ``chain`` (stats (m,
+    in), each slot's own); or a later layer's input (m, B, lookback, in).  ``kernel_i`` (m, in,
     4H), ``kernel_h`` (m, H, 4H), ``bias`` (m, 4H): each slot's own.
     ``gates`` (m, B, lookback, 4H) and ``cell`` (m, B, lookback, H): where
     to save the gates after their activations and c (allocated when not
     given).  Returns ``(out, gates, cell)``: ``act(h)`` of every step (m,
     B, lookback, H), or of the last (m, B, H) when ``last``.  Windows past
     a slot's ``n_windows`` are unspecified."""
+    steps = list(chain or ())
     if x.device.type == "cpu":
         return lstm_layer_train_plain(
             x, kernel_i, kernel_h, bias, lookback=lookback, batch=batch, act=act,
-            scale=scale, offset=offset, last=last,
+            chain=steps, last=last,
         )
     if x.device.type != "cuda":
         raise ValueError(f"lstm_layer runs on cuda or cpu tensors, got {x.device}")
@@ -440,10 +435,9 @@ def lstm_layer_train(
     _check(kernel_i, "kernel_i", (m, n_in, 4 * H), device)
     _check(kernel_h, "kernel_h", (m, H, 4 * H), device)
     _check(bias, "bias", (m, 4 * H), device)
-    if (scale is None) != (offset is None) or (scale is not None and not rows_input):
-        raise ValueError("scale and offset come together, for the first layer's rows")
-    _check(scale, "scale", (m, n_in), device)
-    _check(offset, "offset", (m, n_in), device)
+    if steps and not rows_input:
+        raise ValueError("the pipeline scaler applies to the first layer's rows only")
+    check_steps(steps, (m, n_in), device, (torch.float32,), "pipeline scaler")
     _check_batch(batch, m, device)
     if gates is None:
         gates = torch.empty((m, B, lookback, 4 * H), dtype=torch.float32, device=device)
@@ -455,7 +449,8 @@ def lstm_layer_train(
     plan = launch_plan(n_in, H, B)
     out = torch.empty((m, B, H) if last else (m, B, lookback, H), dtype=torch.float32, device=device)
     args = _Args()
-    args.x, args.scale, args.offset = _ptr(x), _ptr(scale), _ptr(offset)
+    args.x = _ptr(x)
+    args.scalers.fill(steps)
     args.w_i, args.w_h, args.bias = _ptr(kernel_i), _ptr(kernel_h), _ptr(bias)
     args.idx, args.n_windows, args.out = None, _ptr(batch.n_windows), _ptr(out)
     args.win, args.rows, args.row_off = _ptr(batch.win), _ptr(batch.rows), _ptr(batch.row_off)
@@ -490,16 +485,13 @@ def lstm_layer_train_plain(
     lookback: int,
     batch: Minibatch,
     act: Optional[str] = None,
-    scale: Optional[torch.Tensor] = None,
-    offset: Optional[torch.Tensor] = None,
+    chain: Optional[Prefix] = None,
     last: bool = False,
 ):
     """:func:`lstm_layer_train` in plain PyTorch (differentiable: the plain
     fit takes its gradients by autograd).  Every window position is
     computed, padding from window 0.  Returns ``(out, gates, cell)``."""
     if x.dim() == 3:
-        x = batch.gather(x, lookback)
-        if scale is not None:
-            x = x * scale[:, None, None, :] + offset[:, None, None, :]
+        x = apply_steps(batch.gather(x, lookback), chain or (), lambda t: t[:, None, None, :])
     hs, gates, cell = _recurrence(x, kernel_i, kernel_h, bias, save=True)
     return ACTIVATIONS[act](hs[:, :, -1] if last else hs), gates, cell

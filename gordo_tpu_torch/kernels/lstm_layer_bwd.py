@@ -29,6 +29,7 @@ import torch
 
 from gordo_tpu_torch.kernels import build
 from gordo_tpu_torch.kernels.fleet_score import SMEM_LIMIT, _check, _ptr
+from gordo_tpu_torch.kernels.scaler_stats import Prefix, ScalerChain, check_steps
 from gordo_tpu_torch.kernels.lstm_layer import (
     MAX_SLOTS,
     Minibatch,
@@ -58,8 +59,7 @@ class _Args(ctypes.Structure):
 
     _fields_ = [
         ("x", ctypes.c_void_p),
-        ("scale", ctypes.c_void_p),
-        ("offset", ctypes.c_void_p),
+        ("scalers", ScalerChain),
         ("win", ctypes.c_void_p),
         ("rows", ctypes.c_void_p),
         ("row_off", ctypes.c_void_p),
@@ -157,14 +157,13 @@ def lstm_layer_bwd(
     lookback: int,
     batch: Minibatch,
     act: Optional[str] = None,
-    scale: Optional[torch.Tensor] = None,
-    offset: Optional[torch.Tensor] = None,
+    chain: Optional[Prefix] = None,
     last: bool = False,
     want_dx: bool = True,
 ) -> Grads:
     """Gradients of one training-mode ``lstm_layer`` call.
 
-    ``x``, the weights, ``batch``, ``act``, ``scale``/``offset`` and
+    ``x``, the weights, ``batch``, ``act``, the scaler steps and
     ``last`` as that call had them; ``gates``/``cell`` what it saved;
     ``dout`` the gradient of its output ((m, B, H) when ``last``, else
     (m, B, lookback, H)), read for each slot's real windows only.  Returns
@@ -172,10 +171,11 @@ def lstm_layer_bwd(
     (m, H, 4H), dbias (m, 4H))``, the weight gradients summed over each
     slot's real windows; ``dx`` is None for the first layer's rows or
     without ``want_dx``, and unspecified past a slot's real windows."""
+    steps = list(chain or ())
     if x.device.type == "cpu":
         return lstm_layer_bwd_plain(
             x, kernel_i, kernel_h, bias, dout, lookback=lookback, batch=batch, act=act,
-            scale=scale, offset=offset, last=last, want_dx=want_dx,
+            chain=steps, last=last, want_dx=want_dx,
         )
     if x.device.type != "cuda":
         raise ValueError(f"lstm_layer_bwd runs on cuda or cpu tensors, got {x.device}")
@@ -196,10 +196,9 @@ def lstm_layer_bwd(
     _check(gates, "gates", (m, B, lookback, 4 * H), device)
     _check(cell, "cell", (m, B, lookback, H), device)
     _check(dout, "dout", (m, B, H) if last else (m, B, lookback, H), device)
-    if (scale is None) != (offset is None) or (scale is not None and not rows_input):
-        raise ValueError("scale and offset come together, for the first layer's rows")
-    _check(scale, "scale", (m, n_in), device)
-    _check(offset, "offset", (m, n_in), device)
+    if steps and not rows_input:
+        raise ValueError("the pipeline scaler applies to the first layer's rows only")
+    check_steps(steps, (m, n_in), device, (torch.float32,), "pipeline scaler")
     _check_batch(batch, m, device)
 
     plan = launch_plan(n_in, H, B, want_dx)
@@ -208,7 +207,8 @@ def lstm_layer_bwd(
     dkh = torch.empty((m, H, 4 * H), dtype=torch.float32, device=device)
     db = torch.empty((m, 4 * H), dtype=torch.float32, device=device)
     args = _Args()
-    args.x, args.scale, args.offset = _ptr(x), _ptr(scale), _ptr(offset)
+    args.x = _ptr(x)
+    args.scalers.fill(steps)
     args.win, args.rows, args.row_off = _ptr(batch.win), _ptr(batch.rows), _ptr(batch.row_off)
     args.x_mach, args.n_windows = _ptr(batch.x_mach), _ptr(batch.n_windows)
     args.w_i, args.w_h = _ptr(kernel_i), _ptr(kernel_h)
@@ -241,8 +241,7 @@ def lstm_layer_bwd_plain(
     lookback: int,
     batch: Minibatch,
     act: Optional[str] = None,
-    scale: Optional[torch.Tensor] = None,
-    offset: Optional[torch.Tensor] = None,
+    chain: Optional[Prefix] = None,
     last: bool = False,
     want_dx: bool = True,
 ) -> Grads:
@@ -257,8 +256,7 @@ def lstm_layer_bwd_plain(
         xin = x.detach().requires_grad_(want_dx)
         weights = [t.detach().requires_grad_(True) for t in (kernel_i, kernel_h, bias)]
         out, _, _ = lstm_layer_train_plain(
-            xin, *weights, lookback=lookback, batch=batch, act=act, scale=scale,
-            offset=offset, last=last,
+            xin, *weights, lookback=lookback, batch=batch, act=act, chain=chain, last=last,
         )
         inputs = ([xin] if want_dx else []) + weights
         grads = torch.autograd.grad(out, inputs, grad_outputs=dout)

@@ -38,10 +38,11 @@ import numpy as np
 import torch
 
 from gordo_tpu_torch.kernels import build
+from gordo_tpu_torch.kernels.fleet_init import fma
 from gordo_tpu_torch.kernels.scaler_stats import (
     MAX_FITS,
     Prefix,
-    _Prefix,
+    ScalerChain,
     apply_prefix,
     fill_launch,
     validate,
@@ -81,7 +82,7 @@ class _Args(ctypes.Structure):
         ("q", ctypes.c_float * 3),
         ("with_centering", ctypes.c_int),
         ("with_scaling", ctypes.c_int),
-        ("prefix", _Prefix),
+        ("prefix", ScalerChain),
     ]
 
 
@@ -223,7 +224,8 @@ def scaler_quantiles_plain(
         vt = v.permute(1, 0, 2)[None].expand(3, -1, -1, -1)             # (3, n, M, F)
         v_lo = torch.gather(vt, 1, lo[:, None]).squeeze(1)
         v_hi = torch.gather(vt, 1, hi[:, None]).squeeze(1)
-        quant = v_lo * lw + v_hi * hw
+        # fma(v[h], hw, v[l] * lw), as XLA:CPU fuses it, rounded once
+        quant = fma(v_hi, hw, v_lo * lw)
         center = quant[1]
         scale = torch.maximum(quant[2] - quant[0], eps)
         centers.append(center if with_centering else torch.zeros_like(center))
@@ -282,7 +284,7 @@ def scaler_quantiles_grid_plain(
 ) -> torch.Tensor:
     """:func:`scaler_quantiles_grid` in plain PyTorch: ``_quantile`` with
     ``squash_nans=True`` step by step, the linear interpolation's
-    ``fma(v[h], hw, v[l] * lw)`` taken in float64 and rounded once."""
+    ``fma(v[h], hw, v[l] * lw)`` rounded once (``fleet_init.fma``)."""
     _, _, _, lists = validate(x, row_lists, ())
     _check_rows(lists)
     _check_grid(q, x.device)
@@ -305,6 +307,6 @@ def scaler_quantiles_grid_plain(
         if midpoint:
             quant = (v_lo + v_hi) * 0.5
         else:
-            quant = (v_hi.double() * hw.double() + (v_lo * lw).double()).float()
+            quant = fma(v_hi, hw, v_lo * lw)
         out.append(quant.permute(1, 0, 2))                              # (M, Q, F)
     return torch.stack(out, dim=1)

@@ -17,13 +17,22 @@ a NaN gives a NaN mean) and ``SimpleImputer(strategy="mean")``'s
 ``jnp.nanmean`` (``:291``).  They sum in XLA:CPU's tree order
 (:func:`xla_sum`), so that they are the JAX package's bit for bit; they
 take no prefix, a row list of at most :data:`MEAN_MAX_ROWS` rows, and
-their launches also count in :data:`mean_launches`.
+their launches also count in :data:`mean_launches`.  The ``"standard"``
+statistic sums its mean and its squared deviations in the same order
+(its mean the JAX package's bit for bit: on a column far from zero
+against its spread another order moves it by ulps of the level), within
+the same row limit.
 
 A chain prefix (``prefix``) is a sequence of ``(form, a, b)``: an earlier
 step's map with its stats ``a``, ``b`` (M, G, F), applied to every value
 as it loads, ``x * a + b`` for :data:`AFFINE` (MinMax), ``(x - a) / b``
 for :data:`CENTER` (Standard, Robust).  ``scaler_quantiles`` takes the
-same prefixes.
+same prefixes.  The kernels that load scaled rows (``fleet_fit``,
+``fleet_score``, ``stream_step``, ``lstm_layer`` and ``lstm_layer_bwd``)
+take a whole chain in the same form, :class:`ScalerChain` in their launch
+arguments (``csrc/scaler_prefix.cuh``), and the detector scaler as a chain
+of one step (none: the identity); :func:`apply_steps` is the chain in
+plain PyTorch.
 
 :func:`scaler_stats` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises, and adds one to
@@ -41,6 +50,7 @@ import torch
 
 from gordo_tpu_torch.device import to_device
 from gordo_tpu_torch.kernels import build
+from gordo_tpu_torch.kernels.fleet_init import fma as fused
 
 SOURCE = "gordo_tpu_torch/csrc/scaler_stats.cu"
 REPLACES = "gordo_tpu/ops/scalers.py:139"
@@ -51,8 +61,10 @@ REPLACES_MEAN = "gordo_tpu/ops/scalers.py:331"
 
 MAX_FITS = 16
 MAX_MACHINES = 65535
-#: earlier chain steps a launch applies (``SP_MAX_PREFIX``)
-MAX_PREFIX = 4
+#: the steps a chain holds (``SP_MAX_STEPS``), and the earlier ones a stat
+#: launch applies (``SP_MAX_PREFIX``)
+MAX_STEPS = 5
+MAX_PREFIX = MAX_STEPS - 1
 #: the two forms of a chain step's map (``scaler_prefix.cuh``)
 AFFINE, CENTER = 0, 1
 #: XLA:CPU's reduction window (``SS_WINDOW``) and the longest row list the
@@ -70,18 +82,64 @@ standard_launches = 0
 mean_launches = 0
 _launches_lock = threading.Lock()
 
+#: a scaler chain's steps in order, each ``(form, a, b)``
 Prefix = Sequence[Tuple[int, torch.Tensor, torch.Tensor]]
 
 
-class _Prefix(ctypes.Structure):
+class ScalerChain(ctypes.Structure):
     """Mirror of ``struct ScalerPrefix`` in ``csrc/scaler_prefix.cuh``."""
 
     _fields_ = [
         ("n", ctypes.c_int),
-        ("form", ctypes.c_int * MAX_PREFIX),
-        ("a", ctypes.c_void_p * MAX_PREFIX),
-        ("b", ctypes.c_void_p * MAX_PREFIX),
+        ("form", ctypes.c_int * MAX_STEPS),
+        ("a", ctypes.c_void_p * MAX_STEPS),
+        ("b", ctypes.c_void_p * MAX_STEPS),
     ]
+
+    def fill(self, steps: Prefix) -> None:
+        self.n = len(steps)
+        for i, (form, a, b) in enumerate(steps):
+            self.form[i] = int(form)
+            self.a[i], self.b[i] = a.data_ptr(), b.data_ptr()
+
+
+def check_steps(steps: Prefix, shape, device, dtypes, what: str, max_steps: int = MAX_STEPS) -> None:
+    """Raise for a chain a kernel does not take: more than ``max_steps``
+    steps, forms other than :data:`AFFINE` and :data:`CENTER`, stats not
+    contiguous of ``shape`` at one of ``dtypes`` on ``device``."""
+    if len(steps) > max_steps:
+        raise NotImplementedError(
+            f"a {what} of {len(steps)} steps: the kernels take at most {max_steps}"
+        )
+    for form, a, b in steps:
+        if form not in (AFFINE, CENTER):
+            raise ValueError(f"a {what} step's form must be AFFINE or CENTER, got {form!r}")
+        for t in (a, b):
+            if (tuple(t.shape) != tuple(shape) or t.dtype not in dtypes
+                    or t.device != device or not t.is_contiguous()):
+                raise ValueError(
+                    f"a {what} step's stats must be contiguous {tuple(shape)} of "
+                    f"{' or '.join(str(d).replace('torch.', '') for d in dtypes)} on {device}, got "
+                    f"{t.dtype} {tuple(t.shape)} on {t.device}"
+                )
+
+
+def apply_steps(x: torch.Tensor, steps: Prefix, view=lambda t: t, fma: bool = False) -> torch.Tensor:
+    """``x`` through the chain's steps in plain PyTorch, each in the
+    reference's form and rounded step by step, its stats widened to
+    float32 and shaped by ``view`` to broadcast against ``x``.  ``fma``:
+    an :data:`AFFINE` step is one FMA, as the serving kernels take it
+    (``fleet_init.fma``: rounded once), else a product and a sum, each
+    rounded."""
+    for form, a, b in steps:
+        pa, pb = view(a.float()), view(b.float())
+        if form != AFFINE:
+            x = (x - pa) / pb
+        elif fma:
+            x = fused(x, pa, pb)
+        else:
+            x = x * pa + pb
+    return x
 
 
 class _Args(ctypes.Structure):
@@ -103,7 +161,7 @@ class _Args(ctypes.Structure):
         ("range_span", ctypes.c_float),
         ("with_mean", ctypes.c_int),
         ("with_std", ctypes.c_int),
-        ("prefix", _Prefix),
+        ("prefix", ScalerChain),
     ]
 
 
@@ -157,16 +215,7 @@ def validate(x: torch.Tensor, row_lists, prefix: Prefix = ()) -> Tuple[int, int,
             f"a chain of {len(prefix) + 1} scaler steps: the stat kernels apply at most "
             f"{MAX_PREFIX} earlier steps"
         )
-    for form, a, b in prefix:
-        if form not in (AFFINE, CENTER):
-            raise ValueError(f"a prefix step's form must be AFFINE or CENTER, got {form!r}")
-        for t in (a, b):
-            if (tuple(t.shape) != (M, len(lists), F) or t.dtype != torch.float32
-                    or t.device != x.device or not t.is_contiguous()):
-                raise ValueError(
-                    f"a prefix step's stats must be contiguous float32 ({M}, {len(lists)}, {F}) "
-                    f"on {x.device}"
-                )
+    check_steps(prefix, (M, len(lists), F), x.device, (torch.float32,), "prefix")
     return M, N, F, lists
 
 
@@ -183,12 +232,8 @@ def fill_launch(args, x: torch.Tensor, lists, prefix: Prefix = ()) -> torch.Tens
     for i, r in enumerate(lists):
         args.fit_rows[i], args.fit_row_off[i] = int(r.size), off
         off += int(r.size)
-    if not prefix:
-        return rows
-    args.prefix.n = len(prefix)
-    for i, (form, a, b) in enumerate(prefix):
-        args.prefix.form[i] = int(form)
-        args.prefix.a[i], args.prefix.b[i] = a.data_ptr(), b.data_ptr()
+    if prefix:
+        args.prefix.fill(prefix)
     return rows
 
 
@@ -215,7 +260,7 @@ def scaler_stats(
     if x.device.type != "cuda":
         raise ValueError(f"scaler_stats runs on cuda or cpu tensors, got {x.device}")
     M, N, F, lists = validate(x, row_lists, prefix)
-    if stat in ("mean", "nanmean"):
+    if stat != "minmax":
         _check_mean_rows(lists)
     out0 = torch.empty((M, len(lists), F), dtype=torch.float32, device=x.device)
     out1 = torch.empty_like(out0)
@@ -277,10 +322,7 @@ def _in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
 def apply_prefix(xs: torch.Tensor, prefix: Prefix, g: int) -> torch.Tensor:
     """Row list ``g``'s rows ``xs`` (M, n, F) through the prefix's steps,
     each in the reference's form, rounded step by step."""
-    for form, a, b in prefix:
-        pa, pb = a[:, g, None, :], b[:, g, None, :]
-        xs = xs * pa + pb if form == AFFINE else (xs - pa) / pb
-    return xs
+    return apply_steps(xs, prefix, lambda t: t[:, g, None, :])
 
 
 def scaler_stats_plain(
@@ -327,10 +369,11 @@ def scaler_stats_plain(
                 outs0.append(xla_sum(torch.where(nan, 0.0, xs)) / count)
             outs1.append(count)
             continue
+        _check_mean_rows([rows])
         count = (~nan).sum(dim=1).to(torch.float32)
-        mean = torch.where(nan, 0.0, xs).sum(dim=1) / count
+        mean = xla_sum(torch.where(nan, 0.0, xs)) / count
         dev = torch.where(nan, 0.0, xs - mean[:, None])
-        std = torch.maximum(torch.sqrt((dev * dev).sum(dim=1) / count), eps)
+        std = torch.maximum(torch.sqrt(xla_sum(dev * dev) / count), eps)
         outs0.append(mean if with_mean else torch.zeros_like(mean))
         outs1.append(std if with_std else torch.ones_like(std))
     return torch.stack(outs0, dim=1), torch.stack(outs1, dim=1)

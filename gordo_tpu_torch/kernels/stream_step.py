@@ -33,12 +33,14 @@ from gordo_tpu_torch.kernels.fleet_score import (
     SMEM_LIMIT,
     DenseChain,
     Layers,
+    Step,
     _check,
     _ptr,
     fleet_score_plain,
     storage_of,
     weight_buffer,
 )
+from gordo_tpu_torch.kernels.scaler_stats import Prefix, ScalerChain, check_steps
 
 SOURCE = "gordo_tpu_torch/csrc/stream_step.cu"
 REPLACES = "gordo_tpu/serve/stream.py:175"
@@ -59,11 +61,9 @@ class _Args(ctypes.Structure):
         ("ring_out", ctypes.c_void_p),
         ("count", ctypes.c_void_p),
         ("h", ctypes.c_void_p),
-        ("scale", ctypes.c_void_p),
-        ("offset", ctypes.c_void_p),
+        ("scalers", ScalerChain),
         ("chain", DenseChain),
-        ("det_scale", ctypes.c_void_p),
-        ("det_offset", ctypes.c_void_p),
+        ("det", ScalerChain),
         ("agg_thr", ctypes.c_void_p),
         ("verdict", ctypes.c_void_p),
         ("H", ctypes.c_int),
@@ -185,10 +185,8 @@ def stream_step(
     *,
     window: int,
     mode_offset: int,
-    det_scale: torch.Tensor,
-    det_offset: torch.Tensor,
-    scale: Optional[torch.Tensor] = None,
-    offset: Optional[torch.Tensor] = None,
+    det: Optional[Step] = None,
+    chain: Optional[Prefix] = None,
     agg_thr: Optional[torch.Tensor] = None,
     x: Optional[torch.Tensor] = None,
     ring_out: Optional[torch.Tensor] = None,
@@ -204,17 +202,21 @@ def stream_step(
     ring is first shifted into ``ring_out`` and ``count`` (1,) int32 goes
     up by one, else ``ring_in`` is the shifted ring.  ``layers``/``acts``:
     the chain's dense stack of one machine (``(W (1, in, out), b (1,
-    out))``), fed the scaled ring rows from ``mode_offset`` on
-    (``scale``/``offset`` (1, F)) or ``h`` (W, f_in) float32: an LSTM's
-    last-layer state of the ring's W windows, or a transform chain's
-    output for the ring's W rows (``chain_apply``).  Targets: the ring rows
-    from ``mode_offset`` on.  ``det_scale``/``det_offset`` (1, fo);
-    ``agg_thr`` (1,) float32."""
+    out))``), fed the ring rows from ``mode_offset`` on through the
+    pipeline's scaler steps (``chain``, stats (1, F), ``fleet_score``'s
+    form) or ``h`` (W, f_in)
+    float32: an LSTM's last-layer state of the ring's W windows, or a
+    transform chain's output for the ring's W rows (``chain_apply``).
+    Targets: the ring rows from ``mode_offset`` on.  ``det`` the detector
+    scaler's step, stats (1, fo); ``agg_thr`` (1,) float32."""
+    steps = list(chain or ())
+    dets = [] if det is None else [det]
+    if not dets:
+        raise ValueError("stream_step needs the detector scaler")
     if ring_in.device.type == "cpu":
         return stream_step_plain(
             ring_in, count, layers, acts, window=window, mode_offset=mode_offset,
-            det_scale=det_scale, det_offset=det_offset, scale=scale, offset=offset,
-            agg_thr=agg_thr, x=x, ring_out=ring_out, h=h,
+            det=det, chain=steps, agg_thr=agg_thr, x=x, ring_out=ring_out, h=h,
         )
     if ring_in.device.type != "cuda":
         raise ValueError(f"stream_step runs on cuda or cpu tensors, got {ring_in.device}")
@@ -231,13 +233,11 @@ def stream_step(
         raise ValueError(f"the chain has {fo} outputs and the ring {F} tags")
     if h is None and dims[0] != F:
         raise ValueError(f"the chain takes {dims[0]} inputs and the ring has {F} tags")
-    if h is not None and scale is not None:
+    if h is not None and steps:
         raise ValueError("an LSTM's state takes no pipeline scaler")
     _check(h, "h", (window, dims[0]), device)
-    _check(scale, "scale", (1, F), device, store)
-    _check(offset, "offset", (1, F), device, store)
-    _check(det_scale, "det_scale", (1, fo), device, store)
-    _check(det_offset, "det_offset", (1, fo), device, store)
+    check_steps(steps, (1, F), device, (store,), "pipeline scaler")
+    check_steps(dets, (1, fo), device, (store,), "detector scaler")
     _check(agg_thr, "agg_thr", (1,), device)
     plan = launch_plan(dims, window)
     verdict = torch.empty(fo + 3, dtype=torch.float32, device=device)
@@ -245,9 +245,11 @@ def stream_step(
     args.ring_in, args.x, args.ring_out, args.count = (
         ring_in.data_ptr(), _ptr(x), _ptr(ring_out), count.data_ptr()
     )
-    args.h, args.scale, args.offset = _ptr(h), _ptr(scale), _ptr(offset)
+    args.h = _ptr(h)
+    args.scalers.fill(steps)
     args.chain.fill(layers, acts, dims, plan.weights_resident)
-    args.det_scale, args.det_offset, args.agg_thr = _ptr(det_scale), _ptr(det_offset), _ptr(agg_thr)
+    args.det.fill(dets)
+    args.agg_thr = _ptr(agg_thr)
     args.verdict = verdict.data_ptr()
     args.H, args.F, args.W, args.mode_offset, args.score = H, F, window, mode_offset, 1
     args.rows_per_tile, args.max_dim = plan.rows_per_tile, max(dims)
@@ -280,8 +282,8 @@ def masked_nanmedian(raw: torch.Tensor, n_valid: int) -> torch.Tensor:
 
 
 def stream_step_plain(
-    ring_in, count, layers, acts, *, window, mode_offset, det_scale, det_offset,
-    scale=None, offset=None, agg_thr=None, x=None, ring_out=None, h=None,
+    ring_in, count, layers, acts, *, window, mode_offset, det=None, chain=None, agg_thr=None,
+    x=None, ring_out=None, h=None,
 ) -> torch.Tensor:
     """:func:`stream_step` in plain PyTorch: ``fleet_score_plain`` over the
     W scored rows (one slot), then the masked nanmedian."""
@@ -292,11 +294,9 @@ def stream_step_plain(
     n = int(count[0])
     y = ring[mode_offset:][None]
     if h is None:
-        scored = fleet_score_plain(y, layers, acts, scale=scale, offset=offset,
-                                   det_scale=det_scale, det_offset=det_offset)
+        scored = fleet_score_plain(y, layers, acts, chain=chain, det=det)
     else:
-        scored = fleet_score_plain(h[None], layers, acts, det_scale=det_scale,
-                                   det_offset=det_offset, y=y)
+        scored = fleet_score_plain(h[None], layers, acts, y=y, det=det)
     raw = torch.cat([scored["tag-anomaly-scores"][0], scored["total-anomaly-score"][0][:, None]], 1)
     med = masked_nanmedian(raw, min(max(n - mode_offset, 0), window))
     conf = (med[-1:] / torch.clamp_min(agg_thr, 1e-12) if agg_thr is not None

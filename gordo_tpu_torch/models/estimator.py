@@ -168,7 +168,6 @@ class AutoEncoder(_Estimator):
         params0, perms = put_draws(draws, seed, dims, fits, cfg.epochs, dev)
         x = torch.from_numpy(X[None]).to(dev)
         t = torch.from_numpy(targets[None]).to(dev)
-        ones = torch.ones((1, 1, X.shape[1]), dtype=torch.float32, device=dev)
         names = _chain_leaves(dims)
         n_total = fits[0].n_total
 
@@ -184,8 +183,7 @@ class AutoEncoder(_Estimator):
                 )
             with torch.no_grad():
                 layers, history, state = fleet_fit(
-                    x, t, fits, ones, torch.zeros_like(ones), p0,
-                    perms[:, e0 * n_total: e1 * n_total].contiguous(), [0], acts, e1 - e0, hp,
+                    x, t, fits, p0, perms[:, e0 * n_total: e1 * n_total].contiguous(), [0], acts, e1 - e0, hp,
                     state=state, return_state=True,
                 )
             arrays = _named("params", names, [a for pair in layers for a in pair])
@@ -249,7 +247,6 @@ class LSTMAutoEncoder(_Estimator):
         params0, perms = put_lstm_draws(draws, seed, dims, fits, cfg.epochs, dev)
         x = torch.from_numpy(X[None]).to(dev)
         t = torch.from_numpy(targets[None]).to(dev)
-        ones = torch.ones((1, 1, X.shape[1]), dtype=torch.float32, device=dev)
         names = _chain_leaves(dims)
 
         def run_chunk(start, e0, e1):
@@ -263,7 +260,7 @@ class LSTMAutoEncoder(_Estimator):
                                   np.array([[int(count)]]))
             with torch.no_grad():
                 cells, head, history, state = lstm_fit(
-                    x, t, fits, ones, torch.zeros_like(ones), p0, [p[:, e0:e1] for p in perms], [0],
+                    x, t, fits, p0, [p[:, e0:e1] for p in perms], [0],
                     acts, out_act, self.lookback_window, self.offset, e1 - e0, hp,
                     state=state, return_state=True,
                 )

@@ -17,11 +17,10 @@ statistic (K3) is a kernel, on the card unless the CPU is asked for:
 lists, each value first taken through a chain's earlier steps: the fleet
 build's chain (``parallel/anomaly.py``) and ``fit`` both go through it.
 
-:func:`affine` gives a fitted step's map as ``x * scale + offset``, and
-:func:`fold` composes a chain's maps into one: the form the fits, the
-fleet scorer and the stream take.  The fold rounds otherwise than the
-reference's step-by-step ``(x - mean) / std`` (a few ulp on well-conditioned
-columns).
+The fits, the fleet scorer and the stream take a chain of the three
+scalers as its steps, each ``(FORM, a, b)`` with its own stats leaves, and
+apply them in turn as they load (``csrc/scaler_prefix.cuh``), as the
+reference's ``_make_apply_chain`` does.
 """
 
 from __future__ import annotations
@@ -193,23 +192,6 @@ class BaseTransform(ParamsMixin):
     def load_state_arrays(self, state: Stats) -> "BaseTransform":
         self.stats_ = {k: np.asarray(v, np.float32) for k, v in state.items()}
         return self
-
-
-def affine(cls, a: torch.Tensor, b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The map ``x * scale + offset`` of scaler class ``cls`` with stats
-    leaves ``a``, ``b`` (``cls.STAT_KEYS`` order; float32 tensors of any
-    shape): MinMax's own stats, or ``1 / b`` and ``-a / b``."""
-    return (a, b) if cls.FORM == AFFINE else (1.0 / b, -a / b)
-
-
-def fold(maps: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-    """One ``(scale, offset)`` for a chain of maps applied in order, in f32:
-    ``x * s1 * s2 + (o1 * s2 + o2)``; None for no map."""
-    out = None
-    for s, o in maps:
-        s, o = s.float(), o.float()
-        out = (s, o) if out is None else (out[0] * s, out[1] * s + o)
-    return out
 
 
 class MinMaxScaler(BaseTransform):

@@ -9,8 +9,10 @@ kernel launches per length group, the port of the XLA program
    the full series, one launch per step (``scaler_stats`` for MinMax and
    Standard, ``scaler_quantiles`` for Robust; each step's stats taken on
    the previous step's output, which the kernel applies as it loads), and
-   the detector scaler's stats of the targets.  The chain's maps fold into
-   one ``x * scale + offset`` (M, G, F) that the fits and the scorer take;
+   the detector scaler's stats of the targets.  The fits and the scorer
+   take the chain's steps, each in its own form, and apply them in turn as
+   they load (``csrc/scaler_prefix.cuh``), as the reference's
+   ``_make_apply_chain`` does;
 2. ``fleet_fit`` (K1 + K2): the K fold fits and the final fit of every
    machine, one launch;
 3. ``fleet_score`` (K5): every fold's out-of-fold prediction, tag error
@@ -68,7 +70,7 @@ from gordo_tpu_torch.kernels.lstm_layer import lstm_layer
 from gordo_tpu_torch.models.estimator import AutoEncoder, LSTMAutoEncoder, LSTMForecast
 from gordo_tpu_torch.models.factories.feedforward import layer_names
 from gordo_tpu_torch.models.factories.lstm import lstm_state
-from gordo_tpu_torch.ops.scalers import PORTED_SCALERS, BaseTransform, affine, fold
+from gordo_tpu_torch.ops.scalers import PORTED_SCALERS, BaseTransform
 from gordo_tpu_torch.parallel.fleet import (
     Draws,
     chain_of,
@@ -190,24 +192,18 @@ def _stats(spec: FleetSpec, X: torch.Tensor, y: torch.Tensor, fit_rows):
     """(K3) the port of ``_make_scale_chain`` and of the detector scaler's
     stats, one stats launch per chain step over every fit's row list: step
     i's stats (M, G, F) taken on step i-1's output (the kernels apply the
-    earlier steps as they load), the chain folded into one map ``scale``/
-    ``offset`` (M, G, F) (ones and zeros without a scaler step), the
-    detector scaler's stats of the targets (M, 1, Fo) and its map.  NaN
-    rows (a pad-up group's padding) stay NaN through the chain and fall
-    out of every statistic, as in the reference."""
-    M, N, F = (int(s) for s in X.shape)
-    steps, prefix = [], []
+    earlier steps as they load).  Returns the chain, each step ``(form, a,
+    b)`` with its stats leaves (M, G, F) (none without a scaler step), and
+    the detector scaler's step with its stats of the targets (M, 1, Fo).
+    NaN rows (a pad-up group's padding) stay NaN through the chain and
+    fall out of every statistic, as in the reference."""
+    N = int(X.shape[1])
+    chain = []
     for proto in spec.scaler_protos:
-        a, b = proto.stats_of(X, fit_rows, prefix=prefix)
-        steps.append((a, b))
-        prefix.append((proto.FORM, a, b))
-    folded = fold([affine(type(p), a, b) for p, (a, b) in zip(spec.scaler_protos, steps)])
-    if folded is None:
-        scale = torch.ones((M, len(fit_rows), F), dtype=torch.float32, device=X.device)
-        folded = (scale, torch.zeros_like(scale))
+        a, b = proto.stats_of(X, fit_rows, prefix=chain)
+        chain.append((proto.FORM, a, b))
     det = spec.detector_proto.scaler
-    det_stats = det.stats_of(y, [np.arange(N)])
-    return steps, folded, det_stats, affine(type(det), *det_stats)
+    return chain, (det.FORM,) + tuple(det.stats_of(y, [np.arange(N)]))
 
 
 def chain_dims(spec: FleetSpec, n_features: int, n_out: int):
@@ -244,11 +240,11 @@ def exact_fleet_program(
     (fit slot ``len(folds)``); ``params0``: a warm build's initial params
     of each machine (``parallel.fleet.stack_warm_params``; default the
     seed's draw), with the seed's permutations (``fleet.exact_warm``).
-    Returns device tensors: ``scale``/``offset`` (M, G, F) each fit's
-    folded pipeline map (None without a scaler step), ``steps`` each chain
-    step's own stats leaves (M, G, F) in its ``STAT_KEYS`` order,
-    ``det_scale``/``det_offset`` (M, Fo) the detector scaler's map and
-    ``det_stats`` its stats leaves (M, Fo), ``layers`` ``[(W (M, G, in, out), b (M, G,
+    Returns device tensors: ``chain`` each fit's scaler steps ``[(form, a
+    (M, G, F), b), ...]``, ``steps`` each chain step's own stats leaves
+    (M, G, F) in its ``STAT_KEYS`` order, ``det`` the detector scaler's
+    step ``(form, a (M, Fo), b)`` and ``det_stats`` its stats leaves (M,
+    Fo), ``layers`` ``[(W (M, G, in, out), b (M, G,
     out)), ...]``, ``history`` (M, G, epochs); with folds also
     ``feature_thresholds`` (M, Fo), ``aggregate_threshold`` (M,),
     ``metrics`` {name: (M, K)} and the out-of-fold ``predictions`` (M, K,
@@ -294,7 +290,8 @@ def _fleet_program(spec, X, y, folds, final, draws, route, params0, lens) -> Dic
     Fo = int(y.shape[2])
     fit_rows = [np.asarray(tr) for tr, _ in folds] + ([np.arange(N)] if final else [])
     G = len(fit_rows)
-    steps, (scale, offset), det_stats, (det_scale, det_offset) = _stats(spec, X, y, fit_rows)
+    chain, (det_form, *det_stats) = _stats(spec, X, y, fit_rows)
+    det_stats = tuple(t[:, 0] for t in det_stats)
     counts = None
     if lens is not None:
         # what the fits and the scorer read: the rows zero-filled (JAX's Xz,
@@ -308,12 +305,10 @@ def _fleet_program(spec, X, y, folds, final, draws, route, params0, lens) -> Dic
     if params0 is not None:  # each machine its own params, every one the seed's permutations
         draw, perm_draw = np.arange(M), draw
     out: Dict[str, Any] = {
-        "scale": scale if spec.scaler_protos else None,
-        "offset": offset if spec.scaler_protos else None,
-        "steps": steps,
-        "det_scale": det_scale[:, 0],
-        "det_offset": det_offset[:, 0],
-        "det_stats": tuple(t[:, 0] for t in det_stats),
+        "chain": chain,
+        "steps": [(a, b) for _, a, b in chain],
+        "det": (det_form,) + det_stats,
+        "det_stats": det_stats,
     }
     if spec.window_mode != "none":
         L, off = spec.lookback, spec.offset
@@ -323,8 +318,8 @@ def _fleet_program(spec, X, y, folds, final, draws, route, params0, lens) -> Dic
         if counts is not None:
             counts = np.clip(counts - off, 0, [fg.n_windows for fg in fits])
         cells, head, history = lstm_fit(
-            X, y, fits, scale, offset, drawn if params0 is None else params0, perms, draw, acts,
-            out_act, L, off, cfg.epochs, hp, route=route, perm_draw=perm_draw, counts=counts,
+            X, y, fits, drawn if params0 is None else params0, perms, draw, acts, out_act, L, off,
+            cfg.epochs, hp, route=route, perm_draw=perm_draw, counts=counts, chain=chain,
         )
         out.update(cells=cells, head=head, history=history)
     else:
@@ -333,8 +328,8 @@ def _fleet_program(spec, X, y, folds, final, draws, route, params0, lens) -> Dic
         fits = [geometry(rows, cfg.batch_size) for rows in fit_rows]
         drawn, perms = put_draws(draws, spec.seed, dims, fits, cfg.epochs, X.device)
         layers, history = fleet_fit(
-            X, y, fits, scale, offset, drawn if params0 is None else params0, perms, draw, acts,
-            cfg.epochs, hp, perm_draw=perm_draw, counts=counts,
+            X, y, fits, drawn if params0 is None else params0, perms, draw, acts, cfg.epochs, hp,
+            perm_draw=perm_draw, counts=counts, chain=chain,
         )
         out.update(layers=layers, history=history)
     if not folds:
@@ -349,10 +344,9 @@ def _fleet_program(spec, X, y, folds, final, draws, route, params0, lens) -> Dic
     y_oof = y.index_select(1, te_dev).reshape(M * K, nt, Fo)
     # a slot with no real row (cv_epilogue gives it has = 0) is scored on one
     n_scored = None if n_out is None else np.maximum(n_out, 1)
-    det = dict(
-        det_scale=out["det_scale"][:, None].expand(M, G, Fo).reshape(S, Fo),
-        det_offset=out["det_offset"][:, None].expand(M, G, Fo).reshape(S, Fo),
-    )
+    # each fit slot's stats (S, ...): slot i * G + g is machine i's fit g
+    det = dict(det=(det_form,) + tuple(t[:, None].expand(M, G, Fo).reshape(S, Fo) for t in det_stats))
+    chain_s = [(form, a.reshape(S, F), b.reshape(S, F)) for form, a, b in chain]
     if spec.window_mode != "none":
         h = x_oof
         for i, ((ki, kh, b), act) in enumerate(zip(cells, acts)):
@@ -360,8 +354,7 @@ def _fleet_program(spec, X, y, folds, final, draws, route, params0, lens) -> Dic
             h = lstm_layer(
                 h, ki.reshape(S, *ki.shape[2:]), kh.reshape(S, *kh.shape[2:]), b.reshape(S, -1),
                 lookback=L, act=act, n_windows=nt - off if first else None,
-                scale=scale.reshape(S, F) if first else None,
-                offset=offset.reshape(S, F) if first else None,
+                chain=chain_s if first else None,
                 idx=idx, slot_windows=n_scored, last=i == len(cells) - 1,
             )
         W, bh = head
@@ -373,7 +366,7 @@ def _fleet_program(spec, X, y, folds, final, draws, route, params0, lens) -> Dic
     else:
         flat = [(W.reshape(S, W.shape[2], W.shape[3]), b.reshape(S, b.shape[2])) for W, b in layers]
         scored = fleet_score(
-            x_oof, flat, acts, scale=scale.reshape(S, F), offset=offset.reshape(S, F), **det,
+            x_oof, flat, acts, chain=chain_s, **det,
             idx=idx, n_rows=n_scored, y=y_oof,
         )
         y_true = y_oof

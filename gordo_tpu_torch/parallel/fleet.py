@@ -491,15 +491,13 @@ def fleet_dispatch(module, staged: StagedFleetFit, cfg: TrainConfig, mesh=None) 
     X, y, w, perms = staged.X, staged.y, staged.w, staged.perms
     staged.consumed = True
     staged.X = staged.y = staged.w = staged.perms = None
-    M, N, F = (int(s) for s in X.shape)
+    M, N = (int(s) for s in X.shape[:2])
     fit = geometry(np.arange(N), cfg.batch_size)
     if (fit.steps, fit.bs) != (staged.steps, staged.bs):
         raise ValueError("cfg's batch size gives another geometry than the staged one")
-    ones = torch.ones((M, 1, F), dtype=torch.float32, device=X.device)
     with torch.no_grad():
         layers, history = _fleet_fit_kernel(
-            X, y, [fit], ones, torch.zeros_like(ones), staged.params, perms, np.arange(M), acts,
-            cfg.epochs, hp, w=w,
+            X, y, [fit], staged.params, perms, np.arange(M), acts, cfg.epochs, hp, w=w,
         )
     params = [(W[:, 0], b[:, 0]) for W, b in layers]
     return FleetFitResult(params=params, n_models=staged.n_models, history=history[:, 0])

@@ -58,8 +58,8 @@ def _signature(chain: Dict[str, Any]) -> Optional[Tuple]:
         chain["cell_acts"],
         tuple(W.shape for W, _ in chain["layers"]),
         chain["acts"],
-        # each step's and the detector's scaler class: a bucket casts each
-        # step's own leaves, stacked, before it folds them
+        # each step's and the detector's scaler class: a bucket stacks and
+        # casts each step's own leaves, a step of the kernels' chain
         tuple(cls.__name__ for cls, _ in chain["scalers"]),
         # a fused transform chain: each step's class and the shapes of its
         # stats (the imputer's width, PCA's k), which its stacked leaves need

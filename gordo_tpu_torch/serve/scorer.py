@@ -15,11 +15,13 @@ the fleet scorer's buckets extend), and a request runs:
   smooths the tag and total scores and computes the confidence from the
   smoothed total.
 
-A pipeline whose transform steps are all MinMax, Standard or Robust folds
-them into one map that the first kernel applies as it loads.  Any other
+A pipeline whose transform steps are all MinMax, Standard or Robust hands
+them to the first kernel, which applies them in turn as it loads, each
+step in its own form (``csrc/scaler_prefix.cuh``); the detector scaler is
+one such step, on the prediction and the target.  Any other
 chain runs as one ``chain_apply`` launch over the request rows first, each
 step in its own form; the model's kernels then take its output with no
-fold (an LSTM's first ``lstm_layer`` windows it), and the detector
+scaler step (an LSTM's first ``lstm_layer`` windows it), and the detector
 epilogue takes the raw rows as its targets.  Such a chain is *fused* when
 every step is ``SimpleImputer``, ``PCA`` or one of the three scalers (each
 has a static ``apply`` in the JAX package, which serves these chains
@@ -76,7 +78,7 @@ from gordo_tpu_torch.kernels.fleet_score import fleet_score, slot_ints
 from gordo_tpu_torch.kernels.lstm_layer import launch_plan, lstm_layer
 from gordo_tpu_torch.kernels.rolling_median import MAX_WINDOW, rolling_median
 from gordo_tpu_torch.models.estimator import AutoEncoder, LSTMAutoEncoder, LSTMForecast
-from gordo_tpu_torch.ops.scalers import PCA, PORTED_SCALERS, TRANSFORMS, SimpleImputer, affine, fold
+from gordo_tpu_torch.ops.scalers import PCA, PORTED_SCALERS, TRANSFORMS, SimpleImputer
 from gordo_tpu_torch.pipeline import FeatureUnion, MultiOutputRegressor, Pipeline, TransformedTargetRegressor
 from gordo_tpu_torch.serve import precision
 
@@ -93,8 +95,8 @@ def short_rows_message(offset: int, rows: int) -> str:
 
 def _scaler_stats(step, what: str):
     """``(class, stats leaves)`` of a fitted scaler the port serves: its
-    own leaves in ``STAT_KEYS`` order, which :class:`_Stack` casts and then
-    folds."""
+    own leaves in ``STAT_KEYS`` order, which :class:`_Stack` stacks and
+    casts into a kernel's step."""
     if not isinstance(step, PORTED_SCALERS):
         raise NotImplementedError(
             f"{what} {type(step).__name__} waits for ROADMAP queue 1 item 2 "
@@ -165,8 +167,9 @@ def _check_kernel_limits(cells, window: int) -> None:
 
 
 def _model_chain(base) -> Dict[str, Any]:
-    """The model part of a chain: a pipeline (its steps folded into one
-    map, or run through ``chain_apply``) or a bare estimator."""
+    """The model part of a chain: a pipeline (its scaler steps applied by
+    the model's first kernel, or its steps run through ``chain_apply``) or
+    a bare estimator."""
     scalers, transforms = [], []
     if isinstance(base, Pipeline):
         steps = [step for _, step in base.steps[:-1]]
@@ -216,7 +219,8 @@ def _model_chain(base) -> Dict[str, Any]:
         # the dense stack; an LSTM's head alone
         "layers": [(host(lin.weight).T.copy(), host(lin.bias)) for lin, _ in dense],
         "acts": tuple(act for _, act in dense),
-        # each scaler's (class, stats leaves); _Stack folds them into one map
+        # each scaler's (class, stats leaves); _Stack makes them the steps
+        # the model's first kernel applies
         "scalers": scalers,
         # or the fitted transform steps that chain_apply runs first
         "transforms": transforms,
@@ -272,13 +276,12 @@ class _Stack:
     stores its stacked leaves in bf16 and quantises each (int8) with one
     scale across its machines; the per-machine path quantises the float32
     leaf.  Each scaler's own stats leaves (MinMax's scale and offset,
-    Standard's mean and std, Robust's center and scale) are cast
-    (quantised) first, as the reference casts each leaf; then the pipeline
-    chain folds into one affine map ``x * scale + offset`` and the detector
-    scaler becomes one, in f32 (``ops.scalers.affine``, ``fold``), stored
-    at the storage dtype (at reduced precision, one more bf16 rounding
-    than the reference's where a step is not MinMax or the chain has two
-    or more).  A chain that ``chain_apply`` runs keeps its steps: each
+    Standard's mean and std, Robust's center and scale) are stacked and
+    cast (quantised) as the reference casts each leaf, and stored at the
+    storage dtype: the pipeline's scalers as ``scalers``, the steps
+    ``(form, a, b)`` the model's first kernel applies in turn, and the
+    detector scaler as ``det``, the step of the detector epilogue.  A chain
+    that ``chain_apply`` runs keeps its steps: each
     step's stats leaves stacked (M, ...) and cast as the reference casts
     them.  One that does not fuse (``chain["fused"]``) is one machine's,
     stored and served at float32 whatever ``dtype`` asks: a
@@ -325,11 +328,10 @@ class _Stack:
             (put([c["layers"][i][0] for c in chains]), put([c["layers"][i][1] for c in chains]))
             for i in range(len(c0["layers"]))
         ]
-        def scaler_map(stats):
-            """The map of one scaler of every chain, from its leaves, each
-            cast first."""
-            leaves = [put([s[1][k] for s in stats]).float() for k in range(2)]
-            return affine(stats[0][0], *leaves)
+        def scaler_step(stats):
+            """One scaler of every chain as a kernel's step ``(form, a,
+            b)``, each stats leaf stacked (M, F) and cast."""
+            return (stats[0][0].FORM,) + tuple(put([s[1][k] for s in stats]) for k in range(2))
 
         def stack_chain(step_lists):
             return stack_steps(step_lists, stack=lambda ts: put([t.numpy() for t in ts]))
@@ -347,19 +349,13 @@ class _Stack:
         self.transform_steps = self.stages[0][0] if len(self.stages) == 1 and len(self.stages[0]) == 1 else []
         self.target_inverse = stack_chain([c["target_inverse"] for c in chains]) if c0["target_inverse"] else []
         self.columns = _Stack(c0["columns"], device, self.dtype) if c0["columns"] else None
-        self.scale = self.offset = None
-        folded = fold([scaler_map([c["scalers"][i] for c in chains]) for i in range(len(c0["scalers"]))])
-        if folded is not None:
-            self.scale, self.offset = (precision.cast_storage(t.contiguous(), self.dtype) for t in folded)
-        self.det_scale = self.det_offset = self.agg_thr = None
+        self.scalers = [scaler_step([c["scalers"][i] for c in chains]) for i in range(len(c0["scalers"]))]
+        self.det = self.agg_thr = None
         self.thresholds_np = self.agg_thresholds_np = None
         self.with_thresholds = False
         if c0["detector"] is not None:
             dets = [c["detector"] for c in chains]
-            self.det_scale, self.det_offset = (
-                precision.cast_storage(t.contiguous(), self.dtype)
-                for t in scaler_map([d["scaler"] for d in dets])
-            )
+            self.det = scaler_step([d["scaler"] for d in dets])
             self.with_thresholds = all(d["feature_thresholds"] is not None for d in dets)
             if self.with_thresholds:
                 self.thresholds_np = np.stack(
@@ -374,7 +370,7 @@ class _Stack:
         """Device bytes of the stacked parameters, stats and thresholds."""
         tensors = [t for cell in self.cells for t in cell]
         tensors += [t for layer in self.layers for t in layer]
-        tensors += [self.scale, self.offset, self.det_scale, self.det_offset, self.agg_thr]
+        tensors += [t for step in self.scalers + [self.det or ()] for t in step[1:]] + [self.agg_thr]
         steps = [st for stage in self.stages for branch in stage for st in branch] + self.target_inverse
         tensors += [t for st in steps for t in (st.a, st.b)]
         return (sum(t.numel() * t.element_size() for t in tensors if t is not None)
@@ -424,8 +420,7 @@ class _Stack:
         detector = None
         if with_anomaly:
             detector = dict(
-                det_scale=self.det_scale,
-                det_offset=self.det_offset,
+                det=self.det,
                 # with a window, the confidence comes from the smoothed total
                 agg_thr=None if self.window else self.agg_thr,
                 y=targets,
@@ -469,15 +464,14 @@ class _Stack:
         # the first lstm_layer rows at the storage type
         h = self._transform(x, idx, chain_rows, torch.float32 if self.mode == "none" else x.dtype)
         if self.mode == "none":
-            kw.update(scale=self.scale, offset=self.offset)
+            kw.update(chain=self.scalers)
         else:
             for i, ((ki, kh, b), act) in enumerate(zip(self.cells, self.cell_acts)):
                 first = i == 0
                 h = lstm_layer(
                     h, ki, kh, b, lookback=self.lookback, act=act,
                     n_windows=x.shape[1] - self.offset_rows if first else None,
-                    scale=self.scale if first else None,
-                    offset=self.offset if first else None,
+                    chain=self.scalers if first else None,
                     idx=idx, slot_windows=rows, last=i == len(self.cells) - 1,
                 )
         if detector is not None and h is not x and kw["y"] is None:

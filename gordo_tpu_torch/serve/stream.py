@@ -225,12 +225,11 @@ class MachineStream:
         st = self._stack
         ring_in, ring_out = self._rings[self._cur], self._rings[1 - self._cur]
         row = precision.cast_input(torch.from_numpy(x), self.dtype).to(self.device)
-        kw = dict(window=self.window, mode_offset=self.offset, det_scale=st.det_scale,
-                  det_offset=st.det_offset, agg_thr=st.agg_thr)
+        kw = dict(window=self.window, mode_offset=self.offset, det=st.det, agg_thr=st.agg_thr)
         with torch.no_grad():
             if st.mode == "none" and not st.transform_steps:
                 verdict = stream_step(ring_in, self._count_dev, st.layers, st.acts,
-                                      scale=st.scale, offset=st.offset, x=row,
+                                      chain=st.scalers, x=row,
                                       ring_out=ring_out, **kw)
             else:
                 stream_shift(ring_in, ring_out, self._count_dev, row)
@@ -245,8 +244,7 @@ class MachineStream:
                     h = lstm_layer(
                         h, ki, kh, b, lookback=st.lookback, act=act,
                         n_windows=self.window if first else None,
-                        scale=st.scale if first else None,
-                        offset=st.offset if first else None,
+                        chain=st.scalers if first else None,
                         last=i == len(st.cells) - 1,
                     )
                 verdict = stream_step(ring_out, self._count_dev, st.layers, st.acts,

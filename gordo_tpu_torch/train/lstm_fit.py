@@ -48,6 +48,7 @@ from gordo_tpu_torch.kernels.lstm_head_fit import head_loss_plain, lstm_head_fit
 from gordo_tpu_torch.kernels.lstm_layer import Minibatch, lstm_layer_train, lstm_layer_train_plain
 from gordo_tpu_torch.kernels.lstm_layer_bwd import ACT_CODES, ACT_ITEM, WIDE_ITEM, lstm_layer_bwd
 from gordo_tpu_torch.kernels.lstm_layer_bwd import launch_plan as bwd_plan
+from gordo_tpu_torch.kernels.scaler_stats import Prefix, check_steps
 from gordo_tpu_torch.train.fit import AdamState, batch_geometry, bias_corrections
 
 Cells = List[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -103,8 +104,7 @@ class _Layer(NamedTuple):
     lookback: int
     batch: Minibatch
     act: Optional[str]
-    scale: Optional[torch.Tensor]
-    offset: Optional[torch.Tensor]
+    chain: Prefix
     last: bool
     gates: Optional[torch.Tensor]
     cell: Optional[torch.Tensor]
@@ -117,7 +117,7 @@ class _LayerFunction(torch.autograd.Function):
     def forward(ctx, x, kernel_i, kernel_h, bias, layer: _Layer):
         out, gates, cell = lstm_layer_train(
             x, kernel_i, kernel_h, bias, lookback=layer.lookback, batch=layer.batch,
-            act=layer.act, scale=layer.scale, offset=layer.offset, last=layer.last,
+            act=layer.act, chain=layer.chain, last=layer.last,
             gates=layer.gates, cell=layer.cell,
         )
         ctx.save_for_backward(x, kernel_i, kernel_h, bias)
@@ -130,8 +130,8 @@ class _LayerFunction(torch.autograd.Function):
         layer = ctx.layer
         dx, dki, dkh, db = lstm_layer_bwd(
             x, kernel_i, kernel_h, bias, ctx.gates, ctx.cell, dout.contiguous(),
-            lookback=layer.lookback, batch=layer.batch, act=layer.act, scale=layer.scale,
-            offset=layer.offset, last=layer.last, want_dx=ctx.needs_input_grad[0],
+            lookback=layer.lookback, batch=layer.batch, act=layer.act, chain=layer.chain,
+            last=layer.last, want_dx=ctx.needs_input_grad[0],
         )
         return dx, dki, dkh, db, None
 
@@ -231,8 +231,6 @@ def lstm_fit(
     X: torch.Tensor,
     y: torch.Tensor,
     fits: Sequence[WindowFit],
-    scale: torch.Tensor,
-    offset: torch.Tensor,
     params0: Tuple[Cells, Head],
     perms: Sequence[np.ndarray],
     draw,
@@ -247,13 +245,16 @@ def lstm_fit(
     counts=None,
     state: Optional[AdamState] = None,
     return_state: bool = False,
+    chain: Optional[Prefix] = None,
 ):
     """Train ``len(fits)`` fits of each of ``M`` machines' LSTM chain.
 
     ``X`` (M, N, F), ``y`` (M, N, Fo) raw rows; ``fits`` each fit's rows
-    and geometry (:func:`window_fit`); ``scale``/``offset`` (M, G, F) each
-    fit's MinMax; ``params0`` ``([(kernel_i (D, in, 4H), kernel_h (D, H,
-    4H), bias (D, 4H)), ...], (W (D, H, Fo), b (D, Fo)))`` and ``perms``
+    and geometry (:func:`window_fit`); ``chain`` the pipeline's scaler
+    steps, each fit's stats (M, G, F) (``kernels.fleet_fit.fleet_fit``'s
+    form);
+    ``params0`` ``([(kernel_i (D, in, 4H), kernel_h (D, H, 4H), bias (D,
+    4H)), ...], (W (D, H, Fo), b (D, Fo)))`` and ``perms``
     (per fit, (D, epochs, n_total) host ints) the draws, of which machine
     ``i`` uses ``draw[i]`` (of the permutations ``perm_draw[i]``, default
     ``draw[i]``; params per fit, a resumed fit's, have leaves ``(D, G,
@@ -285,8 +286,8 @@ def lstm_fit(
     check_chain(dims, acts, out_act, B)
     if int(y.shape[2]) != dims[-1] or tuple(y.shape[:2]) != tuple(X.shape[:2]):
         raise ValueError(f"y {tuple(y.shape)} does not fit X {tuple(X.shape)} and the head")
-    if tuple(scale.shape) != (M, G, dims[0]) or tuple(offset.shape) != (M, G, dims[0]):
-        raise ValueError(f"scale and offset must be ({M}, {G}, {dims[0]})")
+    scalers = list(chain or ())
+    check_steps(scalers, (M, G, dims[0]), device, (torch.float32,), "pipeline scaler")
     steps = plan_steps(fits, M, perms, draw if perm_draw is None else perm_draw, epochs, hp, device,
                        counts, None if state is None else state.count)
 
@@ -311,8 +312,9 @@ def lstm_fit(
         mus = [m.reshape(p.shape).clone() for m, p in zip(state.mu, params)]
         nus = [v.reshape(p.shape).clone() for v, p in zip(state.nu, params)]
     n_layers = len(cells0)
-    scale_s = scale.reshape(S, dims[0]).contiguous()
-    offset_s = offset.reshape(S, dims[0]).contiguous()
+    # each slot's stats (S, F): slot i * G + g is machine i's fit g
+    scalers_s = [(form, a.reshape(S, dims[0]).contiguous(), b.reshape(S, dims[0]).contiguous())
+                 for form, a, b in scalers]
     n_windows = torch.tensor(steps.slot_windows, dtype=torch.float32, device=device)
     saved = [(None, None)] * n_layers
     if route == "kernels":  # the forward's saves, once for the whole fit
@@ -327,13 +329,13 @@ def lstm_fit(
         for i, act in enumerate(acts):
             ki, kh, b = leaves[3 * i: 3 * i + 3]
             first, last = i == 0, i == n_layers - 1
-            sc, of = (scale_s, offset_s) if first else (None, None)
+            chain_i = scalers_s if first else []
             if route == "plain":
                 h = lstm_layer_train_plain(h, ki, kh, b, lookback=lookback, batch=batch, act=act,
-                                           scale=sc, offset=of, last=last)[0]
+                                           chain=chain_i, last=last)[0]
             else:
                 h = _LayerFunction.apply(
-                    h, ki, kh, b, _Layer(lookback, batch, act, sc, of, last, *saved[i])
+                    h, ki, kh, b, _Layer(lookback, batch, act, chain_i, last, *saved[i])
                 )
         W, b = leaves[-2:]
         if route == "plain":

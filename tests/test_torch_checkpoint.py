@@ -114,10 +114,9 @@ def test_adam_state_of_a_chunked_plain_fit_is_the_single_calls():
     perms = [np.stack([rng.permutation(fg.n_total) for _ in range(5)])[None] for fg in fits]
     params0 = [(torch.from_numpy(rng.standard_normal((1, a, b)).astype(np.float32)),
                 torch.zeros((1, b))) for a, b in zip(dims[:-1], dims[1:])]
-    ones = torch.ones((3, 2, TAGS))
     hp = adam_hparams(TrainConfig())
     w = torch.from_numpy(rng.uniform(0, 2, (3, 40)).astype(np.float32))
-    args = (X, X, fits, ones, torch.zeros_like(ones))
+    args = (X, X, fits)
     whole = ff.fleet_fit(*args, params0, torch.from_numpy(ff.pack_perms(perms)), [0, 0, 0], acts, 5,
                          hp, w=w, return_state=True)
     params, state, hists, e0 = params0, None, [], 0
@@ -187,7 +186,6 @@ def test_one_chunk_from_a_mid_fit_jax_state_matches_jax(jax_refs, mode):
         ref[f"{mode}/mid/count"], unflatten(ref, f"{mode}/mid/mu"), unflatten(ref, f"{mode}/mid/nu"))
     assert int(count) == 2 * 4
     x = torch.from_numpy(X[None])
-    ones = torch.ones((1, 1, TAGS))
     if mode == "ff":
         layers = convert.flax_to_layers(mid)
         dims = [TAGS] + [W.shape[1] for W, _ in layers]
@@ -197,7 +195,7 @@ def test_one_chunk_from_a_mid_fit_jax_state_matches_jax(jax_refs, mode):
         state = ff.FitState(torch.from_numpy(mu)[None, None], torch.from_numpy(nu)[None, None],
                             torch.tensor([[int(count)]], dtype=torch.int32))
         out, hist, state = ff.fleet_fit(
-            x, x, fits, ones, torch.zeros_like(ones), params0,
+            x, x, fits, params0,
             torch.from_numpy(ff.pack_perms([perms[fits[0].n_total][None, 2:4]])), [0],
             ["tanh"] * (len(dims) - 2) + [None], 2, hp, state=state, return_state=True)
         params = convert.layers_to_flax([(W[0, 0], b[0, 0]) for W, b in out])
@@ -214,7 +212,7 @@ def test_one_chunk_from_a_mid_fit_jax_state_matches_jax(jax_refs, mode):
     params0 = ([tuple(put(a) for a in cell) for cell in cells], tuple(put(a) for a in head))
     state = AdamState([put(a) for a in mu], [put(a) for a in nu], np.array([[int(count)]]))
     c, h, hist, state = lstm_fit(
-        x, x, fits, ones, torch.zeros_like(ones), params0, [perms[fits[0].n_total][None, 2:4]], [0],
+        x, x, fits, params0, [perms[fits[0].n_total][None, 2:4]], [0],
         ("tanh",) * len(cells), None, L, L - 1, 2, hp, state=state, return_state=True)
     params = convert.lstm_layers_to_flax([tuple(t[0, 0] for t in cell) for cell in c], (h[0][0, 0], h[1][0, 0]))
     count_, tree_mu, tree_nu = convert.state_to_flax_adam(

@@ -74,6 +74,7 @@ from gordo_tpu_torch.serializer import from_definition, into_definition
 from gordo_tpu_torch.serve.scorer import CompiledScorer
 from gordo_tpu_torch.serve.server import ModelCollection, make_server
 from gordo_tpu_torch.serve.stream import MachineStream, StreamUnsupported
+from gordo_tpu_torch.kernels.scaler_stats import AFFINE
 from torch_parity import carry, r12, sine_rows
 
 TOL = 1e-5
@@ -257,8 +258,9 @@ def test_epilogue_only_fleet_score_is_the_reference_scores(rows):
     det = J.MinMaxScaler().fit(y)
     tag, total = scores_fn(J.MinMaxScaler, det.stats_, jnp.asarray(y[2:]), jnp.asarray(pred[:-2]))
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))  # noqa: E731
-    out = fs.fleet_score(put(pred[None, :-2]), [], [], det_scale=put(det.stats_["scale"][None]),
-                      det_offset=put(det.stats_["offset"][None]), agg_thr=put([0.5]), y=put(y[None]), y_offset=2)
+    out = fs.fleet_score(put(pred[None, :-2]), [], [],
+                         det=(AFFINE, put(det.stats_["scale"][None]), put(det.stats_["offset"][None])),
+                         agg_thr=put([0.5]), y=put(y[None]), y_offset=2)
     assert torch.equal(out["model-output"][0], put(pred[:-2]))
     assert r12(np.asarray(tag), out["tag-anomaly-scores"][0].numpy()) <= TOL
     assert r12(np.asarray(total), out["total-anomaly-score"][0].numpy()) <= TOL

@@ -21,6 +21,7 @@ from gordo_tpu.ops.scalers import MinMaxScaler
 from gordo_tpu.serve.fleet_scorer import _fleet_score_core, _fleet_score_subset_core
 from gordo_tpu.serve.scorer import _score_program_fn
 from gordo_tpu_torch.kernels import fleet_score as fs
+from gordo_tpu_torch.kernels.scaler_stats import AFFINE
 
 TOL = 1e-5
 OUTPUTS = ("model-output", "tag-anomaly-scores", "total-anomaly-score", "anomaly-confidence")
@@ -69,8 +70,8 @@ class Bucket:
         return dict(
             layers=[(t(p["kernel"]), t(p["bias"])) for p in self.params.values()],
             acts=self.acts,
-            scale=t(self.stats["scale"]), offset=t(self.stats["offset"]),
-            det_scale=t(self.det["scale"]), det_offset=t(self.det["offset"]),
+            chain=[(AFFINE, t(self.stats["scale"]), t(self.stats["offset"]))],
+            det=(AFFINE, t(self.det["scale"]), t(self.det["offset"])),
             agg_thr=t(self.agg) if with_thresholds else None,
         )
 
@@ -163,7 +164,7 @@ def test_prediction_only_without_the_detector_scaler():
     bucket = Bucket(seed=5)
     X = bucket.X(3, 10)
     args = bucket.port_kwargs(with_thresholds=False)
-    for k in ("det_scale", "det_offset", "agg_thr"):
+    for k in ("det", "agg_thr"):
         args.pop(k)
     got = fs.fleet_score(torch.from_numpy(X), args.pop("layers"), args.pop("acts"), **args)
     ref = _fleet_score_core(*bucket.jax_prefix(False), jnp.asarray(X))

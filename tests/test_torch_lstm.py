@@ -23,6 +23,7 @@ from gordo_tpu_torch.kernels import lstm_layer as ll
 from gordo_tpu_torch.models.estimator import LSTMAutoEncoder, LSTMForecast
 from gordo_tpu_torch.ops.windows import make_windows, num_windows
 from gordo_tpu_torch.registry import lookup_factory, resolve_alias
+from gordo_tpu_torch.kernels.scaler_stats import AFFINE
 from torch_parity import init_estimator, r12
 
 TOL = 1e-5
@@ -146,7 +147,7 @@ def test_first_layer_windows_and_scales_the_rows():
     b = rng.standard_normal((m, 4 * hidden)).astype(np.float32)
     t = torch.from_numpy
     got = ll.lstm_layer_plain(t(X), t(ki), t(kh), t(b), lookback=lookback, act="tanh",
-                              n_windows=n - lookback, scale=t(scale), offset=t(offset)).numpy()
+                              n_windows=n - lookback, chain=[(AFFINE, t(scale), t(offset))]).numpy()
     for j in range(m):
         Xs = X[j] * scale[j] + offset[j]
         wins = jax_make_windows(jnp.asarray(Xs[:-1]), lookback)
@@ -165,7 +166,7 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
     scale, offset = t(rng.uniform(0.5, 2, (M, n_in))), t(rng.uniform(-1, 1, (M, n_in)))
     before = ll.launches
     for kw in (
-        dict(idx=[2, 0], scale=scale, offset=offset, slot_windows=[9, 4]),
+        dict(idx=[2, 0], chain=[(AFFINE, scale, offset)], slot_windows=[9, 4]),
         dict(idx=[1, 1], last=True, act="tanh", n_windows=n - lookback),
     ):
         got = ll.lstm_layer(X, ki, kh, b, lookback=lookback, **kw)

@@ -112,7 +112,6 @@ def test_step_without_real_windows_takes_a_zero_gradient_adam_step(monkeypatch):
     params0 = ([tuple(put(a) for a in c) for c in cells], (put(head[0]), put(head[1])))
     fits = [lf.window_fit(np.arange(12), 4, 1)]
     perms = [np.arange(12)[None, None]]
-    ones = torch.ones((2, 1, 3))
     hp = tfit.adam_hparams(tfit.TrainConfig())
     steps = []
 
@@ -123,8 +122,8 @@ def test_step_without_real_windows_takes_a_zero_gradient_adam_step(monkeypatch):
                       [p.clone() for p in params]))
 
     monkeypatch.setattr(lf, "fleet_adam", recording)
-    _, _, history = lf.lstm_fit(X, X, fits, ones, torch.zeros_like(ones), params0, perms, [0, 0],
-                                ("tanh",), "linear", 2, 1, 1, hp, route="kernels", counts=[[11], [3]])
+    _, _, history = lf.lstm_fit(X, X, fits, params0, perms, [0, 0], ("tanh",), "linear", 2, 1, 1, hp,
+                                route="kernels", counts=[[11], [3]])
     assert len(steps) == 3
     for s, ((params, mus, nus), grads, bc, count, after) in enumerate(steps):
         assert int(count[1]) == s + 1

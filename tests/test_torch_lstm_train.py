@@ -38,6 +38,7 @@ from gordo_tpu_torch.models.estimator import LSTMAutoEncoder, LSTMForecast
 from gordo_tpu_torch.parallel.fleet import LSTMDims, fleet_draws, init_lstm_params, put_lstm_draws
 from gordo_tpu_torch.train import lstm_fit as lf
 from gordo_tpu_torch.train.fit import TrainConfig, adam_hparams, adam_update, bias_corrections
+from gordo_tpu_torch.kernels.scaler_stats import AFFINE
 from torch_parity import flatten, r12, recorded_draws, run_in_fresh_process, unflatten
 
 GRAD_TOL = 1e-5
@@ -127,7 +128,7 @@ def test_layer_gradients_match_jax(jax_refs, name):
     first = name == "first"
     kw = dict(lookback=LOOKBACK, batch=batch, act="tanh", last=case["last"])
     if first:
-        kw.update(scale=t(case["scale"]), offset=t(case["offset"]))
+        kw.update(chain=[(AFFINE, t(case["scale"]), t(case["offset"]))])
     weights = [t(case[k]) for k in ("kernel_i", "kernel_h", "bias")]
     # through the wrapper, which takes the plain version on the CPU
     dx, dki, dkh, db = lb.lstm_layer_bwd(
@@ -260,8 +261,8 @@ def test_autograd_functions_give_the_plain_fit():
     params0, perms = put_lstm_draws(fleet_draws, 0, dims, fits, 2, "cpu")
     hp = adam_hparams(TrainConfig())
     runs = {
-        route: lf.lstm_fit(X, y, fits, scale, offset, params0, perms, [0, 0], ["tanh", "tanh"],
-                           "linear", LOOKBACK, 3, 2, hp, route=route)
+        route: lf.lstm_fit(X, y, fits, params0, perms, [0, 0], ["tanh", "tanh"], "linear", LOOKBACK, 3, 2,
+                           hp, route=route, chain=[(AFFINE, scale, offset)])
         for route in ("plain", "kernels")
     }
     (cells_a, head_a, hist_a), (cells_b, head_b, hist_b) = runs["plain"], runs["kernels"]

@@ -186,7 +186,6 @@ def test_all_padding_minibatch_takes_a_zero_gradient_adam_step(monkeypatch):
                for a, b in zip(dims[:-1], dims[1:])]
     fits = [ff.geometry(np.arange(8), 4)]
     perms = torch.from_numpy(ff.pack_perms([np.arange(8)[None, None]]))
-    ones = torch.ones((2, 1, 3))
     hp = tfit.adam_hparams(tfit.TrainConfig())
     steps = []
     original = tfit.adam_update
@@ -197,8 +196,7 @@ def test_all_padding_minibatch_takes_a_zero_gradient_adam_step(monkeypatch):
         return out
 
     monkeypatch.setattr(tfit, "adam_update", recording)
-    layers, history = ff.fleet_fit(X, X, fits, ones, torch.zeros_like(ones), params0, perms,
-                                   [0, 0], acts, 1, hp, counts=[[8], [3]])
+    layers, history = ff.fleet_fit(X, X, fits, params0, perms, [0, 0], acts, 1, hp, counts=[[8], [3]])
     second = [s for s in steps if s[4] == 2]
     assert len(second) == 2 * len(dims) - 2
     for param, grad, mu, nu, count, (new_p, _, _) in second:

@@ -318,7 +318,8 @@ def test_model_methods_stay_float32(models, monkeypatch):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int8"])
 def test_consecutive_scalers_fold_after_their_cast(dtype, int8_opt_in):
     """Two pipeline scalers: each one's stats are cast (quantised) as the
-    reference casts each leaf, then folded into one map in f32; at f32 the
+    reference casts each leaf, then applied in turn as the kernel loads
+    each value, each step in its own form (no fold); at f32 the
     scores are the JAX package's within the serving bound (1e-5), at
     reduced precision within the r12 bounds of JAX at f32 and at ``dtype``."""
     from gordo_tpu.anomaly.diff import DiffBasedAnomalyDetector

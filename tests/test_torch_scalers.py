@@ -24,6 +24,8 @@ the mean to 1e-6 (measured 4.8e-7) and each std below 1e-6 of the mean
 (ROADMAP queue 3 records the divergence and its cause).
 """
 
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -158,7 +160,7 @@ def test_chain_stats_match_make_scale_chain(X, name):
     # ill-conditioned (test_constant_column_is_ill_conditioned_on_both_sides)
     X = np.ascontiguousarray(X[:, :, [0, 1, 2, 4, 5]])
     x = torch.from_numpy(X)
-    steps, _, _, _ = _stats(spec, x, x, ROW_LISTS)
+    steps = [(a, b) for _, a, b in _stats(spec, x, x, ROW_LISTS)[0]]
     for g, rows in enumerate(ROW_LISTS):
         ref_steps, _ = _make_scale_chain(opts)(jnp.asarray(X[:, rows]))
         prefix, Z = [], torch.from_numpy(X[:, rows])
@@ -176,17 +178,68 @@ def test_chain_stats_match_make_scale_chain(X, name):
             Z = want
 
 
+def _fma_rounded_once(x, a, b):
+    """``x * a + b`` of float32 tensors, exact in rationals, rounded once
+    to the nearest float32 (ties to even): the reference for an FMA."""
+    out = []
+    for xv, av, bv in zip(*(t.reshape(-1).tolist() for t in (x, a, b))):
+        exact = Fraction(xv) * Fraction(av) + Fraction(bv)
+        f = np.float32(float(exact))
+        near = [np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))]
+        out.append(min(near, key=lambda c: (abs(Fraction(float(c)) - exact), int(np.float32(c).view(np.int32)) & 1)))
+    return torch.from_numpy(np.array(out, np.float32).reshape(tuple(x.shape)))
+
+
+def test_plain_fma_rounds_once():
+    """A plain version's AFFINE step taken as an FMA (``apply_steps(...,
+    fma=True)``) is ``x * a + b`` rounded once, as ``__fmaf_rn``: on a sum
+    that float64 rounds onto a float32 midpoint (where a rounding through
+    float64 would go to the other neighbour) and on random values of
+    mixed scale."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(4000) * 10.0 ** rng.integers(-6, 6, 4000)
+    a = rng.standard_normal(4000) * 10.0 ** rng.integers(-6, 6, 4000)
+    b = rng.standard_normal(4000) * 10.0 ** rng.integers(-6, 6, 4000)
+    # exact 1 + 2^-23 + 2^-24 - 2^-70: float64 keeps the midpoint, whose tie
+    # goes up to 1 + 2^-22; the value rounded once is 1 + 2^-23
+    x[0], a[0], b[0] = 2.0 ** -12 * (1 + 2.0 ** -23), 2.0 ** -12 * (1 - 2.0 ** -23), 1 + 2.0 ** -23
+    x, a, b = (torch.from_numpy(v.astype(np.float32)) for v in (x, a, b))
+    got = ss.apply_steps(x, [(ss.AFFINE, a, b)], fma=True)
+    assert float(got[0]) == 1 + 2.0 ** -23
+    assert torch.equal(got, _fma_rounded_once(x, a, b))
+
+
 def test_fold_of_a_chain_is_its_steps_applied_in_turn(X):
+    """The serving kernels' plain versions take a chain's steps, each in
+    its own form, and apply them in turn as ``apply_prefix`` does, bit for
+    bit: the pipeline's steps before the dense stack, the detector's step
+    on the prediction and the target alike; a MinMax step is one FMA there,
+    as XLA:CPU fuses the jitted scorer's ``x * scale + offset``."""
+    from gordo_tpu_torch.kernels.fleet_score import fleet_score_plain
+
     chain = CHAINS["robust-standard-minmax"]
     spec = analyze_definition(from_definition(chain_definition(chain)))
     x = torch.from_numpy(np.ascontiguousarray(np.nan_to_num(X[:, :, [0, 1, 4, 5]])))
-    steps, (scale, offset), _, _ = _stats(spec, x, x, ROW_LISTS)
-    want = x
-    for proto, (a, b) in zip(spec.scaler_protos, steps):
-        want = ss.apply_prefix(want, [(proto.FORM, a, b)], 1)
-    got = x * scale[:, 1:2] + offset[:, 1:2]
-    # the fold rounds otherwise than the steps in turn: a few ulp of the output
-    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    steps, (det_form, *det_stats) = _stats(spec, x, x, ROW_LISTS)
+    want = ss.apply_steps(x, steps, lambda t: t[:, 1, None, :], fma=True)
+    # the FMA rounds once: x * a + b exact, rounded to float32 once
+    minmax = steps[-1]
+    assert minmax[0] == ss.AFFINE
+    before = ss.apply_prefix(x, steps[:-1], 1)
+    once = _fma_rounded_once(*torch.broadcast_tensors(before, minmax[1][:, 1, None], minmax[2][:, 1, None]))
+    assert torch.equal(want, once)
+    F = int(x.shape[2])
+    eye = [(torch.eye(F).expand(MACHINES, F, F).contiguous(), torch.zeros(MACHINES, F))]
+    at_fit = [(form, a[:, 1].contiguous(), b[:, 1].contiguous()) for form, a, b in steps]
+    det = (det_form,) + tuple(t[:, 0].contiguous() for t in det_stats)
+    got = fleet_score_plain(x, eye, [None], chain=at_fit, det=det, y=x)
+    assert torch.equal(got["model-output"], want)
+    # the default detector scaler, a MinMax: one FMA on each side
+    assert det_form == ss.AFFINE
+    d = [(det_form,) + tuple(t for t in det_stats)]
+    at = lambda t: t[:, 0, None, :]  # noqa: E731
+    tag = (ss.apply_steps(want, d, at, fma=True) - ss.apply_steps(x, d, at, fma=True)).abs()
+    assert torch.equal(got["tag-anomaly-scores"], tag)
 
 
 @pytest.mark.parametrize("name,opts", [

@@ -8,6 +8,8 @@ kernels' plain versions (the CPU has no card): ``chain_apply_plain``
 (K12) against the JAX package's step-by-step transforms,
 ``scaler_quantiles_grid_plain`` against ``jnp.nanpercentile`` and
 ``jnp.nanmedian`` over machines and row lists and through a chain prefix,
+and at the edges its kernel's sort must meet (heavily tied keys, an
+all-NaN column, one row, fewer rows than grid entries),
 ``scaler_stats_plain``'s means against ``jnp.mean`` and ``jnp.nanmean``.
 The rows are quantised (a quarter or an eighth), so that the quantile
 grids tie, and carry NaN cells; the rows transformed fall partly outside
@@ -340,6 +342,40 @@ def test_grid_statistic_against_nanpercentile(rows, midpoint):
     for m in range(2):
         for g, r in enumerate(lists):
             same(np.asarray(ref_fn(jnp.asarray(Xm[m][r]))), got[m, g])
+
+
+def _edge_rows(case: str) -> np.ndarray:
+    """Rows for the grid's edges: heavily tied keys (two values and NaN),
+    an all-NaN column, one row, and fewer rows than the grid has entries."""
+    rng = np.random.default_rng(23)
+    n = {"tied": 90, "all_nan_column": 60, "one_row": 1, "q_over_rows": 17}[case]
+    X = (np.round(rng.standard_normal((n, TAGS)) * 4) / 4).astype(np.float32)
+    if case == "tied":
+        X = np.where(X > 0, np.float32(1.5), np.float32(-0.25))
+        X[::7, 1] = np.nan
+    if case == "all_nan_column":
+        X[:, 2] = np.nan
+    return X
+
+
+@pytest.mark.parametrize("midpoint", [False, True])
+@pytest.mark.parametrize("case", ["tied", "all_nan_column", "one_row", "q_over_rows"])
+def test_grid_statistic_at_the_sorts_edges(case, midpoint):
+    """The edges the grid kernel's sort must meet (the card holds the
+    kernel to these plain outputs bit for bit): its plain version against
+    ``jnp.nanpercentile`` at Q 100 / ``jnp.nanmedian``, bit for bit."""
+    X = _edge_rows(case)
+    if midpoint:
+        q = torch.tensor([0.5])
+        ref = jnp.nanmedian(jnp.asarray(X), axis=0)[None]
+    else:
+        q = torch.from_numpy(ca.percentile_fractions(100))
+        ref = jnp.nanpercentile(jnp.asarray(X), jnp.linspace(0.0, 100.0, 100), axis=0)
+    got = sq.scaler_quantiles_grid(torch.from_numpy(X[None]), [np.arange(len(X))], q, midpoint=midpoint)
+    assert got.shape == (1, 1, len(q), TAGS)
+    same(np.asarray(ref), got[0, 0].numpy())
+    if case == "all_nan_column":
+        assert bool(torch.isnan(got[0, 0, :, 2]).all())
 
 
 def test_grid_statistic_refuses_long_series():
