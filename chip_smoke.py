@@ -23,9 +23,10 @@ itself.  Phases, each printing one JSON line:
    ``fleet_fit``, ``cv_epilogue``) against their plain versions on the
    card, at the bench shape (512 machines × 576 rows × 10 tags, the
    default ``TrainConfig``), each kernel fed what the one before it made,
-   as the build does; times as in phase 3 (the plain versions, thousands
-   of small launches, are timed by CUDA events around whole calls, host
-   gaps included), and each bound.
+   as the build does, ``cv_epilogue`` bit for bit its plain version (also
+   on targets at a level of 1e4); times as in phase 3 (the plain
+   versions, thousands of small launches, are timed by CUDA events around
+   whole calls, host gaps included), and each bound.
 6. ``train``: ``FleetDiffBuilder.build`` builds 512 default detectors on
    the card (wall seconds, models/h), the launch counts (set to 0 just
    before) showing that every fit, stat and epilogue went through the
@@ -79,7 +80,7 @@ itself.  Phases, each printing one JSON line:
    whole fit's bound is ``lstm_fit_bound``.
 11. ``ragged_kernel_check``: the masked epilogue (K8: ``cv_epilogue`` with
    row counts from 0 to 144 over 1,536 slots × 144 rows × 10 tags, held
-   to its plain version, the empty slots to their fixed values, and to
+   to its plain version bit for bit, the empty slots to their fixed values, and to
    the suffix-weighted metrics; slots with NaN and inf in real rows,
    whose non-finite maxima K8 maps to 0 and K4 keeps), ``scaler_stats`` on NaN-padded ragged
    rows, ``fleet_fit`` with a real-row count per (machine, fit) at 512 ×
@@ -93,13 +94,15 @@ itself.  Phases, each printing one JSON line:
    models/h, dispatch, fetch, assembly, launches by kernel); the padded
    build held per machine to the same programs through the plain
    versions on the card (``plain_kernels``), its 576-row machines to the
-   exact build's bit for bit; then a warm pad-up rebuild on the series
-   grown by 64 rows from the padded build's params, held the same way.
+   exact build's bit for bit (their CV scores to the weighted metrics of
+   the exact build's predictions, K8's formulas); then a warm pad-up
+   rebuild on the series grown by 64 rows from the padded build's params,
+   held the same way.
 13. ``ragged_lstm_train``: the same for 64 of the bench's LSTM detectors
    whose machine i has 576 - 16 (i mod 4) rows: one padded group, four
    exact ones, the padded build held to its program with the plain
    lockstep fit and plain versions on the card, the 576-row machines bit
-   for bit; then a warm exact rebuild from the padded build's params,
+   for bit (the CV scores as above); then a warm exact rebuild from the padded build's params,
    held to its plain version.
 14. ``precision_kernel_check``: the bf16 instantiations (K10) against
    their plain versions on the card: ``fleet_score`` over bf16 storage at
@@ -177,9 +180,11 @@ itself.  Phases, each printing one JSON line:
    versions on the card at 512 × 576 × 10 over the 4 row lists of
    ``TimeSeriesSplit(3)`` and the full series, on NaN-padded ragged rows
    (449–576), as the second step of the chains Standard → MinMax and
-   MinMax (to (1, -1)) → Robust, and Robust on a year of 10-minute rows
-   (52,560 × 10); times, bounds, and ``torch.nanquantile`` (one call a row
-   list) beside Robust.
+   MinMax (to (1, -1)) → Robust, and on a year of 10-minute rows (52,560
+   × 10: Robust also NaN-padded and after a MinMax (1, -1) step) and at
+   57,344 rows over uneven row lists, each bit for bit its plain version;
+   Robust's selection and sort timed beside each other; times, bounds,
+   and ``torch.nanquantile`` (one call a row list) beside Robust.
 24. ``scaler_build``: ``FleetDiffBuilder.build`` of 512 × 576 × 10
    detectors with a ``RobustScaler`` pipeline step and a
    ``StandardScaler`` detector scaler (seconds, models/h, launches by
@@ -197,8 +202,9 @@ itself.  Phases, each printing one JSON line:
    chain A's steps, at 576 × 10 and 4,096 × 128, and the PCA step alone
    at the full width beside ``torch.mm``; ``scaler_quantiles``' grid
    variant (Q = 100, the median by selection and by the sort) and
-   ``scaler_stats``' means (a NaN column) at 576 × 10 and on a year of
-   10-minute rows (52,560 × 10), Robust's kernel rechecked there, and the
+   ``scaler_stats``' means (a NaN column) at 576 × 10, on a year of
+   10-minute rows (52,560 × 10) and at 57,344 rows over uneven row lists,
+   each bit for bit its plain version, Robust's kernel rechecked there, and the
    grid at its sort's edges (Q 1,000, 27,000 and 57,344 rows, an all-NaN
    column, one row), every grid bit for bit its plain version; times,
    bounds, and ``torch.nanquantile``, ``torch.nanmedian``, ``torch.mean``
@@ -320,8 +326,8 @@ CPU_MACHINES = 8
 #: roundings; measured 0); a fit sums each gradient over rows in another
 #: order, and 10 to 30 dependent Adam steps divide by sqrt(nu), which
 #: amplifies that where gradients are small (measured 2.9e-6 on params,
-#: 1.5e-7 on the loss history); the epilogue's means are float32 sums in
-#: another order (measured 2.4e-7)
+#: 1.5e-7 on the loss history); the epilogue sums in XLA's window order on
+#: both sides (measured 0, and held bit for bit)
 TRAIN_TOLERANCE = {"scaler_stats": 1e-6, "fleet_fit": 1e-4, "fleet_fit_history": 1e-5,
                    "cv_epilogue": 1e-5}
 #: the card's build against the CPU's, per machine: the fits' differences
@@ -411,6 +417,15 @@ def minmax_step(scale, offset):
     """A MinMax scaler as the kernels take it: one AFFINE step."""
     from gordo_tpu_torch.kernels.scaler_stats import AFFINE
     return (AFFINE, scale, offset)
+
+
+def differing(ref, got) -> int:
+    """Values of ``got`` that are not ``ref``'s bit for bit, a NaN where
+    ``ref`` has one (any payload) and a zero's sign aside (a sort may rank
+    -0 and +0 either way)."""
+    r, g = ref.float() + 0.0, got.float() + 0.0
+    both_nan = torch.isnan(r) & torch.isnan(g)
+    return int(((r.view(torch.int32) != g.view(torch.int32)) & ~both_nan).sum())
 
 
 def norm_err(ref, got) -> float:
@@ -923,6 +938,14 @@ def phase_train_kernel_check():
            bound(4 * (3 * elems + machines * K * nt + machines * K * (tags + 5)),
                  elems * (ce.SMOOTHING_WINDOW + 12) + machines * K * nt * ce.SMOOTHING_WINDOW),
            {k: TRAIN_TOLERANCE["cv_epilogue"] for k in errs})
+    # the metrics sum in XLA's window order on both sides: bit for bit, on
+    # these targets and on targets at a level of 1e4 (the order mattered)
+    level = x_oof + 1e4
+    far = ce.cv_epilogue(*epi_args[:3], level), ce.cv_epilogue_plain(*epi_args[:3], level)
+    entries["cv_epilogue"]["differing"] = sum(differing(ref[k], got[k]) for k in ref)
+    entries["cv_epilogue"]["differing_level_1e4"] = sum(differing(far[1][k], far[0][k]) for k in ref)
+    check(entries["cv_epilogue"]["differing"] == 0 and entries["cv_epilogue"]["differing_level_1e4"] == 0,
+          f"cv_epilogue: bit for bit its plain version ({entries['cv_epilogue']})")
     emit({"phase": "train_kernel_check", "shape": list(TRAIN_SHAPE), "kernels": entries})
     del X, layers, layers_p, scored, x_oof
     if DEVICE == "cuda":
@@ -2442,14 +2465,50 @@ def _check_worst(worst: dict, tolerance: dict, what: str) -> None:
         check(err <= tolerance[kind], f"{what}, {kind}: {err} > {tolerance[kind]}")
 
 
-def _bitwise_equal(a, b, machines, what: str) -> int:
-    """Detectors ``a[i]`` and ``b[i]`` hold the same bits, for each i."""
+def _bitwise_equal(a, b, machines, what: str, skip=()) -> int:
+    """Detectors ``a[i]`` and ``b[i]`` hold the same bits, for each i (the
+    arrays named in ``skip`` aside)."""
     for i in machines:
         da, db = _detector_arrays(a[i]), _detector_arrays(b[i])
         check(set(da) == set(db), f"{what}: machine {i} has the same arrays")
-        for key in da:
+        for key in set(da) - set(skip):
             check(np.array_equal(da[key], db[key]), f"{what}: machine {i} {key} bit for bit")
     return len(machines)
+
+
+def _keep_out_of_fold(builder) -> dict:
+    """Make ``builder`` keep each machine's out-of-fold predictions, test
+    rows and targets as its groups are collected: ``{machine: (predictions
+    (K, rows, Fo), test rows, targets)}``, the last build's."""
+    kept = {}
+    collect = builder._collect_group
+
+    def keep(g):
+        for m, i in enumerate(g.indices):
+            kept[i] = (g.out["predictions"][m], g.out["test_rows"], g.y[m])
+        return collect(g)
+
+    builder._collect_group = keep
+    return kept
+
+
+def _padded_scores_check(padded, kept, machines, what: str) -> None:
+    """A pad-up build's CV scores of full-length machines, bit for bit the
+    weighted metrics (K8's formulas, ``fleet.padded``) of the exact build's
+    predictions ``kept``; the exact build's own scores are ``fleet.exact``'s
+    (K4), another order of the same sums."""
+    from gordo_tpu_torch.kernels import cv_epilogue as ce
+
+    for i in machines:
+        pred, tests, y = kept[i]
+        off = max(len(r) for r in tests) - int(pred.shape[1])
+        for k, rows_k in enumerate(tests):
+            n = len(rows_k) - off
+            yk = torch.from_numpy(np.ascontiguousarray(y[rows_k][off:], np.float32)).to(pred.device)[None]
+            want = ce.fold_metrics(yk, pred[k][None, :n], n, masked=True)
+            for name in ce.METRIC_NAMES:
+                check(padded[i].cv_metadata_["scores"][name]["folds"][k] == float(want[name][0]),
+                      f"{what}: machine {i} fold {k} {name} is the weighted metric of the exact build's predictions")
 
 
 def _non_finite_max_check(rng, tags: int) -> dict:
@@ -2562,6 +2621,9 @@ def phase_ragged_kernel_check():
              # the rows this run's counts need, read once; the outputs
              **bound(4 * (real * (3 * tags + 1) + S * (tags + 7)),
                      real * tags * (ce.SMOOTHING_WINDOW + 12) + real * ce.SMOOTHING_WINDOW)}
+    # the metrics sum in XLA's window order on both sides: bit for bit
+    entry["differing"] = sum(differing(ref[k], got[k]) for k in ref)
+    check(entry["differing"] == 0, f"cv_epilogue masked: bit for bit its plain version ({entry['differing']} differ)")
     timed(entry, run, plain, 20, 5)
     entry["non_finite"] = _non_finite_max_check(rng, tags)
     entries["cv_epilogue_masked"] = entry
@@ -2767,7 +2829,10 @@ def phase_ragged_train():
     same programs through the plain versions on the card, and its 576-row
     machines to the exact build's bit for bit; then a warm pad-up rebuild
     on the series extended by RAGGED_EXTEND rows from the padded build's
-    params, held to its plain version on the card."""
+    params, held to its plain version on the card.  Their CV scores are
+    held to the weighted metrics of the exact build's predictions (K8's
+    formulas; K4's are another order of the same sums)."""
+    from gordo_tpu_torch.kernels import cv_epilogue as ce
     from gordo_tpu_torch.parallel.anomaly import FleetDiffBuilder, analyze_definition
     from gordo_tpu_torch.serializer import from_definition
 
@@ -2781,13 +2846,15 @@ def phase_ragged_train():
     exact_builder = FleetDiffBuilder(spec, device=device)
     counters = _ff_counters()
     padded, padded_info, pending = _build_counted(spec, padded_builder, Xs, counters)
+    kept = _keep_out_of_fold(exact_builder)
     exact, exact_info, _ = _build_counted(spec, exact_builder, Xs, counters)
     check(all(getattr(d, "pad_built_", False) for d in padded), "every machine pad-built")
     worst, admitted = _hold_to_plain_program(spec, padded_builder, pending, padded, RAGGED_TOLERANCE)
     emit({"phase": "ragged_train_vs_plain", "max_norm_err": worst, "held_to_one_ulp_movement": admitted})
     _check_worst(worst, RAGGED_TOLERANCE, "ragged pad-up build vs its plain version")
     full = [i for i, n in enumerate(lens) if n == rows]
-    same = _bitwise_equal(padded, exact, full, "padded vs exact build")
+    same = _bitwise_equal(padded, exact, full, "padded vs exact build", skip=ce.METRIC_NAMES)
+    _padded_scores_check(padded, kept, full, "padded build")
 
     # warm: the series grown by RAGGED_EXTEND rows, from the padded build's params
     Xw = [base[i, : n + RAGGED_EXTEND] for i, n in enumerate(lens)]
@@ -2810,8 +2877,10 @@ def phase_ragged_lstm_train():
     built twice and the second counted; the padded build held per machine
     to the same program through the plain versions (and the plain lockstep
     fit) on the card, its full-length machines to the exact build's bit for
-    bit; then a warm exact rebuild from the padded build's params, held to
-    its plain version on the card."""
+    bit (their CV scores to the weighted metrics of the exact build's
+    predictions); then a warm exact rebuild from the padded build's params,
+    held to its plain version on the card."""
+    from gordo_tpu_torch.kernels import cv_epilogue as ce
     from gordo_tpu_torch.parallel.anomaly import FleetDiffBuilder, analyze_definition
     from gordo_tpu_torch.serializer import from_definition
 
@@ -2825,13 +2894,15 @@ def phase_ragged_lstm_train():
     exact_builder = FleetDiffBuilder(spec, device=device)
     counters = _lstm_counters()
     padded, padded_info, pending = _build_counted(spec, padded_builder, Xs, counters)
+    kept = _keep_out_of_fold(exact_builder)
     exact, exact_info, _ = _build_counted(spec, exact_builder, Xs, counters)
     check(all(getattr(d, "pad_built_", False) for d in padded), "every LSTM machine pad-built")
     worst, admitted = _hold_to_plain_program(spec, padded_builder, pending, padded, LSTM_RAGGED_TOLERANCE)
     emit({"phase": "ragged_lstm_train_vs_plain", "max_norm_err": worst, "held_to_one_ulp_movement": admitted})
     _check_worst(worst, LSTM_RAGGED_TOLERANCE, "ragged LSTM pad-up build vs its plain version")
     full = [i for i, n in enumerate(lens) if n == rows]
-    same = _bitwise_equal(padded, exact, full, "padded vs exact LSTM build")
+    same = _bitwise_equal(padded, exact, full, "padded vs exact LSTM build", skip=ce.METRIC_NAMES)
+    _padded_scores_check(padded, kept, full, "padded LSTM build")
 
     warm = [d.base_estimator._final.state_arrays() for d in padded]
     warm_dets, warm_info, pending = _build_counted(spec, exact_builder, Xs, counters, warm)
@@ -4218,11 +4289,17 @@ def phase_scaler_kernel_check():
     Robust), each step fed the kernel's stats of the step before, and
     Robust on one year of 10-minute rows (52,560) × 10 tags; the Standard
     statistic also after that MinMax step (its prefix instantiation), at
-    128 tags (column groups of 13 and 11) and on the year.  The Standard
-    entries count their values that are not the plain version's bit for
-    bit (``differing``: both sum in XLA's window order).  Times, bounds,
-    and the library call: ``torch.nanquantile`` (one call a row list) for
-    Robust; no one PyTorch call takes a NaN-aware std."""
+    128 tags (column groups of 13 and 11) and on the year (a cluster per
+    column group).  Robust past one sort chunk (the cluster sort) on the
+    year NaN-padded and after a MinMax (1, -1) step; both statistics at
+    QS_MAX_ROWS (57,344) over uneven row lists; Robust's selection at a
+    year and its sort at TRAIN_SHAPE, timed beside the launcher's choice.
+    Every Standard and Robust entry counts its values that are not the
+    plain version's bit for bit (``differing``, which must be 0: the
+    Standard sums run in XLA's window order on both sides, Robust's order
+    statistics are exact).  Times, bounds, and the library call:
+    ``torch.nanquantile`` (one call a row list) for Robust; no one PyTorch
+    call takes a NaN-aware std."""
     from gordo_tpu_torch.kernels import scaler_quantiles as sq
     from gordo_tpu_torch.kernels import scaler_stats as ss
     from gordo_tpu_torch.train.cv import TimeSeriesSplit
@@ -4251,8 +4328,9 @@ def phase_scaler_kernel_check():
         tol = SCALER_TOLERANCE[stat]
         check(all(e <= tol for e in errs.values()), f"{name} within {tol}: {errs}")
         entry = {"stat": stat, "max_norm_err": errs, "max_abs_err": worst, "tolerance": tol, **bound_info}
-        if stat == "standard":
-            entry["differing"] = sum(int((r.view(torch.int32) != g.view(torch.int32)).sum()) for r, g in zip(ref, got))
+        if stat in ("standard", "robust"):
+            entry["differing"] = sum(differing(r, g) for r, g in zip(ref, got))
+            check(entry["differing"] == 0, f"{name}: bit for bit its plain version ({entry['differing']} differ)")
         if DEVICE == "cuda":
             entry["ms"], entry["host_ms"] = time_ms(run, reps)
             entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, plain_reps)
@@ -4263,6 +4341,16 @@ def phase_scaler_kernel_check():
     def nanquantile(x, lists):
         # the row lists are prefixes of the series: one call a row list
         return lambda: [torch.nanquantile(x[:, : len(r)], q, dim=1) for r in lists]
+
+    def robust_through(sort_above, x, lists):
+        # Robust with the launcher's switch from the selection to the sort
+        # at another length (0: always the sort)
+        saved = sq.ROBUST_SORT_ABOVE
+        sq.ROBUST_SORT_ABOVE = sort_above
+        try:
+            return sq.scaler_quantiles(x, lists)
+        finally:
+            sq.ROBUST_SORT_ABOVE = saved
 
     full = stat_bound(machines, rows, tags, row_lists, 0, 4)
     mean, std = hold("standard", "standard", lambda: ss.scaler_stats(X, row_lists, stat="standard"),
@@ -4300,6 +4388,36 @@ def phase_scaler_kernel_check():
     hold("robust_year", "robust", lambda: sq.scaler_quantiles(year, whole),
          lambda: sq.scaler_quantiles_plain(year, whole), stat_bound(1, SCALER_YEAR, tags, whole, 0, 1),
          library=nanquantile(year, whole), reps=5, plain_reps=3)
+    # Robust past one sort chunk sorts each column over a cluster: the
+    # year NaN-padded (a pad-up group's tail of NaN rows), after a
+    # MinMax step to (1, -1) (its keys reversed), and at QS_MAX_ROWS over
+    # uneven row lists, one of them not a prefix; the selection at a year
+    # and the sort at TRAIN_SHAPE beside the launcher's choice
+    year_pad = year.clone()
+    year_pad[:, SCALER_YEAR - SCALER_YEAR // 13:] = float("nan")
+    hold("robust_year_nan_padded", "robust", lambda: sq.scaler_quantiles(year_pad, whole),
+         lambda: sq.scaler_quantiles_plain(year_pad, whole), stat_bound(1, SCALER_YEAR, tags, whole, 0, 1),
+         library=nanquantile(year_pad, whole), reps=5, plain_reps=3)
+    year_flip = [(ss.AFFINE, *ss.scaler_stats(year, whole, (1.0, -1.0)))]
+    hold("robust_year_minmax", "robust", lambda: sq.scaler_quantiles(year, whole, prefix=year_flip),
+         lambda: sq.scaler_quantiles_plain(year, whole, prefix=year_flip),
+         stat_bound(1, SCALER_YEAR, tags, whole, 1, 1), reps=5, plain_reps=3)
+    hold("robust_year_selection", "robust", lambda: robust_through(sq.MAX_ROWS, year, whole),
+         lambda: sq.scaler_quantiles_plain(year, whole), stat_bound(1, SCALER_YEAR, tags, whole, 0, 1),
+         reps=5, plain_reps=3)
+    hold("robust_sorted", "robust", lambda: robust_through(0, X, row_lists),
+         lambda: sq.scaler_quantiles_plain(X, row_lists), stat_bound(machines, rows, tags, row_lists, 0, 1))
+    longest = sq.MAX_ROWS
+    long_x = put(bench_fleet(rng, 2, longest, tags))
+    uneven = [np.arange(longest), np.arange(31_337), np.sort(rng.permutation(longest)[:45_001]),
+              np.arange(8_193)]
+    hold("standard_max_rows", "standard", lambda: ss.scaler_stats(long_x, uneven, stat="standard"),
+         lambda: ss.scaler_stats_plain(long_x, uneven, stat="standard"),
+         stat_bound(2, longest, tags, uneven, 0, 4), reps=5, plain_reps=2)
+    hold("robust_max_rows", "robust", lambda: sq.scaler_quantiles(long_x, uneven),
+         lambda: sq.scaler_quantiles_plain(long_x, uneven), stat_bound(2, longest, tags, uneven, 0, 1),
+         reps=5, plain_reps=2)
+    del long_x, year_pad
     emit({"phase": "scaler_kernel_check", "shape": list(TRAIN_SHAPE), "year_rows": SCALER_YEAR,
           "kernels": entries})
     del X, Xn, year
@@ -4539,7 +4657,10 @@ def phase_transform_kernel_check():
     edges (Q 1,000, 27,000 and 57,344 rows with an all-NaN column, one
     row), each bit for bit its plain version (``grid_bits``), Robust's
     kernel rechecked value for value against its plain version;
-    ``scaler_stats``' mean (``jnp.mean``) with a NaN column and NaN-mean.
+    ``scaler_stats``' mean (``jnp.mean``) with a NaN column and NaN-mean,
+    at the first shape, on the year (a cluster per column group) and at
+    QS_MAX_ROWS over uneven row lists, each bit for bit its plain version
+    (``mean_bits``).
     Times, bounds, and the library calls: ``torch.nanquantile`` over the
     grid, ``torch.mm``, ``torch.mean`` and ``torch.nanmean``; no one
     PyTorch call runs a transform chain."""
@@ -4568,6 +4689,14 @@ def phase_transform_kernel_check():
             entry["library_ms"] = None if library is None else time_calls_ms(library, plain_reps)[0]
         entries[name] = entry
         return got
+
+    def mean_bits(name, stat, x, lists):
+        """The means bit for bit their plain versions (both in XLA's
+        window order)."""
+        got = ss.scaler_stats(x, lists, stat=stat)[0]
+        ref = ss.scaler_stats_plain(x, lists, stat=stat)[0]
+        entries[name]["differing"] = differing(ref, got)
+        check(entries[name]["differing"] == 0, f"{name}: bit for bit its plain version")
 
     def grid_bits(name, x, lists, q, midpoint=False):
         """The grid variant bit for bit its plain version (exact order
@@ -4618,10 +4747,27 @@ def phase_transform_kernel_check():
              single_stat_bound(n, tags, 0, 1), TRANSFORM_TOLERANCE["mean"],
              library=lambda: torch.mean(xm, dim=1), reps=reps, plain_reps=3)
         check(bool(torch.isnan(ss.scaler_stats(xm, whole, stat="mean")[0][0, 0, 3])), "a NaN column's mean is NaN")
+        mean_bits(f"mean{label}", "mean", xm, whole)
         hold(f"nanmean{label}", lambda: ss.scaler_stats(xm, whole, stat="nanmean")[0],
              lambda: ss.scaler_stats_plain(xm, whole, stat="nanmean")[0],
              single_stat_bound(n, tags, 0, 1), TRANSFORM_TOLERANCE["mean"],
              library=lambda: torch.nanmean(xm, dim=1), reps=reps, plain_reps=3)
+        mean_bits(f"nanmean{label}", "nanmean", xm, whole)
+
+    # the means past one block over uneven row lists (QS_MAX_ROWS, 31,337,
+    # a non-prefix 45,001 and 8,193 rows), two machines, a NaN column
+    n = sq.MAX_ROWS
+    Xm = bench_fleet(rng, 2, n, tags)
+    Xm[1, 40_000, 6] = np.nan
+    xm = put(Xm)
+    uneven = [np.arange(n), np.arange(31_337), np.sort(rng.permutation(n)[:45_001]), np.arange(8_193)]
+    for stat in ("mean", "nanmean"):
+        hold(f"{stat}_max_rows", lambda: ss.scaler_stats(xm, uneven, stat=stat)[0],
+             lambda: ss.scaler_stats_plain(xm, uneven, stat=stat)[0],
+             single_stat_bound(2 * sum(len(r) for r in uneven), tags, 0, 2 * len(uneven)),
+             TRANSFORM_TOLERANCE["mean"], reps=5, plain_reps=2)
+        mean_bits(f"{stat}_max_rows", stat, xm, uneven)
+    del xm
 
     # the grid's sort at its edges: quantised rows (tied keys) with NaN
     # rows and an all-NaN column, at Q 1,000 on the first shape, at 27,000

@@ -125,7 +125,7 @@ __device__ __forceinline__ float* dense_rows(const DenseChain& ch, int mach, flo
 // MinMax as one FMA each, as XLA:CPU fuses `anomaly.scores`' `y * scale +
 // offset`; a Standard or Robust scaler as (v - a) / b.
 __device__ __forceinline__ float tag_score(int form, float p, float y, float a, float b) {
-  return fabsf(__fsub_rn(step_apply<true>(form, p, a, b), step_apply<true>(form, y, a, b)));
+  return fabsf(__fsub_rn(step_apply(form, p, a, b), step_apply(form, y, a, b)));
 }
 
 // The L2 norm of a row's fo squared tag scores `sq`, summed from the tag

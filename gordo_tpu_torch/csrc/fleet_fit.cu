@@ -65,9 +65,8 @@
 // Two barriers per step.  Row storage has an odd stride, so the threads of
 // a warp (one row each) hit distinct banks.  The pipeline's scaler steps
 // apply to each value as it loads, each in its own form (scaler_prefix.cuh;
-// a MinMax step with __fmul_rn/__fadd_rn, no FMA contraction, the same
-// rounding as the host's `X * scale + offset`), so a machine fitted on
-// pre-scaled rows gets the same weights.
+// a MinMax step one FMA, as XLA's fleet program fuses its `X * scale +
+// offset`), so the transformed rows are never written.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -257,7 +256,7 @@ __global__ void fleet_fit_kernel(const FleetFitArgs a) {
         float* R = rowbuf + (size_t)(base + __popc(ballot & ((1u << lane) - 1u))) * a.row_stride;
         const int src = rows[p];
         const float* xr = xm + (size_t)src * F;
-        with_chain<float, false>(a.chain, [&](auto apply) {
+        with_chain<float>(a.chain, [&](auto apply) {
           for (int j = 0; j < F; ++j) R[j] = apply(at + j, __ldg(xr + j));
         });
         for (int l = 0; l < L; ++l) {

@@ -129,7 +129,7 @@ fleet_score_kernel(const FleetScoreArgs a) {
   const size_t at = (size_t)mach * F;  // the machine's scaler stats
   // without y, F == fo and the raw rows are the targets
   const bool y_is_x = det && !a.y;
-  with_chain<T, true>(a.scalers, [&](auto apply) {
+  with_chain<T>(a.scalers, [&](auto apply) {
     walk2d(R, F, [&](int r, int j) {
       float v = 0.f;
       float t = 0.f;

@@ -154,7 +154,7 @@ lstm_layer_kernel(const LstmLayerArgs a) {
     const float* hprev = hbuf + (t & 1) * Tw * HP;
     float* hnext = hbuf + ((t + 1) & 1) * Tw * HP;
     // the tile's inputs of step t; windows past the slot's end read zeros
-    with_chain<T, false>(a.scalers, [&](auto apply) {
+    with_chain<T>(a.scalers, [&](auto apply) {
       for (int e = threadIdx.x; e < Tw * IP; e += blockDim.x) {
         const int wl = e / IP;
         const int k = e - wl * IP;

@@ -143,7 +143,7 @@ lstm_layer_bwd_kernel(const LstmLayerBwdArgs a) {
     if (mine) dhr[g * H + j] = 0.f;
     for (int t = L - 1; t >= 0; --t) {
       // phase A: the tile's inputs of step t, h_{t-1}, and dz
-      with_chain<float, false>(a.scalers, [&](auto apply) {
+      with_chain<float>(a.scalers, [&](auto apply) {
         for (int e = tid; e < tn * IN; e += nthr) {
           const int wl = e / IN;
           const int k = e - wl * IN;

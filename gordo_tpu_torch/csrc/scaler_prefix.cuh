@@ -19,11 +19,16 @@
 // Each step keeps the reference's form and its own roundings: MinMax as
 // `x * a + b` (its stats scale and offset), Standard and Robust as
 // `(x - a) / b` (mean and std; center and scale).  The intrinsics fix each
-// rounding.  An AFFINE step is two roundings (`__fmul_rn`, `__fadd_rn`)
-// where the reference's value is taken op by op (the stats and the fits),
-// and one FMA (`FMA` true) where XLA:CPU fuses the jitted scorer's
-// `x * scale + offset` into one (the serving kernels; measured bit for bit
-// against jax.jit on the CPU).  A NaN stays NaN.
+// rounding.  An AFFINE step is one FMA (`__fmaf_rn`): every XLA program
+// that applies a MinMax step fuses its `x * scale + offset` into one
+// (XLA:CPU emits the product and the sum in one loop fusion and contracts
+// them), as measured bit for bit on the CPU for each path the kernels
+// take: the stats of a later step in `fleet.exact` and `fleet.padded`,
+// the fits' scaled rows, the LSTM fleet build's windows and the LSTM
+// served by `serve.score` (tests/test_torch_uncentred_chain.py,
+// tests/test_torch_affine_rounding.py).  The single path and the generic
+// fleet API transform their rows eagerly, two roundings as the JAX single
+// path takes them, and give the kernels no chain.  A NaN stays NaN.
 //
 // The stats are (M, G, F) for the stat kernels and the fits (one set per
 // machine and fit), (M, F) for the serving kernels, at the kernel's
@@ -52,18 +57,17 @@ struct ScalerPrefix {
 };
 
 // one step of form `form` with stats `pa`, `pb`
-template <bool FMA = false>
 __device__ __forceinline__ float step_apply(int form, float v, float pa, float pb) {
-  if (form == SP_AFFINE) return FMA ? __fmaf_rn(v, pa, pb) : __fadd_rn(__fmul_rn(v, pa), pb);
+  if (form == SP_AFFINE) return __fmaf_rn(v, pa, pb);
   return __fdiv_rn(__fsub_rn(v, pa), pb);
 }
 
 // `v` through the chain's steps, `at` the index of its stats
-template <typename T = float, bool FMA = false>
+template <typename T = float>
 __device__ __forceinline__ float prefix_apply(const ScalerPrefix& p, size_t at, float v) {
   for (int i = 0; i < p.n; ++i)
-    v = step_apply<FMA>(p.form[i], v, ld(static_cast<const T*>(p.a[i]) + at),
-                        ld(static_cast<const T*>(p.b[i]) + at));
+    v = step_apply(p.form[i], v, ld(static_cast<const T*>(p.a[i]) + at),
+                   ld(static_cast<const T*>(p.b[i]) + at));
   return v;
 }
 
@@ -74,17 +78,33 @@ __device__ __forceinline__ float prefix_apply(const ScalerPrefix& p, size_t at, 
 // registers and its division stay off the common chains' path (the loop
 // in their path, rolled or unrolled, cost the serving kernels registers
 // and time on the H100: PERF.md).
-template <typename T, bool FMA, typename Body>
+template <typename T, typename Body>
 __device__ __forceinline__ void with_chain(const ScalerPrefix& p, Body body) {
   if (p.n == 0) {
     body([](size_t, float v) { return v; });
   } else if (p.n == 1 && p.form[0] == SP_AFFINE) {
     const T* A = static_cast<const T*>(p.a[0]);
     const T* B = static_cast<const T*>(p.b[0]);
-    body([=](size_t at, float v) { return step_apply<FMA>(SP_AFFINE, v, ld(A + at), ld(B + at)); });
+    body([=](size_t at, float v) { return step_apply(SP_AFFINE, v, ld(A + at), ld(B + at)); });
   } else {
-    body([&](size_t at, float v) { return prefix_apply<T, FMA>(p, at, v); });
+    body([&](size_t at, float v) { return prefix_apply<T>(p, at, v); });
   }
+}
+
+// A stat kernel's row list: the row list's indices in device memory, or,
+// where every row list of a launch is a range of consecutive rows (a
+// TimeSeriesSplit fold, the whole series), none (`idx` null: row i is
+// `start + i`, so no index is uploaded or loaded)
+struct RowList {
+  const int* idx;
+  int start;
+  __device__ __forceinline__ int operator[](int i) const { return idx ? __ldg(idx + i) : start + i; }
+};
+
+// fit `fit`'s row list from a launch's `rows` (null for ranges) and its
+// offset into them (the range's first row for ranges)
+__device__ __forceinline__ RowList row_list(const int* rows, int off) {
+  return {rows ? rows + off : nullptr, off};
 }
 
 // body(form) with `decltype(form)::value` a compile-time step form equal

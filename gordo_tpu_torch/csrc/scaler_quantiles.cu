@@ -86,6 +86,20 @@
 // H100 80GB HBM3 at 700 W); past one block the sort wins (0.111 against
 // 0.199 ms at a year).  The launcher picks by the number of fractions
 // (QS_SELECT_MAX_Q) and the longest row list.
+//
+// Robust takes the same sort past one sort chunk
+// (`scaler_quantiles_sort_kernel`, `cluster_sort` below): at a year its
+// column's block of 256 threads ran up to 24 radix sweeps over 52,560
+// shared-memory keys, 0.34 ms, about torch.nanquantile's time; the
+// cluster's sort takes 0.11 ms.  The keys load through the chain prefix,
+// so a MinMax step with a negative scale reverses the order before the
+// sort as before the selection; one thread then reads the six ranks
+// through distributed shared memory and interpolates as the selection
+// does (`quantile_ranks`, `interpolate`, shared by every kernel here), so
+// the outputs are the selection's bit for bit.  Up to one chunk the
+// selection stays: at 512 x 576 x 10 over four row lists the sort, a
+// block of 512 threads a column, took 0.82 ms against the selection's
+// 0.38 (the launcher's `sort_above`, the wrapper's ROBUST_SORT_ABOVE).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -106,7 +120,7 @@ namespace cg = cooperative_groups;
 // Mirrored field by field by `_Args` in gordo_tpu_torch/kernels/scaler_quantiles.py.
 struct ScalerQuantilesArgs {
   const float* x;      // (M, N, F)
-  const int* rows;     // the row lists, concatenated
+  const int* rows;     // the row lists, concatenated (null: each a range from fit_row_off)
   float* center;       // (M, G, F)
   float* scale;        // (M, G, F)
   int m;
@@ -184,6 +198,38 @@ __device__ __forceinline__ float floor_eps(float v) {
   return v != v ? v : fmaxf(v, 1e-12f);
 }
 
+// The two ranks of the quantile at fraction `q` among cm1 + 1 sorted
+// values and their weights, as _quantile takes them in f32.
+struct QuantileRanks {
+  int lo, hi;
+  float lw, hw;
+};
+
+__device__ __forceinline__ QuantileRanks quantile_ranks(float q, float cm1) {
+  const float pos = __fmul_rn(q, cm1);
+  const float lo = floorf(pos);
+  const float hi = ceilf(pos);
+  QuantileRanks r;
+  r.hw = __fsub_rn(pos, lo);
+  r.lw = __fsub_rn(1.0f, r.hw);
+  r.lo = (int)fmaxf(0.0f, fminf(lo, cm1));
+  r.hi = (int)fmaxf(0.0f, fminf(hi, cm1));
+  return r;
+}
+
+// The quantile from its two values: the linear interpolation as XLA:CPU
+// fuses it, or nanmedian's midpoint.
+__device__ __forceinline__ float interpolate(const QuantileRanks& r, float v_lo, float v_hi, bool midpoint) {
+  return midpoint ? __fmul_rn(__fadd_rn(v_lo, v_hi), 0.5f) : __fmaf_rn(v_hi, r.hw, __fmul_rn(v_lo, r.lw));
+}
+
+// Robust's stats from its three quantiles (lo, 50, hi)
+__device__ __forceinline__ void robust_stats(const float* qv, int with_centering, int with_scaling,
+                                             float* center, float* scale) {
+  *center = with_centering ? qv[1] : 0.0f;
+  *scale = with_scaling ? floor_eps(__fsub_rn(qv[2], qv[0])) : 1.0f;
+}
+
 __global__ void __launch_bounds__(QS_THREADS) scaler_quantiles_kernel(const ScalerQuantilesArgs a) {
   extern __shared__ unsigned keys[];
   __shared__ unsigned hist[256];
@@ -195,7 +241,7 @@ __global__ void __launch_bounds__(QS_THREADS) scaler_quantiles_kernel(const Scal
   const int t = threadIdx.x;
   const int F = a.f;
   const int n = a.fit_rows[fit];
-  const int* rows = a.rows + a.fit_row_off[fit];
+  const RowList rows = row_list(a.rows, a.fit_row_off[fit]);
   const float* xm = a.x + (size_t)mach * a.n * F + col;
   const size_t at = ((size_t)mach * a.g + fit) * F + col;
   if (t == 0) s_count = 0;
@@ -212,18 +258,13 @@ __global__ void __launch_bounds__(QS_THREADS) scaler_quantiles_kernel(const Scal
   __syncthreads();
   // the counts are float32 in the reference (summed in q's dtype)
   const float cm1 = __fsub_rn((float)s_count, 1.0f);
+  QuantileRanks r[3];
   int rank[6];
-  float weight[6];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    const float pos = __fmul_rn(a.q[i], cm1);
-    const float lo = floorf(pos);
-    const float hi = ceilf(pos);
-    const float hw = __fsub_rn(pos, lo);
-    weight[2 * i] = __fsub_rn(1.0f, hw);
-    weight[2 * i + 1] = hw;
-    rank[2 * i] = (int)fmaxf(0.0f, fminf(lo, cm1));
-    rank[2 * i + 1] = (int)fmaxf(0.0f, fminf(hi, cm1));
+    r[i] = quantile_ranks(a.q[i], cm1);
+    rank[2 * i] = r[i].lo;
+    rank[2 * i + 1] = r[i].hi;
   }
   float value[6];
   for (int i = 0; i < 6; ++i) {
@@ -235,17 +276,15 @@ __global__ void __launch_bounds__(QS_THREADS) scaler_quantiles_kernel(const Scal
   if (t == 0) {
     float qv[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i)
-      qv[i] = __fmaf_rn(value[2 * i + 1], weight[2 * i + 1], __fmul_rn(value[2 * i], weight[2 * i]));
-    a.center[at] = a.with_centering ? qv[1] : 0.0f;
-    a.scale[at] = a.with_scaling ? floor_eps(__fsub_rn(qv[2], qv[0])) : 1.0f;
+    for (int i = 0; i < 3; ++i) qv[i] = interpolate(r[i], value[2 * i], value[2 * i + 1], false);
+    robust_stats(qv, a.with_centering, a.with_scaling, a.center + at, a.scale + at);
   }
 }
 
 // Mirrored field by field by `_GridArgs` in gordo_tpu_torch/kernels/scaler_quantiles.py.
 struct ScalerGridArgs {
   const float* x;      // (M, N, F)
-  const int* rows;     // the row lists, concatenated
+  const int* rows;     // the row lists, concatenated (null: each a range from fit_row_off)
   const float* q;      // (Q,) fractions in [0, 1], ascending
   float* out;          // (M, G, Q, F)
   int m;
@@ -269,7 +308,7 @@ __global__ void __launch_bounds__(QS_THREADS) scaler_quantiles_grid_kernel(const
   const int t = threadIdx.x;
   const int F = a.f;
   const int n = a.fit_rows[fit];
-  const int* rows = a.rows + a.fit_row_off[fit];
+  const RowList rows = row_list(a.rows, a.fit_row_off[fit]);
   const float* xm = a.x + (size_t)mach * a.n * F + col;
   if (t == 0) s_count = 0;
   __syncthreads();
@@ -288,31 +327,23 @@ __global__ void __launch_bounds__(QS_THREADS) scaler_quantiles_grid_kernel(const
   int last_rank = -1;
   float last_value = 0.f;
   for (int k = 0; k < a.nq; ++k) {
-    const float pos = __fmul_rn(__ldg(a.q + k), cm1);
-    const float lo = floorf(pos);
-    const float hi = ceilf(pos);
-    const float hw = __fsub_rn(pos, lo);
-    const float lw = __fsub_rn(1.0f, hw);
-    const int r_lo = (int)fmaxf(0.0f, fminf(lo, cm1));
-    const int r_hi = (int)fmaxf(0.0f, fminf(hi, cm1));
+    const QuantileRanks r = quantile_ranks(__ldg(a.q + k), cm1);
     float v_lo, v_hi;
-    if (r_lo == last_rank) {
+    if (r.lo == last_rank) {
       v_lo = last_value;
     } else {
-      v_lo = key_value(select_rank(keys, n, r_lo, hist, sel));
-      last_rank = r_lo;
+      v_lo = key_value(select_rank(keys, n, r.lo, hist, sel));
+      last_rank = r.lo;
       last_value = v_lo;
     }
-    if (r_hi == last_rank) {
+    if (r.hi == last_rank) {
       v_hi = last_value;
     } else {
-      v_hi = key_value(select_rank(keys, n, r_hi, hist, sel));
-      last_rank = r_hi;
+      v_hi = key_value(select_rank(keys, n, r.hi, hist, sel));
+      last_rank = r.hi;
       last_value = v_hi;
     }
-    if (t == 0)
-      out[(size_t)k * F] = a.midpoint ? __fmul_rn(__fadd_rn(v_lo, v_hi), 0.5f)
-                                      : __fmaf_rn(v_hi, hw, __fmul_rn(v_lo, lw));
+    if (t == 0) out[(size_t)k * F] = interpolate(r, v_lo, v_hi, a.midpoint);
   }
 }
 
@@ -324,33 +355,28 @@ __device__ __forceinline__ void compare_swap(unsigned* x, unsigned* y, bool asce
   }
 }
 
-// One cluster of C blocks per (column, machine, fit), grid (F * C, M, G);
-// each block holds `chunk` keys, positions rank * chunk .. of the P sorted.
-__global__ void __launch_bounds__(QS_SORT_THREADS)
-scaler_quantiles_grid_sort_kernel(const ScalerGridArgs a, int chunk) {
-  extern __shared__ unsigned keys[];
-  __shared__ int s_count;
-  cg::cluster_group cluster = cg::this_cluster();
+// The sort of one column over a cluster of C blocks, each holding `chunk`
+// keys, positions rank * chunk .. of the P = C * chunk sorted: block rank
+// loads the keys of rows rank * chunk .. through `value(i)` (row i of the
+// row list, as the statistic takes it) and the NaN key past the list, and
+// counts its non-NaN values into `s_count`; on return the cluster's keys
+// are sorted and every block's count is in place.
+template <typename Value>
+__device__ void cluster_sort(cg::cluster_group& cluster, unsigned* keys, int chunk, int n, Value value,
+                             int* s_count) {
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
-  const int col = blockIdx.x / C;
-  const int mach = blockIdx.y;
-  const int fit = blockIdx.z;
   const int t = threadIdx.x;
   const int nt = blockDim.x;
-  const int F = a.f;
-  const int n = a.fit_rows[fit];
-  const int* rows = a.rows + a.fit_row_off[fit];
-  const float* xm = a.x + (size_t)mach * a.n * F + col;
   const int base = rank * chunk;
   const int P = chunk * C;
-  if (t == 0) s_count = 0;
+  if (t == 0) *s_count = 0;
   __syncthreads();
   int count = 0;
   for (int i = t; i < chunk; i += nt) {
     unsigned key = 0xFFFFFFFFu;
     if (base + i < n) {
-      const float v = __ldg(xm + (size_t)rows[base + i] * F);
+      const float v = value(base + i);
       key = order_key(v);
       count += v == v;
     }
@@ -358,7 +384,7 @@ scaler_quantiles_grid_sort_kernel(const ScalerGridArgs a, int chunk) {
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
-  if ((t & 31) == 0) atomicAdd(&s_count, count);
+  if ((t & 31) == 0) atomicAdd(s_count, count);
 
   // the bitonic network over the cluster's P keys: pair (i, i + j), i with
   // bit j clear, ascending where bit k of i is clear
@@ -384,23 +410,74 @@ scaler_quantiles_grid_sort_kernel(const ScalerGridArgs a, int chunk) {
     }
   }
   cluster.sync();  // every block's keys sorted and counted
+}
 
+// the cluster's non-NaN values, minus one, in f32 as the reference takes it
+__device__ __forceinline__ float sorted_count_m1(cg::cluster_group& cluster, int* s_count) {
   int total = 0;
-  for (int r = 0; r < C; ++r) total += *cluster.map_shared_rank(&s_count, r);
-  const float cm1 = __fsub_rn((float)total, 1.0f);
+  for (int r = 0; r < (int)cluster.num_blocks(); ++r) total += *cluster.map_shared_rank(s_count, r);
+  return __fsub_rn((float)total, 1.0f);
+}
+
+// the value of sorted rank `r`, from the block that holds its position
+__device__ __forceinline__ float sorted_value(cg::cluster_group& cluster, unsigned* keys, int chunk, int r) {
+  return key_value(*cluster.map_shared_rank(keys + r % chunk, r / chunk));
+}
+
+// The grid: one cluster of C blocks per (column, machine, fit), grid (F *
+// C, M, G); every thread of the cluster reads its fractions' ranks.
+__global__ void __launch_bounds__(QS_SORT_THREADS)
+scaler_quantiles_grid_sort_kernel(const ScalerGridArgs a, int chunk) {
+  extern __shared__ unsigned keys[];
+  __shared__ int s_count;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col = blockIdx.x / C;
+  const int mach = blockIdx.y;
+  const int fit = blockIdx.z;
+  const int F = a.f;
+  const int n = a.fit_rows[fit];
+  const RowList rows = row_list(a.rows, a.fit_row_off[fit]);
+  const float* xm = a.x + (size_t)mach * a.n * F + col;
+  cluster_sort(cluster, keys, chunk, n, [&](int i) { return __ldg(xm + (size_t)rows[i] * F); }, &s_count);
+  const float cm1 = sorted_count_m1(cluster, &s_count);
   float* out = a.out + (((size_t)mach * a.g + fit) * a.nq) * F + col;
-  for (int q = rank * nt + t; q < a.nq; q += C * nt) {
-    const float pos = __fmul_rn(__ldg(a.q + q), cm1);
-    const float lo = floorf(pos);
-    const float hi = ceilf(pos);
-    const float hw = __fsub_rn(pos, lo);
-    const float lw = __fsub_rn(1.0f, hw);
-    const int r_lo = (int)fmaxf(0.0f, fminf(lo, cm1));
-    const int r_hi = (int)fmaxf(0.0f, fminf(hi, cm1));
-    const float v_lo = key_value(*cluster.map_shared_rank(keys + r_lo % chunk, r_lo / chunk));
-    const float v_hi = key_value(*cluster.map_shared_rank(keys + r_hi % chunk, r_hi / chunk));
-    out[(size_t)q * F] = a.midpoint ? __fmul_rn(__fadd_rn(v_lo, v_hi), 0.5f)
-                                    : __fmaf_rn(v_hi, hw, __fmul_rn(v_lo, lw));
+  for (int q = (int)cluster.block_rank() * blockDim.x + threadIdx.x; q < a.nq; q += C * blockDim.x) {
+    const QuantileRanks r = quantile_ranks(__ldg(a.q + q), cm1);
+    out[(size_t)q * F] = interpolate(r, sorted_value(cluster, keys, chunk, r.lo),
+                                     sorted_value(cluster, keys, chunk, r.hi), a.midpoint);
+  }
+  cluster.sync();  // no block leaves while another may read its keys
+}
+
+// Robust past the selection: the column sorted as the grid sorts it, its
+// values taken through the chain prefix as they load, then its three
+// quantiles' six ranks read by one thread.
+__global__ void __launch_bounds__(QS_SORT_THREADS)
+scaler_quantiles_sort_kernel(const ScalerQuantilesArgs a, int chunk) {
+  extern __shared__ unsigned keys[];
+  __shared__ int s_count;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col = blockIdx.x / C;
+  const int mach = blockIdx.y;
+  const int fit = blockIdx.z;
+  const int F = a.f;
+  const int n = a.fit_rows[fit];
+  const RowList rows = row_list(a.rows, a.fit_row_off[fit]);
+  const float* xm = a.x + (size_t)mach * a.n * F + col;
+  const size_t at = ((size_t)mach * a.g + fit) * F + col;
+  cluster_sort(cluster, keys, chunk, n,
+               [&](int i) { return prefix_apply(a.prefix, at, __ldg(xm + (size_t)rows[i] * F)); }, &s_count);
+  if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+    const float cm1 = sorted_count_m1(cluster, &s_count);
+    float qv[3];
+    for (int i = 0; i < 3; ++i) {
+      const QuantileRanks r = quantile_ranks(a.q[i], cm1);
+      qv[i] = interpolate(r, sorted_value(cluster, keys, chunk, r.lo), sorted_value(cluster, keys, chunk, r.hi),
+                          false);
+    }
+    robust_stats(qv, a.with_centering, a.with_scaling, a.center + at, a.scale + at);
   }
   cluster.sync();  // no block leaves while another may read its keys
 }
@@ -415,23 +492,10 @@ extern "C" const char* scaler_quantiles_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Launches on `stream` without synchronising; `max_rows` is the longest row
-// list (its keys fill the dynamic shared memory).  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue past QS_MAX_ROWS.
-extern "C" int scaler_quantiles_launch(const ScalerQuantilesArgs* a, int max_rows, void* stream) {
-  if (max_rows < 1 || max_rows > QS_MAX_ROWS) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)max_rows * sizeof(unsigned);
-  cudaError_t err = cudaFuncSetAttribute(scaler_quantiles_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a->f, a->m, a->g);
-  scaler_quantiles_kernel<<<grid, QS_THREADS, smem, (cudaStream_t)stream>>>(*a);
-  return (int)cudaGetLastError();
-}
-
-// The sort of the grid variant: P the longest row list rounded up to a
+// The sort of `kernel`'s columns: P the longest row list rounded up to a
 // power of two, in clusters of P / QS_SORT_CHUNK blocks past one chunk.
-static int grid_sort_launch(const ScalerGridArgs* a, int max_rows, cudaStream_t stream) {
+template <typename Args>
+static int sort_launch(void (*kernel)(const Args, int), const Args* a, int max_rows, cudaStream_t stream) {
   int P = QS_SORT_MIN;
   while (P < max_rows) P <<= 1;
   const int chunk = P < QS_SORT_CHUNK ? P : QS_SORT_CHUNK;
@@ -448,8 +512,24 @@ static int grid_sort_launch(const ScalerGridArgs* a, int max_rows, cudaStream_t 
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, scaler_quantiles_grid_sort_kernel, *a, chunk);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, *a, chunk);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Launches on `stream` without synchronising; `max_rows` is the longest row
+// list: up to `sort_above` rows the selection (its keys fill the dynamic
+// shared memory), past it the sort.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue past QS_MAX_ROWS.
+extern "C" int scaler_quantiles_launch(const ScalerQuantilesArgs* a, int max_rows, int sort_above, void* stream) {
+  if (max_rows < 1 || max_rows > QS_MAX_ROWS) return (int)cudaErrorInvalidValue;
+  if (max_rows > sort_above) return sort_launch(scaler_quantiles_sort_kernel, a, max_rows, (cudaStream_t)stream);
+  const size_t smem = (size_t)max_rows * sizeof(unsigned);
+  cudaError_t err = cudaFuncSetAttribute(scaler_quantiles_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a->f, a->m, a->g);
+  scaler_quantiles_kernel<<<grid, QS_THREADS, smem, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
@@ -458,7 +538,7 @@ static int grid_sort_launch(const ScalerGridArgs* a, int max_rows, cudaStream_t 
 extern "C" int scaler_quantiles_grid_launch(const ScalerGridArgs* a, int max_rows, void* stream) {
   if (max_rows < 1 || max_rows > QS_MAX_ROWS || a->nq < 1) return (int)cudaErrorInvalidValue;
   if (a->nq > QS_SELECT_MAX_Q || max_rows > QS_SORT_CHUNK)
-    return grid_sort_launch(a, max_rows, (cudaStream_t)stream);
+    return sort_launch(scaler_quantiles_grid_sort_kernel, a, max_rows, (cudaStream_t)stream);
   const size_t smem = (size_t)max_rows * sizeof(unsigned);
   cudaError_t err = cudaFuncSetAttribute(scaler_quantiles_grid_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

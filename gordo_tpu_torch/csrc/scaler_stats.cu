@@ -28,10 +28,9 @@
 // step i-1's output (`_make_scale_chain`).  The kernel takes up to
 // SS_MAX_PREFIX earlier steps' maps per fit and applies them to each value
 // as it loads it, so the transformed rows are never written: a MinMax step
-// as `x * a + b`, a Standard or Robust step as `(x - a) / b` (the
-// reference's form, each step rounded on its own, __fmul_rn/__fadd_rn/
-// __fdiv_rn so that no FMA is contracted).  A NaN (pad-up padding) stays
-// NaN through the prefix and falls out of the stats.
+// as `x * a + b`, one FMA as XLA fuses it, a Standard or Robust step as
+// `(x - a) / b`, each rounded (scaler_prefix.cuh).  A NaN (pad-up
+// padding) stays NaN through the prefix and falls out of the stats.
 //
 // Bound: one pass (MinMax) or two (Standard) over the rows, a few flops
 // per element: bound by device memory (each input row read once per row
@@ -50,6 +49,7 @@
 #include <math.h>
 
 #include "scaler_prefix.cuh"
+#include "xla_order.cuh"
 
 #define SS_MAX_FITS 16
 #define SS_THREADS 256
@@ -64,7 +64,7 @@
 // Mirrored field by field by `_Args` in gordo_tpu_torch/kernels/scaler_stats.py.
 struct ScalerStatsArgs {
   const float* x;      // (M, N, F)
-  const int* rows;     // the row lists, concatenated
+  const int* rows;     // the row lists, concatenated (null: each a range from fit_row_off)
   float* out0;         // (M, G, F): MinMax scale, Standard mean
   float* out1;         // (M, G, F): MinMax offset, Standard std
   int m;
@@ -79,6 +79,8 @@ struct ScalerStatsArgs {
   int with_mean;       // Standard
   int with_std;        // Standard
   ScalerPrefix prefix;
+  float* part2;        // past one block: the level-2 window sums (scratch)
+  int* ints;           // past one block: counts and tickets, zero between launches
 };
 
 __device__ __forceinline__ float floor_eps(float v) {
@@ -102,7 +104,7 @@ __global__ void __launch_bounds__(SS_THREADS) scaler_minmax_kernel(const ScalerS
   const int t = threadIdx.x;
   const int F = a.f;
   const int n = a.fit_rows[fit];
-  const int* rows = a.rows + a.fit_row_off[fit];
+  const RowList rows = row_list(a.rows, a.fit_row_off[fit]);
   const float* xm = a.x + (size_t)mach * a.n * F;
   const size_t stat_row = ((size_t)mach * a.g + fit) * F;
   // `per` threads per column, `cols` columns per pass
@@ -145,98 +147,28 @@ __global__ void __launch_bounds__(SS_THREADS) scaler_minmax_kernel(const ScalerS
 }
 
 // The means (SS_MEAN, SS_NANMEAN) and the Standard statistic's two sums
-// run in XLA:CPU's order, so that a mean is the JAX package's bit for bit:
-// XLA's tree-reduction rewrite splits a reduction over more than SS_WINDOW
-// values into windows of SS_WINDOW, padded with zeros to a multiple of it
-// (half the padding in front, the rest behind), sums each window in order,
-// and reduces the window sums the same way; XLA then multiplies jnp.mean's
-// sum by 1 / N (a division by a constant).  A NaN-mean adds 0 for a NaN
-// (jnp.nansum) and divides by the count.
+// run in XLA:CPU's window order (xla_order.cuh), so that a mean is the JAX
+// package's bit for bit; XLA multiplies jnp.mean's sum by 1 / N.  A
+// NaN-mean adds 0 for a NaN (jnp.nansum) and divides by the count.
 //
-// Design: one block per (column group, machine, row list).  A group holds
-// as many of the F columns as give each thread about one window (the
-// launcher's choice, within shared memory: a fold of 576 rows has 18
-// windows a column, so 10 tags are one group; a year's 1,643 windows a
-// column one column a group).  Each thread sums whole windows in order,
-// thread t taking column t % nc of window t / nc, so that a warp's loads
-// are the columns of the same rows; the window sums go to shared memory,
-// level after level, and one thread a column adds the last SS_WINDOW or
-// fewer in order.  Bound by device memory, each value read once a pass.
-#define SS_WINDOW 32
-
-// the window sums of each of the block's `nc` columns, `n` values each
-// read by `at(c, i)`, into `out` (column c's at out + c * stride, ceil(n /
-// W) of them), the padding's zeros skipped (x + 0 = x).  COUNT: a NaN adds
-// 0 and each column's other values are counted into `cnt`.
-template <bool COUNT, typename At>
-__device__ void window_sums(int nc, int n, At at, float* out, int stride, int* cnt) {
-  const int m = (n + SS_WINDOW - 1) / SS_WINDOW * SS_WINDOW;
-  const int lo = (m - n) / 2;
-  for (int task = threadIdx.x; task < nc * (m / SS_WINDOW); task += blockDim.x) {
-    const int c = task % nc;
-    const int i0 = task / nc * SS_WINDOW - lo;  // the window's first value
-    const int j1 = min(SS_WINDOW, n - i0);
-    float s = 0.f;
-    int k = 0;
-#pragma unroll 8
-    for (int j = max(0, -i0); j < j1; ++j) {
-      float v = at(c, i0 + j);
-      if (COUNT) {
-        k += v == v;
-        v = v == v ? v : 0.f;
-      }
-      s = __fadd_rn(s, v);
-    }
-    out[c * stride + task / nc] = s;
-    if (COUNT) atomicAdd(cnt + c, k);
-  }
-}
-
-// The sum of each of the block's `nc` columns in XLA's window order into
-// `res` (shared, nc floats), and with COUNT each column's non-NaN values
-// into `cnt` (shared, zeroed before), which every thread sees on return.
-// `part` holds the window sums: nc * ceil(n / W) floats, then nc *
-// ceil(ceil(n / W) / W) for the levels above (the two halves in turn).
-template <bool COUNT, typename At>
-__device__ void xla_order_sums(int nc, int n, At at, float* part, float* res, int* cnt) {
-  const int level1 = (n + SS_WINDOW - 1) / SS_WINDOW;
-  float* cur = part;
-  float* nxt = part + nc * level1;
-  int s_cur = level1, s_nxt = (level1 + SS_WINDOW - 1) / SS_WINDOW;
-  int len = n;
-  const bool leaves = n > SS_WINDOW;
-  if (leaves) {
-    window_sums<COUNT>(nc, len, at, cur, s_cur, cnt);
-    len = level1;
-    __syncthreads();
-    while (len > SS_WINDOW) {
-      window_sums<false>(nc, len, [&](int c, int i) { return cur[c * s_cur + i]; }, nxt, s_nxt, cnt);
-      len = (len + SS_WINDOW - 1) / SS_WINDOW;
-      float* tmp = cur;
-      cur = nxt;
-      nxt = tmp;
-      const int s_tmp = s_cur;
-      s_cur = s_nxt;
-      s_nxt = s_tmp;
-      __syncthreads();
-    }
-  }
-  for (int c = threadIdx.x; c < nc; c += blockDim.x) {
-    float s = 0.f;
-    int k = 0;
-    for (int i = 0; i < len; ++i) {
-      float v = leaves ? cur[c * s_cur + i] : at(c, i);
-      if (COUNT && !leaves) {
-        k += v == v;
-        v = v == v ? v : 0.f;
-      }
-      s = __fadd_rn(s, v);
-    }
-    res[c] = s;
-    if (COUNT && !leaves) cnt[c] = k;
-  }
-  __syncthreads();
-}
+// Design, a row list that one block covers (up to SS_THREADS windows of
+// its longest row list: a fold of 576 rows, 8,192 rows at most): one block
+// per (column group, machine, row list).  A group holds as many of the F
+// columns as give each thread about one window (the launcher's choice,
+// within shared memory: a fold of 576 rows has 18 windows a column, so 10
+// tags are one group).  Each thread sums whole windows in order, the
+// window sums go to shared memory, level after level, and one thread a
+// column adds the last XO_WINDOW or fewer in order.
+//
+// Past one block (a year, 52,560 rows: 1,643 windows a column), a block
+// per column left ten blocks of 132 SMs busy, each thread summing six
+// windows of strided single-column loads: 0.16 ms at a year, four times
+// torch.mean.  A cluster of 8 blocks per column group, each block its
+// range of level-2 windows in turn, came to 0.12 ms (the mean) and 0.21
+// ms (the Standard statistic): eight SMs a row list, each waiting on its
+// tiles' loads one after another.  So past one block each level-2 window
+// (1,024 rows) is a block of its own, `scaler_window_tile_kernel` below:
+// the same windows, the same order, fifty-two blocks at a year.
 
 // The block's column group: `nc` columns from `col0`, the group size
 // ceil(F / groups) as the launcher chose the groups.
@@ -261,7 +193,7 @@ __global__ void __launch_bounds__(SS_THREADS) scaler_mean_kernel(const ScalerSta
   const int fit = blockIdx.z;
   const int F = a.f;
   const int n = a.fit_rows[fit];
-  const int* rows = a.rows + a.fit_row_off[fit];
+  const RowList rows = row_list(a.rows, a.fit_row_off[fit]);
   const float* xm = a.x + (size_t)mach * a.n * F + g.col0;
   const size_t at = ((size_t)mach * a.g + fit) * F + g.col0;
   auto value = [&](int c, int i) { return __ldg(xm + (size_t)rows[i] * F + c); };
@@ -298,7 +230,7 @@ __global__ void __launch_bounds__(SS_THREADS) scaler_standard_kernel(const Scale
   const int fit = blockIdx.z;
   const int F = a.f;
   const int n = a.fit_rows[fit];
-  const int* rows = a.rows + a.fit_row_off[fit];
+  const RowList rows = row_list(a.rows, a.fit_row_off[fit]);
   const float* xm = a.x + (size_t)mach * a.n * F + g.col0;
   const size_t at = ((size_t)mach * a.g + fit) * F + g.col0;
   auto value = [&](int c, int i) { return load_value<PREFIX>(a, xm + (size_t)rows[i] * F + c, at + c); };
@@ -321,6 +253,192 @@ __global__ void __launch_bounds__(SS_THREADS) scaler_standard_kernel(const Scale
   }
 }
 
+#define SS_TILE_ROWS (XO_WINDOW * XO_WINDOW)  // the rows of one level-2 window
+#define SS_TILE_COLS 16                      // columns a tile at most
+
+// A row list's windows: `level1` windows of XO_WINDOW values, the first
+// `lo1` values before row 0 (padding), and `level2` windows of level-1
+// sums, the first `lo2` before window 0; a list of XO_WINDOW or fewer
+// level-1 windows has one level-2 window, summed in order, as XLA sums
+// XO_WINDOW or fewer values.
+struct Windows {
+  int level1, lo1, level2, lo2;
+};
+
+__host__ __device__ __forceinline__ Windows windows_of(int n) {
+  Windows w;
+  w.level1 = xo_windows(n);
+  w.lo1 = (w.level1 * XO_WINDOW - n) / 2;
+  w.level2 = w.level1 > XO_WINDOW ? xo_windows(w.level1) : 1;
+  w.lo2 = w.level1 > XO_WINDOW ? (w.level2 * XO_WINDOW - w.level1) / 2 : 0;
+  return w;
+}
+
+// the tile kernel's shared memory, floats, for `size` columns and row
+// lists of up to `l2max` level-2 windows: the tile, and for the block that
+// finishes, the level-2 sums and the levels above
+__host__ __device__ __forceinline__ int tile_smem_floats(int size, int l2max) {
+  return SS_TILE_ROWS * size + XO_WINDOW + size * l2max + xo_part_floats(size, 1, l2max) + size;
+}
+
+// The means and the Standard statistic of row lists past one block, in
+// XLA's window order, one block per (level-2 window, column group,
+// machine, row list): grid (level2 * groups, M, G), 32 threads a column of
+// the group.  The block loads its window's 1,024 rows of the group's
+// columns into shared memory, a coalesced tile (consecutive threads on
+// consecutive values of a row, a row after another; one float of padding
+// every 32 rows, so that the warp reading a column reads 32 banks); warp c
+// then sums column c, lane l the level-1 window l in order, and the lanes'
+// sums in lane order are the level-2 window's sum, which goes to the
+// scratch `part2`.  The last block of a (column group, machine, row list)
+// to finish (a __threadfence, then an atomic ticket) reads every level-2
+// sum and finishes the levels above (xla_order_sums), then sets its
+// ticket and counts back to 0, so that the scratch is zero for the next
+// launch.  The Standard statistic takes two launches: the first writes
+// the mean to out0 (the count stays in the scratch), the second sums the
+// squared deviations from it.  A padding value is 0 for the mean (jnp.mean
+// sums it as x + 0) and NaN where NaN adds 0 and is not counted (the
+// NaN-mean, the Standard statistic), so that each window is the
+// single-block kernels' window bit for bit.
+template <int STAT, bool PREFIX, bool SECOND>
+__global__ void __launch_bounds__(SS_TILE_COLS * 32)
+scaler_window_tile_kernel(const ScalerStatsArgs a, int size, int l2max) {
+  extern __shared__ float smem[];
+  __shared__ int s_last;
+  const int F = a.f;
+  const int groups = (F + size - 1) / size;
+  const int group = blockIdx.x % groups;
+  const int j = blockIdx.x / groups;  // the level-2 window
+  const int col0 = group * size;
+  const int nc = min(size, F - col0);
+  const int mach = blockIdx.y;
+  const int fit = blockIdx.z;
+  const int n = a.fit_rows[fit];
+  const Windows w = windows_of(n);
+  if (j >= w.level2) return;
+  const RowList rows = row_list(a.rows, a.fit_row_off[fit]);
+  const float* xm = a.x + (size_t)mach * a.n * F + col0;
+  const size_t slot = (size_t)mach * a.g + fit;
+  const size_t at = slot * F + col0;
+  float* sums = a.part2 + at * l2max;  // column c's level-2 sums at c * l2max
+  int* counts = a.ints + at;           // the column's non-NaN values
+  int* ticket = a.ints + (size_t)a.m * a.g * F + slot * groups + group;
+
+  float* tile = smem;                                  // SS_TILE_ROWS rows, row stride `size`
+  float* top = tile + SS_TILE_ROWS * size + XO_WINDOW; // the level-2 sums, size x l2max
+  float* part = top + size * l2max;                    // the levels above
+  float* res = part + xo_part_floats(size, 1, l2max);  // each column's sum
+  const int t = threadIdx.x;
+  const int c = t >> 5;  // warp c sums column c
+  const int lane = t & 31;
+
+  const int p0 = (j * XO_WINDOW - w.lo2) * XO_WINDOW - w.lo1;  // the tile's first row
+  const float pad = STAT == SS_MEAN ? 0.f : NAN;
+#pragma unroll 32
+  for (int e = t; e < SS_TILE_ROWS * nc; e += blockDim.x) {
+    const int r = e / nc;
+    const int cc = e - r * nc;
+    const int p = p0 + r;
+    float v = pad;
+    if (p >= 0 && p < n) v = load_value<PREFIX>(a, xm + (size_t)rows[p] * F + cc, at + cc);
+    tile[r * size + (r >> 5) + cc] = v;
+  }
+  __syncthreads();
+  if (c < nc) {
+    const float m = SECOND ? __ldcg(a.out0 + at + c) : 0.f;  // the first launch's mean
+    const float* col = tile + lane * XO_WINDOW * size + lane + c;
+    float s = 0.f;
+    int count = 0;
+#pragma unroll 8
+    for (int i = 0; i < XO_WINDOW; ++i) {
+      float v = col[i * size];
+      if (SECOND) {
+        const float d = __fsub_rn(v, m);
+        v = v == v ? __fmul_rn(d, d) : 0.f;
+      } else if (STAT != SS_MEAN) {
+        count += v == v;
+        v = v == v ? v : 0.f;
+      }
+      s = __fadd_rn(s, v);
+    }
+    float s2 = 0.f;
+    for (int l = 0; l < XO_WINDOW; ++l) s2 = __fadd_rn(s2, __shfl_sync(0xffffffffu, s, l));
+    if (!SECOND && STAT != SS_MEAN) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(0xffffffffu, count, o);
+    }
+    if (lane == 0) {
+      sums[c * l2max + j] = s2;
+      if (!SECOND && STAT != SS_MEAN) atomicAdd(counts + c, count);
+    }
+  }
+  __threadfence();
+  __syncthreads();
+  if (t == 0) s_last = atomicAdd(ticket, 1) == w.level2 - 1;
+  __syncthreads();
+  if (!s_last) return;
+
+  // the last block: every level-2 sum of the group's columns in order, and
+  // the levels above (read from L2, past this SM's L1)
+  for (int i = t; i < nc * w.level2; i += blockDim.x) {
+    const int cc = i / w.level2;
+    const int jj = i - cc * w.level2;
+    top[cc * l2max + jj] = __ldcg(sums + cc * l2max + jj);
+  }
+  __syncthreads();
+  xla_order_sums<false>(nc, w.level2, [&](int cc, int i) { return top[cc * l2max + i]; }, part, res, nullptr);
+  for (int cc = t; cc < nc; cc += blockDim.x) {
+    const int cnt = STAT == SS_MEAN ? n : __ldcg(counts + cc);
+    if (STAT == SS_STANDARD && !SECOND) {
+      // 0 / 0 is NaN for an all-NaN column, as jnp.nanmean gives
+      a.out0[at + cc] = __fdiv_rn(res[cc], (float)cnt);
+      continue;
+    }
+    if (STAT == SS_STANDARD) {
+      // jnp.nanvar: NaN where no value counts
+      const float var = cnt > 0 ? __fdiv_rn(res[cc], (float)cnt) : NAN;
+      const float mean = __ldcg(a.out0 + at + cc);
+      a.out0[at + cc] = a.with_mean ? mean : 0.f;
+      a.out1[at + cc] = a.with_std ? floor_eps(__fsqrt_rn(var)) : 1.f;
+    } else {
+      const float cnt_f = (float)cnt;
+      a.out0[at + cc] = STAT == SS_NANMEAN ? __fdiv_rn(res[cc], cnt_f) : __fmul_rn(res[cc], __fdiv_rn(1.0f, cnt_f));
+      a.out1[at + cc] = cnt_f;
+    }
+    counts[cc] = 0;
+  }
+  if (t == 0) *ticket = 0;
+}
+
+// The tile kernel for the longest row list `longest`: groups of `size`
+// columns within SS_MEAN_SMEM, one launch (two for the Standard
+// statistic).  `part2` holds M * G * F level-2 windows of the longest row
+// list, `ints` M * G * 2F zeros.
+template <int STAT, bool PREFIX>
+static int tile_launches(const ScalerStatsArgs* a, int longest, cudaStream_t stream) {
+  const int l2max = windows_of(longest).level2;
+  int size = a->f < SS_TILE_COLS ? a->f : SS_TILE_COLS;
+  while (size > 1 && (size_t)tile_smem_floats(size, l2max) * sizeof(float) > SS_MEAN_SMEM) --size;
+  const int groups = (a->f + size - 1) / size;
+  size = (a->f + groups - 1) / groups;
+  const size_t smem = (size_t)tile_smem_floats(size, l2max) * sizeof(float);
+  if (smem > SS_MEAN_SMEM) return (int)cudaErrorInvalidValue;
+  const dim3 grid(groups * l2max, a->m, a->g);
+  void (*first)(const ScalerStatsArgs, int, int) = scaler_window_tile_kernel<STAT, PREFIX, false>;
+  cudaError_t err = cudaFuncSetAttribute(first, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  first<<<grid, 32 * size, smem, stream>>>(*a, size, l2max);
+  if (STAT == SS_STANDARD) {
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    void (*second)(const ScalerStatsArgs, int, int) = scaler_window_tile_kernel<STAT, PREFIX, true>;
+    err = cudaFuncSetAttribute(second, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    second<<<grid, 32 * size, smem, stream>>>(*a, size, l2max);
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int scaler_stats_args_size() { return (int)sizeof(ScalerStatsArgs); }
 
 // The longest row list whose two levels of window sums, ceil(n / 32) and
@@ -328,8 +446,8 @@ extern "C" int scaler_stats_args_size() { return (int)sizeof(ScalerStatsArgs); }
 extern "C" int scaler_stats_mean_max_rows() {
   const int floats = SS_MEAN_SMEM / (int)sizeof(float);
   int level1 = floats;
-  while (level1 + (level1 + SS_WINDOW - 1) / SS_WINDOW > floats) --level1;
-  return level1 * SS_WINDOW;
+  while (level1 + xo_windows(level1) > floats) --level1;
+  return level1 * XO_WINDOW;
 }
 
 extern "C" const char* scaler_stats_error_string(int code) {
@@ -348,14 +466,21 @@ extern "C" int scaler_stats_launch(const ScalerStatsArgs* a, void* stream) {
   else if (prefix && (a->stat == SS_MEAN || a->stat == SS_NANMEAN))
     return (int)cudaErrorInvalidValue;
   else {
-    // the window-ordered sums: one block per (column group, machine, row
-    // list), a group as many columns as give each thread about one window
-    // of its longest row list and fit the window sums in shared memory
+    // the window-ordered sums: past one block's threads a window each, a
+    // block per (level-2 window, column group, machine, row list); else
+    // one block per (column group, machine, row list), a group as many
+    // columns as give each thread about one window of its longest row
+    // list and fit the window sums in shared memory
     int longest = 0;
     for (int i = 0; i < a->g; ++i) longest = a->fit_rows[i] > longest ? a->fit_rows[i] : longest;
-    const int level1 = (longest + SS_WINDOW - 1) / SS_WINDOW;
-    const size_t column_smem = (size_t)(level1 + (level1 + SS_WINDOW - 1) / SS_WINDOW) * sizeof(float);
-    if (column_smem > SS_MEAN_SMEM) return (int)cudaErrorInvalidValue;
+    const int level1 = xo_windows(longest);
+    if (level1 > SS_THREADS) {
+      if (a->stat == SS_MEAN) return tile_launches<SS_MEAN, false>(a, longest, s);
+      if (a->stat == SS_NANMEAN) return tile_launches<SS_NANMEAN, false>(a, longest, s);
+      if (prefix) return tile_launches<SS_STANDARD, true>(a, longest, s);
+      return tile_launches<SS_STANDARD, false>(a, longest, s);
+    }
+    const size_t column_smem = (size_t)xo_part_floats(1, 1, longest) * sizeof(float);
     int nc = SS_THREADS / level1 > 1 ? SS_THREADS / level1 : 1;
     nc = nc < a->f ? nc : a->f;
     nc = (size_t)nc * column_smem <= SS_MEAN_SMEM ? nc : (int)(SS_MEAN_SMEM / column_smem);

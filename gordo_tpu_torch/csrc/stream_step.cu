@@ -134,7 +134,7 @@ __global__ void __launch_bounds__(DR_THREADS) stream_step_kernel(const StreamSte
   for (int t0 = 0; t0 < W; t0 += R) {
     const int rows = min(R, W - t0);
     __syncthreads();  // the previous tile's readers of yraw and bufa are done
-    with_chain<T, true>(a.scalers, [&](auto apply) {
+    with_chain<T>(a.scalers, [&](auto apply) {
       walk2d(R, f_in, [&](int r, int j) {
         float v = 0.f;
         if (r < rows) {

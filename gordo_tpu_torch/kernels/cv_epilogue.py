@@ -33,7 +33,7 @@ import torch
 
 from gordo_tpu_torch.device import to_device
 from gordo_tpu_torch.kernels import build
-from gordo_tpu_torch.ops import metrics as tmetrics
+from gordo_tpu_torch.kernels.scaler_stats import XLA_WINDOW, _in_order, xla_sum
 from gordo_tpu_torch.train.cv import METRIC_NAMES
 
 SOURCE = "gordo_tpu_torch/csrc/cv_epilogue.cu"
@@ -42,6 +42,7 @@ REPLACES = "gordo_tpu/parallel/anomaly.py:175"
 #: rolling-min window of the thresholds (the JAX package's SMOOTHING_WINDOW)
 SMOOTHING_WINDOW = 6
 MAX_SLOTS = 2 ** 31 - 1
+_EPS = 1e-12
 #: the metrics that are 1 (not 0) on a slot with no row, as the weighted
 #: forms give them
 EMPTY_ONE = ("explained_variance_score", "r2_score")
@@ -69,6 +70,8 @@ class _Args(ctypes.Structure):
         ("fo", ctypes.c_int),
         ("window", ctypes.c_int),
         ("masked", ctypes.c_int),
+        ("chunk", ctypes.c_int),
+        ("staged", ctypes.c_int),
     ]
 
 
@@ -183,6 +186,84 @@ def smoothed_max(err: torch.Tensor, window: int = SMOOTHING_WINDOW) -> torch.Ten
     return windows.amin(dim=-1).amax(dim=-2)
 
 
+def xla_sum2(a: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of ``a`` (S, n, F) over its last two dimensions in
+    XLA:CPU's order: each dimension longer than :data:`XLA_WINDOW` is cut
+    into windows of it (padded with zeros, half in front), a shorter one
+    is one window; each window is summed row-major in order, and the grid
+    of window sums is reduced the same way until no dimension is longer,
+    then row-major in order (``csrc/xla_order.cuh``)."""
+    S, n, F = a.shape
+    if n <= XLA_WINDOW and F <= XLA_WINDOW:
+        return _in_order(a.reshape(S, n * F), 1)
+    (wr, lr, nr), (wc, lc, nc) = _windows(n), _windows(F)
+    pad = a.new_zeros((S, nr * wr, nc * wc))
+    pad[:, lr: lr + n, lc: lc + F] = a
+    blocks = pad.reshape(S, nr, wr, nc, wc).permute(0, 1, 3, 2, 4).reshape(S, nr, nc, wr * wc)
+    return xla_sum2(_in_order(blocks, 3))
+
+
+def _windows(n: int):
+    """``(width, padding in front, windows)`` of a dimension of ``n``."""
+    if n <= XLA_WINDOW:
+        return n, 0, 1
+    m = -(-n // XLA_WINDOW) * XLA_WINDOW
+    return XLA_WINDOW, (m - n) // 2, m // XLA_WINDOW
+
+
+def column_mean(a: torch.Tensor, n: int, masked: bool) -> torch.Tensor:
+    """Each column's mean of slots ``a`` (s, L, fo) whose first ``n`` rows
+    are real, (s, fo), as the CV metrics take it: ``jnp.mean(a, axis=0)``,
+    the sum in XLA:CPU's window order times ``1 / n``, or (``masked``)
+    the weighted mean ``sum(a * w) / sum(w)`` over the L rows, the rows
+    past ``n`` adding 0."""
+    if not masked:
+        return xla_sum(a) * (torch.tensor(1.0, device=a.device) / float(n))
+    real = (torch.arange(a.shape[1], device=a.device) < n)[None, :, None]
+    return xla_sum(torch.where(real, a, torch.zeros_like(a))) / torch.tensor(float(n), device=a.device)
+
+
+def fold_metrics(y: torch.Tensor, pred: torch.Tensor, n: int, masked: bool) -> Dict[str, torch.Tensor]:
+    """The four CV metrics of slots ``y``, ``pred`` (s, L, fo) whose first
+    ``n`` rows are real, as the JAX programs sum them (XLA:CPU's window
+    order, :func:`xla_sum`), each (s,).  Exact (K4, ``gordo_tpu/ops/
+    metrics.py:26-52``): ``L == n``; a mean is the sum times ``1 / n``;
+    ``jnp.var`` centres again (three passes); mse and mae are whole-array
+    means (:func:`xla_sum2`).  Masked (K8, ``:67-104``): the sums run over
+    the L rows of the padded fold, the rows past ``n`` adding 0; a
+    weighted mean divides by ``n``; mse and mae are column means."""
+    L, fo = int(y.shape[1]), int(y.shape[2])
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=y.device)  # noqa: E731
+    real = (torch.arange(L, device=y.device) < n)[None, :, None]
+    zero = lambda a: torch.where(real, a, torch.zeros_like(a))  # noqa: E731
+    eps = f32(_EPS)
+    nf = f32(float(n))
+    mean = lambda a: column_mean(a, n, masked)  # noqa: E731
+    d = y - pred
+    my, md = mean(y), mean(d)
+    cy, cd = y - my[:, None], d - md[:, None]
+    if masked:
+        den, num = mean(cy * cy), mean(cd * cd)
+    else:
+        ey, ed = cy - mean(cy)[:, None], cd - mean(cd)[:, None]
+        den, num = mean(ey * ey), mean(ed * ed)
+    ss_res, ss_tot = xla_sum(zero(d * d)), xla_sum(zero(cy * cy))
+    inv_fo = f32(1.0) / f32(float(fo))
+    per = lambda a: xla_sum(a) * inv_fo  # noqa: E731
+    out = {
+        "explained_variance_score": per(1.0 - num / torch.maximum(den, eps)),
+        "r2_score": per(1.0 - ss_res / torch.maximum(ss_tot, eps)),
+    }
+    if masked:
+        out["mean_squared_error"] = per(xla_sum(zero(d * d)) / nf)
+        out["mean_absolute_error"] = per(xla_sum(zero(d.abs())) / nf)
+    else:
+        inv_all = f32(1.0) / f32(float(n * fo))
+        out["mean_squared_error"] = xla_sum2(d * d) * inv_all
+        out["mean_absolute_error"] = xla_sum2(d.abs()) * inv_all
+    return out
+
+
 def cv_epilogue_plain(
     tag: torch.Tensor,
     total: torch.Tensor,
@@ -192,10 +273,10 @@ def cv_epilogue_plain(
     window: int = SMOOTHING_WINDOW,
     masked: bool = False,
 ) -> Dict[str, torch.Tensor]:
-    """:func:`cv_epilogue` in plain PyTorch (``gordo_tpu_torch.ops.metrics``
-    for the metrics); slots of equal row counts go together."""
+    """:func:`cv_epilogue` in plain PyTorch (:func:`fold_metrics` for the
+    metrics); slots of equal row counts go together."""
     rows = _validate(tag, total, pred, y, n_rows)
-    S, _, fo = tag.shape
+    S, nt, fo = tag.shape
     out = {
         "feature_max": tag.new_zeros((S, fo)),
         "total_max": tag.new_zeros((S,)),
@@ -207,8 +288,11 @@ def cv_epilogue_plain(
         pick = lambda t: t.index_select(0, sel)[:, :n]  # noqa: E731
         out["feature_max"][sel] = smoothed_max(pick(tag), window)
         out["total_max"][sel] = smoothed_max(pick(total)[..., None], window)[:, 0]
+        layout = nt if masked else int(n)
+        metrics = fold_metrics(y.index_select(0, sel)[:, :layout], pred.index_select(0, sel)[:, :layout],
+                               int(n), masked)
         for name in METRIC_NAMES:
-            out[name][sel] = getattr(tmetrics, name)(pick(y), pick(pred))
+            out[name][sel] = metrics[name]
     if masked:
         for key in ("feature_max", "total_max"):
             v = out[key]

@@ -452,13 +452,13 @@ def fleet_score_plain(
         layers = [(pick(W), pick(b)) for W, b in layers]
         agg_thr = pick(agg_thr)
         view = lambda t: pick(t)[:, None, :]  # noqa: E731
-    h = apply_steps(x, steps, view, fma=True)
+    h = apply_steps(x, steps, view)
     for (W, b), act in zip(layers, acts):
         h = ACTIVATIONS[act](torch.bmm(h, W) + b[:, None, :])
     result = {"model-output": h}
     if dets:
         target = x if y is None else y[:, y_offset: y_offset + x.shape[1]]
-        tag = torch.abs(apply_steps(h, dets, view, fma=True) - apply_steps(target, dets, view, fma=True))
+        tag = torch.abs(apply_steps(h, dets, view) - apply_steps(target, dets, view))
         total = torch.sqrt(torch.sum(tag * tag, dim=-1))
         result["tag-anomaly-scores"] = tag
         result["total-anomaly-score"] = total

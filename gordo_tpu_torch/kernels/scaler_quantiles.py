@@ -8,7 +8,9 @@ list and column, the NaN-aware linear percentiles at ``quantile_range``
 (lo, 50, hi) with ``jnp.nanpercentile``'s own interpolation, then ``center
 = q50`` and ``scale = max(q_hi - q_lo, 1e-12)``.  The kernel is CUDA C++
 for ``sm_90a`` (``gordo_tpu_torch/csrc/scaler_quantiles.cu``, whose header
-gives its bound and design: a radix selection in shared memory);
+gives its bound and design: a radix selection in shared memory, and past
+:data:`ROBUST_SORT_ABOVE` rows the grid's sort over a thread-block
+cluster);
 :func:`scaler_quantiles_plain` is the same function in plain PyTorch
 (``torch.sort`` and the reference's formula step by step;
 ``torch.nanquantile`` interpolates with ``lerp``, another rounding).
@@ -55,6 +57,10 @@ REPLACES_GRID = "gordo_tpu/ops/scalers.py:240"
 
 #: the longest row list a launch takes (``QS_MAX_ROWS``: 224 KiB of keys)
 MAX_ROWS = 57_344
+#: Robust's row lists past this many rows sort each column once (the
+#: grid's cluster sort, ``QS_SORT_CHUNK`` keys a block); up to it, the
+#: radix selection
+ROBUST_SORT_ABOVE = 8_192
 LONG_SERIES_ITEM = "ROADMAP queue 1 item 20 (long-series robust stats)"
 _EPS = 1e-12
 
@@ -114,7 +120,7 @@ def _library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = build.load("scaler_quantiles")
-            lib.scaler_quantiles_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+            lib.scaler_quantiles_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             lib.scaler_quantiles_launch.restype = ctypes.c_int
             lib.scaler_quantiles_grid_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             lib.scaler_quantiles_grid_launch.restype = ctypes.c_int
@@ -182,7 +188,7 @@ def scaler_quantiles(
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.scaler_quantiles_launch(ctypes.byref(args), longest, ctypes.c_void_p(stream))
+        rc = lib.scaler_quantiles_launch(ctypes.byref(args), longest, ROBUST_SORT_ABOVE, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(
             f"scaler_quantiles launch failed: {lib.scaler_quantiles_error_string(rc).decode()}"

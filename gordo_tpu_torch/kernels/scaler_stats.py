@@ -72,6 +72,9 @@ AFFINE, CENTER = 0, 1
 #: ``scaler_stats_mean_max_rows``)
 XLA_WINDOW = 32
 MEAN_MAX_ROWS = 1_588_736
+#: the longest row list one block sums (``SS_THREADS`` windows); past it a
+#: block per 1,024 rows (a level-2 window) and a scratch of their sums
+ONE_BLOCK_ROWS = 8_192
 STATS = ("minmax", "standard", "mean", "nanmean")
 _EPS = 1e-12
 
@@ -124,21 +127,16 @@ def check_steps(steps: Prefix, shape, device, dtypes, what: str, max_steps: int 
                 )
 
 
-def apply_steps(x: torch.Tensor, steps: Prefix, view=lambda t: t, fma: bool = False) -> torch.Tensor:
+def apply_steps(x: torch.Tensor, steps: Prefix, view=lambda t: t) -> torch.Tensor:
     """``x`` through the chain's steps in plain PyTorch, each in the
-    reference's form and rounded step by step, its stats widened to
-    float32 and shaped by ``view`` to broadcast against ``x``.  ``fma``:
-    an :data:`AFFINE` step is one FMA, as the serving kernels take it
-    (``fleet_init.fma``: rounded once), else a product and a sum, each
-    rounded."""
+    reference's form, its stats widened to float32 and shaped by ``view``
+    to broadcast against ``x``: an :data:`AFFINE` step one FMA, rounded
+    once as every XLA program that applies a MinMax step fuses it
+    (``fleet_init.fma``), a :data:`CENTER` step a difference and a
+    quotient, each rounded."""
     for form, a, b in steps:
         pa, pb = view(a.float()), view(b.float())
-        if form != AFFINE:
-            x = (x - pa) / pb
-        elif fma:
-            x = fused(x, pa, pb)
-        else:
-            x = x * pa + pb
+        x = fused(x, pa, pb) if form == AFFINE else (x - pa) / pb
     return x
 
 
@@ -162,6 +160,8 @@ class _Args(ctypes.Structure):
         ("with_mean", ctypes.c_int),
         ("with_std", ctypes.c_int),
         ("prefix", ScalerChain),
+        ("part2", ctypes.c_void_p),
+        ("ints", ctypes.c_void_p),
     ]
 
 
@@ -219,18 +219,25 @@ def validate(x: torch.Tensor, row_lists, prefix: Prefix = ()) -> Tuple[int, int,
     return M, N, F, lists
 
 
-def fill_launch(args, x: torch.Tensor, lists, prefix: Prefix = ()) -> torch.Tensor:
+def fill_launch(args, x: torch.Tensor, lists, prefix: Prefix = ()) -> Optional[torch.Tensor]:
     """Set the launch fields the stat kernels share (``x``, ``rows``,
     shapes, row lists, and a prefix where there is one) in ``args``;
     returns the device row index tensor, which must live until the launch
-    is enqueued."""
+    is enqueued.  Where every row list is a range of consecutive rows
+    (TimeSeriesSplit's folds, the whole series) no index is uploaded: the
+    kernels take row ``start + i`` (``RowList`` in
+    ``csrc/scaler_prefix.cuh``), ``fit_row_off`` each range's start."""
     M, N, F = (int(s) for s in x.shape)
-    rows = to_device(np.concatenate(lists).astype(np.int32), x.device)
-    args.x, args.rows = x.data_ptr(), rows.data_ptr()
+    args.x = x.data_ptr()
     args.m, args.n, args.f, args.g = M, N, F, len(lists)
-    off = 0
+    ranges = all(r[-1] - r[0] == r.size - 1 and bool(np.all(np.diff(r) == 1)) for r in lists)
+    rows, off = None, 0
+    if not ranges:
+        rows = to_device(np.concatenate(lists).astype(np.int32), x.device)
+    args.rows = None if rows is None else rows.data_ptr()
     for i, r in enumerate(lists):
-        args.fit_rows[i], args.fit_row_off[i] = int(r.size), off
+        args.fit_rows[i] = int(r.size)
+        args.fit_row_off[i] = int(r[0]) if ranges else off
         off += int(r.size)
     if prefix:
         args.prefix.fill(prefix)
@@ -274,6 +281,14 @@ def scaler_stats(
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
+        part2 = None
+        longest = max(int(r.size) for r in lists)
+        if stat != "minmax" and longest > ONE_BLOCK_ROWS:
+            level1 = -(-longest // XLA_WINDOW)
+            level2 = -(-level1 // XLA_WINDOW) if level1 > XLA_WINDOW else 1
+            part2 = torch.empty(M * len(lists) * F * level2, dtype=torch.float32, device=x.device)
+            args.part2 = part2.data_ptr()
+            args.ints = _zeroed_ints(x.device, stream, 2 * M * len(lists) * F).data_ptr()
         rc = lib.scaler_stats_launch(ctypes.byref(args), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(
@@ -285,6 +300,22 @@ def scaler_stats(
         standard_launches += stat == "standard"
         mean_launches += stat in ("mean", "nanmean")
     return out0, out1
+
+
+_zeroed: dict = {}
+_zeroed_lock = threading.Lock()
+
+
+def _zeroed_ints(device, stream: int, n: int) -> torch.Tensor:
+    """A scratch of at least ``n`` int32 zeros for launches on ``stream``
+    (each launch leaves it zero again: its counts and tickets), kept per
+    device and stream."""
+    key = (device.index, stream)
+    with _zeroed_lock:
+        buf = _zeroed.get(key)
+        if buf is None or buf.numel() < n:
+            buf = _zeroed[key] = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        return buf
 
 
 def _check_mean_rows(lists) -> None:
@@ -321,7 +352,7 @@ def _in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 def apply_prefix(xs: torch.Tensor, prefix: Prefix, g: int) -> torch.Tensor:
     """Row list ``g``'s rows ``xs`` (M, n, F) through the prefix's steps,
-    each in the reference's form, rounded step by step."""
+    each in the reference's form (:func:`apply_steps`)."""
     return apply_steps(xs, prefix, lambda t: t[:, g, None, :])
 
 

@@ -38,6 +38,7 @@ from gordo_tpu_torch.models.estimator import LSTMAutoEncoder, LSTMForecast
 from gordo_tpu_torch.parallel.fleet import LSTMDims, fleet_draws, init_lstm_params, put_lstm_draws
 from gordo_tpu_torch.train import lstm_fit as lf
 from gordo_tpu_torch.train.fit import TrainConfig, adam_hparams, adam_update, bias_corrections
+from gordo_tpu_torch.kernels.fleet_init import fma
 from gordo_tpu_torch.kernels.scaler_stats import AFFINE
 from torch_parity import flatten, r12, recorded_draws, run_in_fresh_process, unflatten
 
@@ -71,7 +72,9 @@ def _layer_cases():
     X = rng.standard_normal((2, 40, 3)).astype(np.float32)
     scale = rng.uniform(0.5, 2.0, (1, 3)).astype(np.float32)
     offset = rng.uniform(-0.5, 0.5, (1, 3)).astype(np.float32)
-    windows = X[1][rows[win[0, :n_real, None] + np.arange(T)]] * scale + offset
+    # the MinMax step one FMA, as the chain takes it (rounded once)
+    windows = fma(*(torch.from_numpy(a) for a in (X[1][rows[win[0, :n_real, None] + np.arange(T)]], scale,
+                                                    offset))).numpy()
     batch = dict(win=win, n_windows=[n_real], rows=row_list, row_off=[7], x_mach=[1])
     cases["first"] = dict(x=X, windows=windows, H=4, batch=batch, scale=scale, offset=offset, last=False)
     later = dict(win=np.arange(B)[None], n_windows=[n_real], rows=np.arange(1), row_off=[0], x_mach=[0])

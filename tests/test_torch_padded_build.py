@@ -100,18 +100,33 @@ def test_padded_groups_dispatch_one_program_each(inputs, monkeypatch):
         [((1, 140), None), ((3, 192), [162, 170, 185]), ((1, 256), [203])], key=str)
 
 
-def test_aligned_padded_build_equals_exact_bit_for_bit(inputs):
+def test_aligned_padded_build_equals_exact_bit_for_bit(inputs, monkeypatch):
     # every machine at a multiple of pad_lengths: all-ones masks, the same
-    # folds and geometry as the exact build, so the same kernels' results
+    # folds and geometry as the exact build, so the same kernels' results;
+    # the CV scores are the weighted metrics of fleet.padded (K8) over the
+    # exact build's out-of-fold predictions, bit for bit, where the exact
+    # build's are fleet.exact's (K4: another order of the same sums)
+    from gordo_tpu_torch.parallel import anomaly
+
     Xs = [x[:128] for x in inputs] + [inputs[4][64:192]]
     spec = analyze_definition(from_definition(definition()))
     padded = FleetDiffBuilder(spec, pad_lengths=PAD, device="cpu").build(Xs)
+    groups = []
+    collect = anomaly.FleetDiffBuilder._collect_group
+    monkeypatch.setattr(anomaly.FleetDiffBuilder, "_collect_group",
+                        lambda self, g: groups.append(g.out) or collect(self, g))
     exact = FleetDiffBuilder(spec, device="cpu").build(Xs)
-    for p, e in zip(padded, exact):
+    (out,) = groups
+    for i, (p, e) in enumerate(zip(padded, exact)):
         assert p.pad_built_ and not getattr(e, "pad_built_", False)
         np.testing.assert_array_equal(p.feature_thresholds_, e.feature_thresholds_)
         assert p.aggregate_threshold_ == e.aggregate_threshold_
-        assert p.cv_metadata_["scores"] == e.cv_metadata_["scores"]
+        for k, rows in enumerate(out["test_rows"]):
+            y = torch.from_numpy(np.ascontiguousarray(Xs[i][rows]))[None]
+            pred = out["predictions"][i, k][None]
+            want = ce.fold_metrics(y, pred, len(rows), masked=True)
+            for name in ce.METRIC_NAMES:
+                assert p.cv_metadata_["scores"][name]["folds"][k] == float(want[name][0]), (i, k, name)
         np.testing.assert_array_equal(p.base_estimator._final.history_, e.base_estimator._final.history_)
         for name, leaf in port_params(e.base_estimator._final).items():
             for key in ("kernel", "bias"):

@@ -191,8 +191,8 @@ def _fma_rounded_once(x, a, b):
 
 
 def test_plain_fma_rounds_once():
-    """A plain version's AFFINE step taken as an FMA (``apply_steps(...,
-    fma=True)``) is ``x * a + b`` rounded once, as ``__fmaf_rn``: on a sum
+    """A plain version's AFFINE step, an FMA (``apply_steps``), is ``x * a
+    + b`` rounded once, as ``__fmaf_rn``: on a sum
     that float64 rounds onto a float32 midpoint (where a rounding through
     float64 would go to the other neighbour) and on random values of
     mixed scale."""
@@ -204,7 +204,7 @@ def test_plain_fma_rounds_once():
     # goes up to 1 + 2^-22; the value rounded once is 1 + 2^-23
     x[0], a[0], b[0] = 2.0 ** -12 * (1 + 2.0 ** -23), 2.0 ** -12 * (1 - 2.0 ** -23), 1 + 2.0 ** -23
     x, a, b = (torch.from_numpy(v.astype(np.float32)) for v in (x, a, b))
-    got = ss.apply_steps(x, [(ss.AFFINE, a, b)], fma=True)
+    got = ss.apply_steps(x, [(ss.AFFINE, a, b)])
     assert float(got[0]) == 1 + 2.0 ** -23
     assert torch.equal(got, _fma_rounded_once(x, a, b))
 
@@ -221,7 +221,7 @@ def test_fold_of_a_chain_is_its_steps_applied_in_turn(X):
     spec = analyze_definition(from_definition(chain_definition(chain)))
     x = torch.from_numpy(np.ascontiguousarray(np.nan_to_num(X[:, :, [0, 1, 4, 5]])))
     steps, (det_form, *det_stats) = _stats(spec, x, x, ROW_LISTS)
-    want = ss.apply_steps(x, steps, lambda t: t[:, 1, None, :], fma=True)
+    want = ss.apply_steps(x, steps, lambda t: t[:, 1, None, :])
     # the FMA rounds once: x * a + b exact, rounded to float32 once
     minmax = steps[-1]
     assert minmax[0] == ss.AFFINE
@@ -238,7 +238,7 @@ def test_fold_of_a_chain_is_its_steps_applied_in_turn(X):
     assert det_form == ss.AFFINE
     d = [(det_form,) + tuple(t for t in det_stats)]
     at = lambda t: t[:, 0, None, :]  # noqa: E731
-    tag = (ss.apply_steps(want, d, at, fma=True) - ss.apply_steps(x, d, at, fma=True)).abs()
+    tag = (ss.apply_steps(want, d, at) - ss.apply_steps(x, d, at)).abs()
     assert torch.equal(got["tag-anomaly-scores"], tag)
 
 

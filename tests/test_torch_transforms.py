@@ -391,9 +391,10 @@ def test_mean_statistics_row_limit():
     import re
     from pathlib import Path
 
-    src = (Path(ss.__file__).parent.parent / "csrc" / "scaler_stats.cu").read_text()
+    csrc = Path(ss.__file__).parent.parent / "csrc"
+    src = (csrc / "scaler_stats.cu").read_text()
     smem = eval(re.search(r"#define SS_MEAN_SMEM \(([^)]*)\)", src).group(1))  # noqa: S307 (a constant)
-    window = int(re.search(r"#define SS_WINDOW (\d+)", src).group(1))
+    window = int(re.search(r"#define XO_WINDOW (\d+)", (csrc / "xla_order.cuh").read_text()).group(1))
     assert window == ss.XLA_WINDOW
 
     def floats(n):
