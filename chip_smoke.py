@@ -43,7 +43,9 @@ itself.  Phases, each printing one JSON line:
    ragged rows, the forecast's windows and lookback 1); times as in
    phase 3, each bound, and the
    time of one PyTorch call of the same function (``torch.nn.LSTM`` per
-   machine and layer; chunked ``torch.nanquantile``).
+   machine and layer; chunked ``torch.nanquantile``); ``lstm_layer`` also
+   at the stream's launch shape (one machine's ring of 155 rows, its 144
+   windows), each layer held to its plain version and timed.
 8. ``lstm_serve``: a model directory of 8 LSTM ``ae`` detectors at the
    bench config, an LSTM ``forecast`` detector with window 144 and a
    default feedforward detector with window 144 (random weights from a
@@ -77,7 +79,10 @@ itself.  Phases, each printing one JSON line:
    requests each, and held to the in-process scorers on the card and on
    the CPU; 8 of the machines' series are built again as ``LSTMForecast``
    detectors through the kernels and held to the plain lockstep fit.  The
-   whole fit's bound is ``lstm_fit_bound``.
+   whole fit's bound is ``lstm_fit_bound``.  Then the ``lstm_redesign``
+   line: ``lstm_layer`` at the bench's and the stream's shapes,
+   ``lstm_layer_bwd`` per lockstep step and the LSTM build's seconds
+   beside the parent design's figures (``PARENT_LSTM``).
 11. ``ragged_kernel_check``: the masked epilogue (K8: ``cv_epilogue`` with
    row counts from 0 to 144 over 1,536 slots × 144 rows × 10 tags, held
    to its plain version bit for bit, the empty slots to their fixed values, and to
@@ -183,6 +188,8 @@ itself.  Phases, each printing one JSON line:
    MinMax (to (1, -1)) → Robust, and on a year of 10-minute rows (52,560
    × 10: Robust also NaN-padded and after a MinMax (1, -1) step) and at
    57,344 rows over uneven row lists, each bit for bit its plain version;
+   the MinMax statistic after the Standard step in the fleet build's
+   form (its offset one FMA), bit for bit its plain version;
    Robust's selection and sort timed beside each other; times, bounds,
    and ``torch.nanquantile`` (one call a row list) beside Robust.
 24. ``scaler_build``: ``FleetDiffBuilder.build`` of 512 × 576 × 10
@@ -1168,6 +1175,59 @@ def _valid_err(ref, got, counts, what: str, tol: float):
     return err, float((r[fin].double() - g[fin].double()).abs().max())
 
 
+#: the stream's launch of an LSTM detector's layers: one machine's ring of
+#: SMOOTH_WINDOW + LOOKBACK - 1 rows, its SMOOTH_WINDOW windows
+LSTM_STREAM_ROWS = SMOOTH_WINDOW + LOOKBACK - 1
+
+
+def lstm_stream_shape(net, x, scale, offset) -> dict:
+    """The six ``lstm_layer`` launches at the stream's shape (machine 0 of
+    the bucket, its first LSTM_STREAM_ROWS rows), each fed the kernel's
+    output of the layer before and held to its plain version; the layers'
+    summed device times, plain times and ``torch.nn.LSTM`` times (one call
+    a layer), and their bound."""
+    from gordo_tpu_torch.kernels import lstm_layer as ll
+    from gordo_tpu_torch.ops.windows import make_windows
+
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a[:1])).to(x.device)  # noqa: E731
+    s1, o1 = scale[:1].contiguous(), offset[:1].contiguous()
+    h = x[:1, :LSTM_STREAM_ROWS].contiguous()
+    layers = []
+    for i, cell in enumerate(net["cells"]):
+        ki, kh, b = (put(a) for a in cell)
+        n_in, hidden = int(ki.shape[1]), int(kh.shape[1])
+        first, last = i == 0, i == len(net["cells"]) - 1
+        kw = dict(lookback=LOOKBACK, act="tanh", last=last, chain=[minmax_step(s1, o1)] if first else None)
+        inp = h
+        run = lambda: ll.lstm_layer(inp, ki, kh, b, **kw)  # noqa: E731
+        plain = lambda: ll.lstm_layer_plain(inp, ki, kh, b, **kw)  # noqa: E731
+        got, ref = run(), plain()
+        err = norm_err(ref, got)
+        check(err <= LSTM_TOLERANCE["lstm_layer"],
+              f"lstm_layer {i} at the stream's shape within {LSTM_TOLERANCE['lstm_layer']}: {err}")
+        entry = {"layer": i, "widths": [n_in, hidden], "max_norm_err": err,
+                 "max_abs_err": float((ref.double() - got.double()).abs().max())}
+        if DEVICE == "cuda":
+            entry["ms"], entry["host_ms"] = time_ms(run, 50)
+            entry["plain_ms"], _ = time_calls_ms(plain, 5)
+            wins = make_windows(inp * s1[:, None] + o1[:, None], LOOKBACK)[0] if first else inp[0]
+            lstm = _torch_lstm(ki[0], kh[0], b[0])
+
+            def library():
+                with torch.no_grad():
+                    return torch.tanh(lstm(wins)[0])
+
+            entry["library_ms"], _ = time_calls_ms(library, 20)
+        entry.update(bound(*lstm_layer_cost(1, LSTM_STREAM_ROWS, n_in, hidden, first, last)))
+        layers.append(entry)
+        h = got
+    out = {"shape": [1, LSTM_STREAM_ROWS, int(x.shape[-1])], "windows": SMOOTH_WINDOW, "layers": layers,
+           "max_abs_err": max(e["max_abs_err"] for e in layers)}
+    out.update({k: sum(e[k] for e in layers) for k in ("ms", "plain_ms", "library_ms") if k in layers[0]})
+    out.update(lstm_layer_bound(1, LSTM_STREAM_ROWS, net["dims"]))
+    return out
+
+
 def lstm_layer_variants(rng, net, x, scale, offset):
     """``lstm_layer`` on what the bucket-wide check does not reach: a
     subset of the bucket's machines by stack position (``idx``) with ragged
@@ -1223,6 +1283,29 @@ def lstm_layer_variants(rng, net, x, scale, offset):
         err1, abs1 = _valid_err(ref1, got1, counts, f"lstm_layer {name} (windows)", LSTM_TOLERANCE["lstm_layer"])
         out.append({"variant": name, "max_norm_err": max(err0, err1), "max_abs_err": max(abs0, abs1)})
     return out
+
+
+#: the parent design's figures beside which the smoke prints the
+#: redesigned LSTM kernels' (``lstm_redesign_line``): each the mean of the
+#: parent tree's runs of these phases before and after the redesign's in
+#: one call (PERF.md §6, "NVIDIA H100 80GB HBM3, 700.00 W")
+PARENT_LSTM = {"lstm_layer_ms": 25.485, "lstm_layer_stream_ms": 0.6869, "lstm_layer_bwd_ms": 8.677,
+               "lstm_build_seconds": 1.093}
+
+
+def lstm_redesign_line(lstm_kernels: dict, lstm_train_kernels: dict, lstm_train: dict) -> dict:
+    """The redesigned LSTM kernels' times in this run beside the parent
+    design's (PARENT_LSTM): ``lstm_layer`` at the bench's and the stream's
+    shapes, ``lstm_layer_bwd`` per lockstep step, and the LSTM build's
+    seconds."""
+    fwd, bwd = lstm_kernels["lstm_layer"], lstm_train_kernels["lstm_layer_bwd"]
+    return {"phase": "lstm_redesign",
+            "lstm_layer_ms": fwd.get("ms"), "lstm_layer_bound_ms": fwd["bound_ms"],
+            "lstm_layer_stream_ms": fwd["stream_shape"].get("ms"),
+            "lstm_layer_stream_bound_ms": fwd["stream_shape"]["bound_ms"],
+            "lstm_layer_bwd_ms": bwd.get("ms"), "lstm_layer_bwd_bound_ms": bwd["bound_ms"],
+            "lstm_build_seconds": lstm_train["build_seconds"],
+            "parent": PARENT_LSTM}
 
 
 def rolling_median_variant(rng, tag, total, thr):
@@ -1310,9 +1393,11 @@ def phase_lstm_kernel_check():
     total = {k: sum(e[k] for e in layers) for k in ("ms", "plain_ms", "library_ms") if k in layers[0]}
     total.update(lstm_layer_bound(machines, n, net["dims"]))
     entries["lstm_layer"] = {"layers": layers, "tolerance": LSTM_TOLERANCE["lstm_layer"], **total,
-                             "variants": lstm_layer_variants(rng, net, x, scale, offset)}
+                             "variants": lstm_layer_variants(rng, net, x, scale, offset),
+                             "stream_shape": lstm_stream_shape(net, x, scale, offset)}
     entries["lstm_layer"]["max_abs_err"] = max(
-        [e["max_abs_err"] for e in layers] + [v["max_abs_err"] for v in entries["lstm_layer"]["variants"]])
+        [e["max_abs_err"] for e in layers] + [v["max_abs_err"] for v in entries["lstm_layer"]["variants"]]
+        + [entries["lstm_layer"]["stream_shape"]["max_abs_err"]])
 
     # the head and detector epilogue: fleet_score on the final states
     W, bh = put(net["head"][0]), put(net["head"][1])
@@ -1707,6 +1792,16 @@ def _lstm_library_fwd(x, cells, batch, valid, scale, offset, layer: int, last: b
     return library, nets, inputs
 
 
+def _real_windows_only(out: torch.Tensor, batch) -> torch.Tensor:
+    """A training-mode layer's output with zeros past each slot's real
+    windows: the kernel leaves padding windows unwritten (no kernel reads
+    them); the plain versions compute them, weighted 0, so they get zeros
+    rather than what the allocator's reused memory holds (a NaN there
+    would reach the plain gradients as NaN * 0)."""
+    real = batch.weights() > 0
+    return out.masked_fill(~real.reshape(real.shape + (1,) * (out.dim() - 2)), 0.0)
+
+
 def _lstm_train_variant(X, row_lists, scale, offset, off, hp, batch_size: int) -> dict:
     """The four training kernels against their plain versions on one
     lockstep step of a few machines at another batch size (the default
@@ -1755,7 +1850,7 @@ def _lstm_train_variant(X, row_lists, scale, offset, off, hp, batch_size: int) -
             hold("lstm_layer_train", r, g, valid)
         inputs.append(h)
         saves.append(got[1:])
-        h = got[0]
+        h = _real_windows_only(got[0], batch)
     got = hf.lstm_head_fit(h, W, bh, X, batch=batch, shift=off, act="linear")
     ref = hf.lstm_head_fit_plain(h, W, bh, X, batch=batch, shift=off, act="linear")
     for r, g in zip(ref[:3], got[:3]):
@@ -1876,7 +1971,7 @@ def phase_lstm_train_kernel_check():
         entries["lstm_layer_train"]["max_abs_err"] = max(entries["lstm_layer_train"]["max_abs_err"], worst)
         inputs.append(inp)
         saves.append(got[1:])
-        h = got[0]
+        h = _real_windows_only(got[0], batch)
         del ref, library
     ll.train_launches = 0
 
@@ -2782,7 +2877,6 @@ def _lstm_zero_window_step_check(rng) -> dict:
     for s in (0, s_empty):
         batch = Minibatch(steps.win[0, s], steps.n_windows[0, s], steps.rows, steps.row_off, steps.x_mach)
         valid = batch.n_windows.cpu().numpy()
-        real = batch.weights() > 0
         h, inputs, saves = X, [], []
         for i, (ki, kh, b) in enumerate(cells):
             first = i == 0
@@ -2794,10 +2888,7 @@ def _lstm_zero_window_step_check(rng) -> dict:
                 hold("lstm_layer_train", r, g, valid)
             inputs.append(h)
             saves.append(got[1:])
-            # the kernel leaves padding windows unwritten (no kernel reads
-            # them); the plain versions compute them, weighted 0, so they
-            # get zeros rather than what the allocator's reused memory holds
-            h = got[0].masked_fill(~real.reshape(real.shape + (1,) * (got[0].dim() - 2)), 0.0)
+            h = _real_windows_only(got[0], batch)
         got = hf.lstm_head_fit(h, W, bh, X, batch=batch, shift=off, act="linear")
         ref = hf.lstm_head_fit_plain(h, W, bh, X, batch=batch, shift=off, act="linear")
         for r, g in zip(ref[:3], got[:3]):
@@ -4368,6 +4459,16 @@ def phase_scaler_kernel_check():
     hold("chain_standard_minmax", "minmax", lambda: ss.scaler_stats(X, row_lists, prefix=std_prefix),
          lambda: ss.scaler_stats_plain(X, row_lists, prefix=std_prefix),
          stat_bound(machines, rows, tags, row_lists, 1, 2))
+    # the fleet build's form: the offset a - lo * scale one FMA, as
+    # fleet.exact's fusion computes it, bit for bit its plain version
+    fused = hold("chain_standard_minmax_fused", "minmax",
+                 lambda: ss.scaler_stats(X, row_lists, (1.0, -1.0), prefix=std_prefix, offset_fma=True),
+                 lambda: ss.scaler_stats_plain(X, row_lists, (1.0, -1.0), prefix=std_prefix, offset_fma=True),
+                 stat_bound(machines, rows, tags, row_lists, 1, 2))
+    fused_ref = ss.scaler_stats_plain(X, row_lists, (1.0, -1.0), prefix=std_prefix, offset_fma=True)
+    entries["chain_standard_minmax_fused"]["differing"] = sum(differing(r, g) for r, g in zip(fused_ref, fused))
+    check(entries["chain_standard_minmax_fused"]["differing"] == 0,
+          "the fused MinMax offsets are their plain version's bit for bit")
     reverse = ss.scaler_stats(X, row_lists, (1.0, -1.0))
     check(bool((reverse[0] < 0).all()), "a MinMax step to (1, -1) has a negative scale")
     mm_prefix = [(ss.AFFINE, *reverse)]
@@ -5535,8 +5636,54 @@ def _transform_stream(tmp, rng, out):
                 checked += 1
         info[dtype] = {"launches": launches, "seconds": seconds, "step_seconds": seconds / (n_m * n_rows),
                        "verdicts_checked_bitwise": checked}
+        if DEVICE == "cuda":
+            info[dtype].update(_chain_stream_kernel_ms(hub, collection, X[0], dtype))
+            info[dtype].update(chain_stream_bound(src, F, 2 if dtype == "bfloat16" else 4))
         del collection
     out["stream"] = {"machines": n_m, "rows": n_rows, "window": SMOOTH_WINDOW, **info}
+
+
+#: rows a streamed chain-C machine takes under the profiler for the device
+#: time of a row's launches
+CHAIN_STREAM_TIMED_ROWS = 20
+
+
+def _chain_stream_kernel_ms(hub, collection, rows, dtype) -> dict:
+    """Device time of one streamed chain-C row's launches (the ring's shift,
+    ``chain_apply`` over the ring, ``stream_step``), summed over its kernels
+    by ``torch.profiler`` across CHAIN_STREAM_TIMED_ROWS rows of machine 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scorer = collection.get("s-0").scorer
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for r in range(CHAIN_STREAM_TIMED_ROWS):
+            list(hub.ingest_rows("s-0", scorer, rows[r % len(rows)], dtype=dtype))
+        torch.cuda.synchronize()
+    by_kernel, copies = {}, 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            ms = e.self_device_time_total / 1e3 / CHAIN_STREAM_TIMED_ROWS
+            if e.key.startswith("Memcpy"):
+                copies += ms
+            else:
+                by_kernel[e.key[:60]] = ms
+    check(bool(by_kernel), "the profiler saw the streamed rows' kernels")
+    return {"kernel_ms": sum(by_kernel.values()), "kernel_ms_by_name": by_kernel, "copy_ms": copies}
+
+
+def chain_stream_bound(src, tags: int, elem: int) -> dict:
+    """Least time of one streamed chain-C row: the shift (the ring read and
+    written, the new row), ``chain_apply`` over the ring (its rows read, the
+    chain's output written, its stats read once; the PCA's operations), and
+    ``stream_step`` on the chain's output (``stream_bound``), stats and
+    weights at the storage width ``elem``."""
+    H, k, dims = SMOOTH_WINDOW, CHAIN_C_K, src["dims"]
+    chain_bytes = 4 * (H * tags + H * k) + elem * (2 * tags + tags * k + 2 * k)
+    chain_ops = H * (tags + 2 * tags * k + 2 * k)
+    step = stream_bound(H, k, SMOOTH_WINDOW, dims, elem, False)
+    b = bound(step["bytes"] + chain_bytes + 4 * (2 * H * tags + tags), step["flops"] + chain_ops)
+    return {"kernel_bound_ms": b["bound_ms"], "kernel_bound_by": b["bound_by"]}
 
 
 def chain_c_project(machines: int, rows: int, tags: int) -> str:
@@ -6447,6 +6594,7 @@ def main() -> int:
     lstm_train_kernels = phase_lstm_train_kernel_check()
     lstm_train = phase_lstm_train()
     emit({"phase": "lstm_train", **lstm_train})
+    emit(lstm_redesign_line(lstm_kernels, lstm_train_kernels, lstm_train))
     ragged_kernels = phase_ragged_kernel_check()
     ragged = phase_ragged_train()
     emit({"phase": "ragged_train", **ragged})
@@ -6545,6 +6693,9 @@ def main() -> int:
             "library_ms": entry["library_ms"],
             "shape": list(LSTM_SHAPE),
         })
+        if name == "lstm_layer":
+            summary[-1]["stream_shape"] = {k: entry["stream_shape"][k] for k in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     for name, entry in lstm_train_kernels.items():
         mod = importlib.import_module(
             f"gordo_tpu_torch.kernels.{'lstm_layer' if name == 'lstm_layer_train' else name}")

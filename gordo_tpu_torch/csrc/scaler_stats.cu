@@ -10,7 +10,10 @@
 //
 //   MinMax:    lo = nanmin(v), hi = nanmax(v)                (NaN if all NaN)
 //              scale  = (b - a) / max(hi - lo, 1e-12)         (max keeps a NaN)
-//              offset = a - lo * scale
+//              offset = a - lo * scale                         (`offset_fma`: one FMA,
+//              as the fleet programs' XLA fusion computes it after any
+//              step or none; else a product and a difference, as the
+//              reference's eager `fit` rounds them)
 //   Standard:  mean = sum(v) / count                          (jnp.nanmean)
 //              std  = max(sqrt(sum((v - mean)^2) / count), 1e-12)
 //              (ddof 0, two passes as jnp.nanvar; with_mean=False gives a
@@ -76,6 +79,7 @@ struct ScalerStatsArgs {
   int stat;            // SS_MINMAX, SS_STANDARD, SS_MEAN or SS_NANMEAN
   float range_lo;      // MinMax: feature_range a
   float range_span;    // MinMax: b - a
+  int offset_fma;      // MinMax: the offset a - lo * scale as one FMA (the fleet programs')
   int with_mean;       // Standard
   int with_std;        // Standard
   ScalerPrefix prefix;
@@ -140,7 +144,8 @@ __global__ void __launch_bounds__(SS_THREADS) scaler_minmax_kernel(const ScalerS
       if (!any) pa = pb = NAN;
       const float sc = __fdiv_rn(a.range_span, floor_eps(__fsub_rn(pb, pa)));
       a.out0[stat_row + j] = sc;
-      a.out1[stat_row + j] = __fsub_rn(a.range_lo, __fmul_rn(pa, sc));
+      a.out1[stat_row + j] = a.offset_fma ? fmaf(-pa, sc, a.range_lo)
+                                          : __fsub_rn(a.range_lo, __fmul_rn(pa, sc));
     }
     __syncthreads();
   }

@@ -25,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,10 +47,20 @@ from gordo_tpu_torch.ops.windows import make_windows
 SOURCE = "gordo_tpu_torch/csrc/lstm_layer.cu"
 REPLACES = "gordo_tpu/models/factories/lstm.py:92"
 
-#: threads a block may have, and windows each thread computes (LL_THREADS,
-#: LL_WPT in the source)
+#: threads a block may have (LL_THREADS in the source)
 MAX_THREADS = 512
-WINDOWS_PER_THREAD = 4
+#: windows each thread computes (the kernel's WPT): WIDE where a launch has
+#: enough tiles to fill the card, NARROW where it has few (a streamed
+#: machine's 144 windows), so that its blocks spread over more SMs
+WIDE_WPT, NARROW_WPT = 8, 2
+#: blocks a launch should have at least: two for each of the H100's 132 SMs
+MIN_BLOCKS = 264
+#: thread groups (of ``hidden`` threads) a block takes at most, sharing one
+#: copy of the weights; a hoisted first layer up to HOIST_GROUPS, whose tile
+#: of Tw windows computes xp of Tw + L - 1 rows, so that larger tiles
+#: recompute fewer (on the H100 at the bench's widths: 6 and 12 beat 2, 4,
+#: 8 and 10 groups at the later layers and at the first, PERF.md §6)
+MAX_GROUPS, HOIST_GROUPS = 6, 12
 
 #: kernel launches so far (the CPU path never counts): serving
 #: (:func:`lstm_layer`) and training mode (:func:`lstm_layer_train`)
@@ -89,8 +99,10 @@ class _Args(ctypes.Structure):
         ("last", ctypes.c_int),
         ("act", ctypes.c_int),
         ("groups", ctypes.c_int),
-        ("in_pad", ctypes.c_int),
-        ("h_pad", ctypes.c_int),
+        ("wpt", ctypes.c_int),
+        ("hoist", ctypes.c_int),
+        ("tile_pad", ctypes.c_int),
+        ("rows_pad", ctypes.c_int),
         ("smem_bytes", ctypes.c_int),
         ("bf16", ctypes.c_int),
     ]
@@ -123,42 +135,96 @@ def _library() -> ctypes.CDLL:
 
 def _pad(width: int) -> int:
     """Row stride for ``width`` floats: a multiple of 4 whose float4 count
-    is odd, so float4 reads of neighbouring rows hit distinct banks."""
+    is odd, so float4 accesses of neighbouring rows hit distinct banks."""
     p = -(-width // 4) * 4
     return p if (p // 4) % 2 else p + 4
 
 
 class LaunchPlan(NamedTuple):
     groups: int
-    in_pad: int
-    h_pad: int
+    wpt: int
+    hoist: bool
+    tile_pad: int
+    rows_pad: int
     smem_bytes: int
 
+    @property
+    def tile(self) -> int:
+        """Windows a block computes."""
+        return self.groups * self.wpt
 
-def launch_plan(n_in: int, hidden: int, windows: int) -> LaunchPlan:
-    """Thread groups per block (as many as ``MAX_THREADS`` allows, no more
-    than the windows need, fewer while shared memory is short) and the
-    shared memory they take.  Raises ``ValueError`` for widths whose
-    weights do not fit a block."""
+
+def _smem_bytes(n_in: int, hidden: int, tile: int, hoist: bool, lookback: int) -> Tuple[int, int, int]:
+    """(bytes, tile_pad, rows_pad) of a block: the weights and bias, h^T
+    twice, and x_t^T twice or, hoisted, the tile's rows^T and their input
+    products."""
+    ts = _pad(tile)
+    floats = 4 * hidden * (hidden + n_in + 1) + 2 * hidden * ts
+    rs = 0
+    if hoist:
+        rs = _pad(tile + lookback - 1)
+        floats += n_in * rs + rs * 4 * hidden
+    else:
+        floats += 2 * n_in * ts
+    return 4 * floats, ts, rs
+
+
+def wide_layer(n_in: int, hidden: int) -> bool:
+    """Whether an ``n_in -> hidden`` layer is a wide one, which ROADMAP
+    queue 1 item 14 takes (serving, training and the stream, with their
+    tests): one whose padded weights and one group's tiles of the first
+    design (four windows a thread) do not fit a block's shared memory.  The
+    redesigned block holds somewhat wider layers; the widths the port takes
+    stay those its tests cover (square layers of 83 units, the
+    ``lstm_hourglass`` of 92 tags)."""
+    ip, hp = _pad(n_in), _pad(hidden)
+    return 4 * (4 * hidden * (ip + hp + 1) + 8 * (ip + hp)) > SMEM_LIMIT
+
+
+def _groups(parts: int, slots: int, most: int) -> int:
+    """Thread groups a block takes for ``parts`` groups' worth of windows
+    a slot: at most ``most``, enough tiles for MIN_BLOCKS blocks where the
+    slots allow it, and the tiles of a slot as even as the count allows."""
+    tiles = max(-(-parts // max(most, 1)), -(-MIN_BLOCKS // slots))
+    return max(1, -(-parts // min(tiles, parts)))
+
+
+def launch_plan(n_in: int, hidden: int, windows: int, slots: int = 1,
+                lookback: Optional[int] = None) -> LaunchPlan:
+    """Windows a thread computes and thread groups a block takes, and the
+    shared memory they need, for ``slots`` slots of ``windows`` windows;
+    ``lookback`` given: the first layer's serving launch, whose input
+    product is hoisted out of the step loop (xp of each of the tile's
+    rows), where it fits.  WIDE_WPT windows a thread where the launch then
+    has MIN_BLOCKS blocks, else NARROW_WPT; as many groups (up to
+    MAX_GROUPS, or HOIST_GROUPS hoisted) as keep MIN_BLOCKS blocks, in even
+    tiles; fewer groups, then no hoist, then NARROW_WPT while shared memory
+    is short.  Raises ``ValueError`` for wide layers (:func:`wide_layer`)."""
     if hidden > MAX_THREADS:
         raise ValueError(
             f"lstm_layer takes at most {MAX_THREADS} units, got {hidden}; wide "
             "LSTM layers wait for ROADMAP queue 1 item 14"
         )
-    ip, hp = _pad(n_in), _pad(hidden)
-    fixed = 4 * hidden * (ip + hp + 1)
-    groups = max(1, min(MAX_THREADS // hidden, -(-windows // WINDOWS_PER_THREAD)))
-    while True:
-        smem = 4 * (fixed + 2 * groups * WINDOWS_PER_THREAD * (ip + hp))
-        if smem <= SMEM_LIMIT:
-            return LaunchPlan(groups, ip, hp, smem)
-        if groups == 1:
-            raise ValueError(
-                f"lstm_layer cannot take a {n_in} -> {hidden} layer: its weights "
-                f"need {4 * fixed} bytes of shared memory and a block has "
-                f"{SMEM_LIMIT}; wide LSTM layers wait for ROADMAP queue 1 item 14"
-            )
-        groups -= 1
+    if wide_layer(n_in, hidden):
+        raise ValueError(
+            f"lstm_layer does not take a {n_in} -> {hidden} layer: wide LSTM layers "
+            "wait for ROADMAP queue 1 item 14"
+        )
+    wide = slots * -(-windows // WIDE_WPT) >= MIN_BLOCKS
+    for wpt in (WIDE_WPT, NARROW_WPT) if wide else (NARROW_WPT,):
+        for hoist in (True, False) if lookback else (False,):
+            most = min(HOIST_GROUPS if hoist else MAX_GROUPS, MAX_THREADS // hidden)
+            groups = _groups(-(-windows // wpt), slots, most)
+            for g in range(groups, 0, -1):
+                smem, ts, rs = _smem_bytes(n_in, hidden, g * wpt, hoist, lookback or 0)
+                if smem <= SMEM_LIMIT:
+                    return LaunchPlan(g, wpt, hoist, ts, rs, smem)
+    need, _, _ = _smem_bytes(n_in, hidden, NARROW_WPT, False, 0)
+    raise ValueError(
+        f"lstm_layer cannot take a {n_in} -> {hidden} layer: its weights need "
+        f"{need} bytes of shared memory and a block has {SMEM_LIMIT}; wide LSTM "
+        "layers wait for ROADMAP queue 1 item 14"
+    )
 
 
 def _windows(x: torch.Tensor, lookback: int, n_windows: Optional[int]) -> int:
@@ -257,7 +323,7 @@ def lstm_layer(
         if win_dev.numel() != m:
             raise ValueError(f"slot_windows needs one entry per slot ({win_dev.numel()} != {m})")
 
-    plan = launch_plan(n_in, H, nw)
+    plan = launch_plan(n_in, H, nw, m, lookback if rows_input else None)
     shape = (m, nw, H) if last else (m, nw, lookback, H)
     out = torch.empty(shape, dtype=torch.float32, device=device)
     args = _Args()
@@ -268,12 +334,16 @@ def lstm_layer(
     args.m, args.n, args.nw, args.lookback = m, n, nw, lookback
     args.in_, args.hidden = n_in, H
     args.rows_input, args.last, args.act = int(rows_input), int(last), ACT_CODES[act]
-    args.groups, args.in_pad, args.h_pad = plan.groups, plan.in_pad, plan.h_pad
-    args.smem_bytes = plan.smem_bytes
+    _fill_plan(args, plan)
     args.bf16 = int(store == torch.bfloat16)
 
     _launch(args, device)
     return out
+
+
+def _fill_plan(args: _Args, plan: LaunchPlan) -> None:
+    args.groups, args.wpt, args.hoist = plan.groups, plan.wpt, int(plan.hoist)
+    args.tile_pad, args.rows_pad, args.smem_bytes = plan.tile_pad, plan.rows_pad, plan.smem_bytes
 
 
 def _launch(args: _Args, device) -> None:
@@ -446,7 +516,7 @@ def lstm_layer_train(
     _check(gates, "gates", (m, B, lookback, 4 * H), device)
     _check(cell, "cell", (m, B, lookback, H), device)
 
-    plan = launch_plan(n_in, H, B)
+    plan = launch_plan(n_in, H, B, m)
     out = torch.empty((m, B, H) if last else (m, B, lookback, H), dtype=torch.float32, device=device)
     args = _Args()
     args.x = _ptr(x)
@@ -458,8 +528,7 @@ def lstm_layer_train(
     args.m, args.n, args.nw, args.lookback = m, int(x.shape[1]), B, lookback
     args.in_, args.hidden = n_in, H
     args.rows_input, args.last, args.act = int(rows_input), int(last), ACT_CODES[act]
-    args.groups, args.in_pad, args.h_pad = plan.groups, plan.in_pad, plan.h_pad
-    args.smem_bytes = plan.smem_bytes
+    _fill_plan(args, plan)
     _launch(args, device)
     return out, gates, cell
 

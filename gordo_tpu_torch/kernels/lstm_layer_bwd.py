@@ -10,13 +10,16 @@ the gradient of its input (``dx``, not for the first layer) and of its
 ``kernel_i``, ``kernel_h`` and ``bias``, summed over each slot's real
 windows.  The kernel is CUDA C++ for ``sm_90a``
 (``gordo_tpu_torch/csrc/lstm_layer_bwd.cu``, whose header gives its bound
-and design); :func:`lstm_layer_bwd_plain` is the same function in plain
+and design: a call runs the serial recurrence, then the weight gradients
+and ``dx`` as products over all of a slot's rows);
+:func:`lstm_layer_bwd_plain` is the same function in plain
 PyTorch (autograd through :func:`~gordo_tpu_torch.kernels.lstm_layer.
 lstm_layer_train_plain`).
 
 :func:`lstm_layer_bwd` takes the plain version only for tensors on the
-CPU.  For CUDA tensors it launches the kernel or raises, and adds one to
-:data:`launches` per launch.
+CPU.  For CUDA tensors it launches the kernel (its three parts, in order
+on the current stream) or raises, and adds one to :data:`launches` per
+call.
 """
 
 from __future__ import annotations
@@ -33,7 +36,10 @@ from gordo_tpu_torch.kernels.scaler_stats import Prefix, ScalerChain, check_step
 from gordo_tpu_torch.kernels.lstm_layer import (
     MAX_SLOTS,
     Minibatch,
+    MIN_BLOCKS,
     _check_batch,
+    _groups,
+    _pad,
     lstm_layer_train_plain,
 )
 
@@ -42,6 +48,16 @@ REPLACES = "gordo_tpu/models/factories/lstm.py:92"
 
 #: threads a block may have (LB_THREADS in the source)
 MAX_THREADS = 512
+#: rows the weight gradients stage at a time, in two buffers (LB_ROWS; a
+#: block of them takes as many 4 x 8 tiles of gate columns as MAX_THREADS
+#: allow: measured on the H100, fewer threads and more blocks a slot were
+#: slower); rows dx stages at a time, in two buffers, and blocks a slot's
+#: rows are shared among for dx
+GRAD_ROWS, DX_ROWS, DX_BLOCKS = 32, 32, 4
+#: windows a thread of the recurrence owns (LB_WPT), and thread groups its
+#: block takes at most (and, as the forward's, at least MIN_BLOCKS blocks
+#: where the slots allow it)
+WINDOWS_PER_THREAD, RECUR_GROUPS = 4, 4
 #: activation codes the backward differentiates
 ACT_CODES = {None: 0, "linear": 0, "tanh": 1}
 WIDE_ITEM = "ROADMAP queue 1 item 14 (wide LSTM layers)"
@@ -70,6 +86,8 @@ class _Args(ctypes.Structure):
         ("gates", ctypes.c_void_p),
         ("cell", ctypes.c_void_p),
         ("dout", ctypes.c_void_p),
+        ("dz", ctypes.c_void_p),
+        ("hs", ctypes.c_void_p),
         ("dx", ctypes.c_void_p),
         ("dw_i", ctypes.c_void_p),
         ("dw_h", ctypes.c_void_p),
@@ -84,7 +102,14 @@ class _Args(ctypes.Structure):
         ("last", ctypes.c_int),
         ("act", ctypes.c_int),
         ("groups", ctypes.c_int),
-        ("smem_bytes", ctypes.c_int),
+        ("w_pad", ctypes.c_int),
+        ("k_pad", ctypes.c_int),
+        ("grad_cols", ctypes.c_int),
+        ("dx_rows", ctypes.c_int),
+        ("dx_blocks", ctypes.c_int),
+        ("recur_smem", ctypes.c_int),
+        ("wgrad_smem", ctypes.c_int),
+        ("dx_smem", ctypes.c_int),
     ]
 
 
@@ -114,35 +139,70 @@ def _library() -> ctypes.CDLL:
 
 
 class LaunchPlan(NamedTuple):
-    groups: int
-    smem_bytes: int
+    groups: int        # the recurrence: thread groups of ``hidden`` threads a block
+    w_pad: int         # row stride of W_h (the recurrence) and W_i (dx) in shared memory
+    k_pad: int         # row stride of the weight gradients' staged [x | h | 1] rows
+    grad_cols: int     # gate columns a block of the weight gradients sums
+    dx_rows: int       # rows a block of dx stages at a time (0: no dx)
+    recur_smem: int
+    wgrad_smem: int
+    dx_smem: int
 
 
-def launch_plan(n_in: int, hidden: int, windows: int, want_dx: bool) -> LaunchPlan:
-    """Windows a tile takes (one thread group of ``hidden`` threads each,
-    as many as ``MAX_THREADS`` allow, no more than ``windows``) and the
-    shared memory of the block.  Raises ``NotImplementedError`` (wide LSTM
-    layers) for widths whose weights and gradients do not fit a block."""
+def _refuse(n_in: int, hidden: int, what: str):
+    return NotImplementedError(
+        f"lstm_layer_bwd cannot take a {n_in} -> {hidden} layer: {what}; that waits for {WIDE_ITEM}"
+    )
+
+
+def launch_plan(n_in: int, hidden: int, windows: int, want_dx: bool, slots: int = 1) -> LaunchPlan:
+    """The three kernels' shapes for ``slots`` slots of ``windows``
+    windows: the recurrence's thread groups (WINDOWS_PER_THREAD windows a
+    thread; up to RECUR_GROUPS, as many as keep MIN_BLOCKS blocks, fewer
+    while shared memory is short), the gate columns a block of the
+    weight gradients sums, the rows a block of ``dx`` stages, and each
+    kernel's shared memory.  Raises ``NotImplementedError`` (wide
+    LSTM layers) for widths the blocks do not take."""
     if hidden > MAX_THREADS:
         raise NotImplementedError(
             f"lstm_layer_bwd takes at most {MAX_THREADS} units, got {hidden}; "
             f"that waits for {WIDE_ITEM}"
         )
     h4 = 4 * hidden
-    stride = h4 | 1
-    fixed = hidden * stride + (n_in * stride if want_dx else 0) + (n_in + hidden + 1) * h4
-    groups = max(1, min(MAX_THREADS // hidden, windows))
-    while True:
-        smem = 4 * (fixed + groups * (h4 + n_in + 2 * hidden))
-        if smem <= SMEM_LIMIT:
-            return LaunchPlan(groups, smem)
-        if groups == 1:
-            raise NotImplementedError(
-                f"lstm_layer_bwd cannot take a {n_in} -> {hidden} layer: its weights and "
-                f"their gradients need {4 * fixed} bytes of shared memory and a block "
-                f"has {SMEM_LIMIT}; that waits for {WIDE_ITEM}"
-            )
+    # the widths the first design took, whose block held W_h (and W_i for
+    # dx) and the gradients in shared memory: past them wide layers wait
+    # for item 14, as in the forward (lstm_layer.wide_layer)
+    first = hidden * (h4 | 1) + (n_in * (h4 | 1) if want_dx else 0) + (n_in + hidden + 1) * h4
+    if 4 * (first + h4 + n_in + 2 * hidden) > SMEM_LIMIT:
+        raise _refuse(n_in, hidden, "its weights and their gradients take more shared memory than "
+                                    f"the {SMEM_LIMIT} bytes of a block of the widths the port trains")
+    ws = _pad(h4)
+    groups = _groups(-(-windows // WINDOWS_PER_THREAD), slots, min(RECUR_GROUPS, MAX_THREADS // hidden))
+    # W_h's rows, the step's dz twice
+    recur = lambda g: 4 * (hidden * ws + 2 * g * WINDOWS_PER_THREAD * h4)  # noqa: E731
+    while recur(groups) > SMEM_LIMIT and groups > 1:
         groups -= 1
+    if recur(groups) > SMEM_LIMIT:
+        raise _refuse(n_in, hidden, f"W_h needs {4 * hidden * ws} bytes of shared memory and a block "
+                                    f"has {SMEM_LIMIT}")
+    k = n_in + hidden + 1
+    k_pad = -(-k // 4) * 4
+    col_tiles = min(-(-h4 // 8), MAX_THREADS // (k_pad // 4))
+    if col_tiles < 1:
+        raise _refuse(n_in, hidden, f"its weight gradients need {k_pad // 4} threads for 8 gate columns "
+                                    f"and a block has {MAX_THREADS}")
+    grad_cols = 8 * col_tiles
+    wgrad = 4 * 2 * GRAD_ROWS * (k_pad + grad_cols)
+    dx_rows, dx_smem = 0, 0
+    if want_dx:
+        dx_rows = DX_ROWS
+        while 4 * (n_in + 2 * dx_rows) * ws > SMEM_LIMIT and dx_rows > 4:
+            dx_rows //= 2
+        dx_smem = 4 * (n_in + 2 * dx_rows) * ws
+        if dx_smem > SMEM_LIMIT:
+            raise _refuse(n_in, hidden, f"W_i needs {4 * n_in * ws} bytes of shared memory and a "
+                                        f"block has {SMEM_LIMIT}")
+    return LaunchPlan(groups, ws, k_pad, grad_cols, dx_rows, recur(groups), wgrad, dx_smem)
 
 
 def lstm_layer_bwd(
@@ -201,7 +261,9 @@ def lstm_layer_bwd(
     check_steps(steps, (m, n_in), device, (torch.float32,), "pipeline scaler")
     _check_batch(batch, m, device)
 
-    plan = launch_plan(n_in, H, B, want_dx)
+    plan = launch_plan(n_in, H, B, want_dx, m)
+    dz = torch.empty((m, B, lookback, 4 * H), dtype=torch.float32, device=device)
+    hs = torch.empty((m, B, lookback, H), dtype=torch.float32, device=device)
     dx = torch.empty((m, B, lookback, n_in), dtype=torch.float32, device=device) if want_dx else None
     dki = torch.empty((m, n_in, 4 * H), dtype=torch.float32, device=device)
     dkh = torch.empty((m, H, 4 * H), dtype=torch.float32, device=device)
@@ -212,12 +274,15 @@ def lstm_layer_bwd(
     args.win, args.rows, args.row_off = _ptr(batch.win), _ptr(batch.rows), _ptr(batch.row_off)
     args.x_mach, args.n_windows = _ptr(batch.x_mach), _ptr(batch.n_windows)
     args.w_i, args.w_h = _ptr(kernel_i), _ptr(kernel_h)
-    args.gates, args.cell, args.dout = _ptr(gates), _ptr(cell), _ptr(dout)
+    args.gates, args.cell, args.dout, args.dz = _ptr(gates), _ptr(cell), _ptr(dout), _ptr(dz)
+    args.hs = _ptr(hs)
     args.dx, args.dw_i, args.dw_h, args.dbias = _ptr(dx), _ptr(dki), _ptr(dkh), _ptr(db)
     args.m, args.n, args.nw, args.lookback = m, int(x.shape[1]), B, lookback
     args.in_, args.hidden = n_in, H
     args.rows_input, args.last, args.act = int(rows_input), int(last), ACT_CODES[act]
-    args.groups, args.smem_bytes = plan.groups, plan.smem_bytes
+    args.groups, args.w_pad, args.k_pad, args.grad_cols = plan.groups, plan.w_pad, plan.k_pad, plan.grad_cols
+    args.dx_rows, args.dx_blocks = plan.dx_rows, DX_BLOCKS
+    args.recur_smem, args.wgrad_smem, args.dx_smem = plan.recur_smem, plan.wgrad_smem, plan.dx_smem
 
     lib = _library()
     with torch.cuda.device(device):

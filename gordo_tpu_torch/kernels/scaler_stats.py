@@ -157,6 +157,7 @@ class _Args(ctypes.Structure):
         ("stat", ctypes.c_int),
         ("range_lo", ctypes.c_float),
         ("range_span", ctypes.c_float),
+        ("offset_fma", ctypes.c_int),
         ("with_mean", ctypes.c_int),
         ("with_std", ctypes.c_int),
         ("prefix", ScalerChain),
@@ -252,18 +253,24 @@ def scaler_stats(
     with_mean: bool = True,
     with_std: bool = True,
     prefix: Prefix = (),
+    offset_fma: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The ``stat`` of each machine of ``x`` (M, N, F) over each of the
     ``G`` host row lists in ``row_lists``, each value first taken through
     ``prefix``: ``"minmax"`` gives MinMax ``(scale, offset)`` for
     ``feature_range``, ``"standard"`` gives ``(mean, std)``, ``"mean"``
-    and ``"nanmean"`` give ``(mean, values summed)``; each (M, G, F)."""
+    and ``"nanmean"`` give ``(mean, values summed)``; each (M, G, F).
+    ``offset_fma``: the MinMax offset ``a - lo * scale`` rounded once, as
+    the fleet programs' XLA fusions compute it (``fleet.exact`` and
+    ``fleet.padded``, after any step or none); the reference's eager
+    ``fit`` rounds the product and the difference apart."""
     if stat not in STATS:
         raise ValueError(f"stat must be one of {STATS}, got {stat!r}")
     if prefix and stat in ("mean", "nanmean"):
         raise ValueError(f"the {stat} statistic takes no chain prefix")
     if x.device.type == "cpu":
-        return scaler_stats_plain(x, row_lists, feature_range, stat, with_mean, with_std, prefix)
+        return scaler_stats_plain(x, row_lists, feature_range, stat, with_mean, with_std, prefix,
+                                  offset_fma)
     if x.device.type != "cuda":
         raise ValueError(f"scaler_stats runs on cuda or cpu tensors, got {x.device}")
     M, N, F, lists = validate(x, row_lists, prefix)
@@ -277,6 +284,7 @@ def scaler_stats(
     args.out0, args.out1 = out0.data_ptr(), out1.data_ptr()
     args.stat = STATS.index(stat)
     args.range_lo, args.range_span = float(a), float(b - a)
+    args.offset_fma = int(bool(offset_fma))
     args.with_mean, args.with_std = int(bool(with_mean)), int(bool(with_std))
     lib = _library()
     with torch.cuda.device(x.device):
@@ -364,6 +372,7 @@ def scaler_stats_plain(
     with_mean: bool = True,
     with_std: bool = True,
     prefix: Prefix = (),
+    offset_fma: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`scaler_stats` in plain PyTorch, with ``jnp.nanmin``/
     ``jnp.nanmax`` and ``jnp.nanmean``/``jnp.nanstd`` (ddof 0) semantics:
@@ -388,7 +397,10 @@ def scaler_stats_plain(
             # torch.maximum keeps a NaN, as jnp.maximum does
             scale = (b - a) / torch.maximum(hi - lo, eps)
             outs0.append(scale)
-            outs1.append(a - lo * scale)
+            if offset_fma:
+                outs1.append(fused(-lo, scale, torch.tensor(float(a), device=x.device)))
+            else:
+                outs1.append(a - lo * scale)
             continue
         if stat in ("mean", "nanmean"):
             _check_mean_rows([rows])

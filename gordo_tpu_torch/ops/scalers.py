@@ -135,10 +135,13 @@ class BaseTransform(ParamsMixin):
         """Constructor options that change the stats (the fleet signature's)."""
         return {}
 
-    def stats_of(self, x: torch.Tensor, row_lists, prefix: Prefix = ()) -> Tuple[torch.Tensor, torch.Tensor]:
+    def stats_of(self, x: torch.Tensor, row_lists, prefix: Prefix = (),
+                 fused: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         """The two stats leaves, each (M, G, F), of each machine of ``x``
         (M, N, F) over each host row list, every value first taken through
-        ``prefix`` (earlier chain steps, ``scaler_stats``'s form)."""
+        ``prefix`` (earlier chain steps, ``scaler_stats``'s form).
+        ``fused``: round as the fleet programs' XLA fusions do, where that
+        differs from the eager ``fit`` (a MinMax offset, one FMA)."""
         raise NotImplementedError(
             f"{type(self).__name__}.fit waits for {_UNPORTED_ITEM}"
         )
@@ -211,8 +214,8 @@ class MinMaxScaler(BaseTransform):
     def _stat_options(self):
         return {"feature_range": self.feature_range}
 
-    def stats_of(self, x, row_lists, prefix: Prefix = ()):
-        return scaler_stats(x, row_lists, self.feature_range, prefix=prefix)
+    def stats_of(self, x, row_lists, prefix: Prefix = (), fused: bool = False):
+        return scaler_stats(x, row_lists, self.feature_range, prefix=prefix, offset_fma=fused)
 
     @staticmethod
     def apply(stats: Stats, X):
@@ -236,7 +239,7 @@ class StandardScaler(BaseTransform):
     def _stat_options(self):
         return {"with_mean": self.with_mean, "with_std": self.with_std}
 
-    def stats_of(self, x, row_lists, prefix: Prefix = ()):
+    def stats_of(self, x, row_lists, prefix: Prefix = (), fused: bool = False):
         return scaler_stats(x, row_lists, stat="standard", with_mean=self.with_mean,
                             with_std=self.with_std, prefix=prefix)
 
@@ -268,7 +271,7 @@ class RobustScaler(BaseTransform):
             "quantile_range": self.quantile_range,
         }
 
-    def stats_of(self, x, row_lists, prefix: Prefix = ()):
+    def stats_of(self, x, row_lists, prefix: Prefix = (), fused: bool = False):
         return scaler_quantiles(x, row_lists, self.quantile_range, self.with_centering,
                                 self.with_scaling, prefix=prefix)
 

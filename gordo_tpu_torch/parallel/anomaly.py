@@ -196,14 +196,16 @@ def _stats(spec: FleetSpec, X: torch.Tensor, y: torch.Tensor, fit_rows):
     b)`` with its stats leaves (M, G, F) (none without a scaler step), and
     the detector scaler's step with its stats of the targets (M, 1, Fo).
     NaN rows (a pad-up group's padding) stay NaN through the chain and
-    fall out of every statistic, as in the reference."""
+    fall out of every statistic, as in the reference.  The stats round as
+    the fleet programs' fusions round them (``fused``: a MinMax offset is
+    one FMA there, two roundings in the reference's eager ``fit``)."""
     N = int(X.shape[1])
     chain = []
     for proto in spec.scaler_protos:
-        a, b = proto.stats_of(X, fit_rows, prefix=chain)
+        a, b = proto.stats_of(X, fit_rows, prefix=chain, fused=True)
         chain.append((proto.FORM, a, b))
     det = spec.detector_proto.scaler
-    return chain, (det.FORM,) + tuple(det.stats_of(y, [np.arange(N)]))
+    return chain, (det.FORM,) + tuple(det.stats_of(y, [np.arange(N)], fused=True))
 
 
 def chain_dims(spec: FleetSpec, n_features: int, n_out: int):

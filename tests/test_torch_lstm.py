@@ -20,6 +20,7 @@ from gordo_tpu.ops.windows import make_windows as jax_make_windows
 from gordo_tpu.registry import lookup_factory as jax_factory
 from gordo_tpu_torch import convert
 from gordo_tpu_torch.kernels import lstm_layer as ll
+from gordo_tpu_torch.kernels import lstm_layer_bwd as lb
 from gordo_tpu_torch.models.estimator import LSTMAutoEncoder, LSTMForecast
 from gordo_tpu_torch.ops.windows import make_windows, num_windows
 from gordo_tpu_torch.registry import lookup_factory, resolve_alias
@@ -181,15 +182,66 @@ def test_wrapper_on_cpu_tensors_is_the_plain_version():
 
 
 def test_launch_plan_fits_the_bench_widths_and_refuses_wide_layers():
-    # the 50 -> 42 layer of BASELINE config 2: weights ~65 KB, and up to
-    # MAX_THREADS threads (12 groups of 42 units, 48 windows a block)
-    plan = ll.launch_plan(50, 42, 4085)
-    assert plan.groups * 42 <= ll.MAX_THREADS and plan.groups == 12
-    assert plan.in_pad == 52 and plan.h_pad == 44
+    # the 50 -> 42 layer of BASELINE config 2 served over 64 machines x 4085
+    # windows: eight windows a thread, up to HOIST_GROUPS groups of 42 units
+    # sharing one copy of the weights, its input product hoisted out of the
+    # steps (xp of the tile's rows), enough blocks to fill the card, within
+    # a block's threads (__launch_bounds__: 128 registers a thread) and
+    # shared memory
+    plan = ll.launch_plan(50, 42, 4085, slots=64, lookback=12)
+    assert (plan.wpt, plan.hoist) == (ll.WIDE_WPT, True)
+    assert 1 < plan.groups <= ll.HOIST_GROUPS and plan.groups * 42 <= ll.MAX_THREADS
+    assert 64 * -(-4085 // plan.tile) >= ll.MIN_BLOCKS
+    assert plan.tile_pad >= plan.tile and plan.rows_pad >= plan.tile + 11
     assert plan.smem_bytes <= ll.SMEM_LIMIT
+    # the later layers, x_t in the loop
+    dims = [50, 42, 33, 25, 25, 33, 42]
+    for n_in, h in zip(dims[1:-1], dims[2:]):
+        later = ll.launch_plan(n_in, h, 4085, slots=64)
+        assert not later.hoist and later.groups <= ll.MAX_GROUPS and later.groups * h <= ll.MAX_THREADS
+        assert later.smem_bytes <= ll.SMEM_LIMIT
+    # the stream's launch, one machine of 144 windows: two windows a
+    # thread, one group, 72 blocks, where the parent's plan (12 groups of
+    # four windows) launched 3
+    stream = ll.launch_plan(50, 42, 144, slots=1, lookback=12)
+    assert (stream.wpt, stream.groups) == (ll.NARROW_WPT, 1) and -(-144 // stream.tile) == 72
+    # a lockstep step's minibatches, 256 slots x 64 windows: two even tiles
+    # a slot
+    train = ll.launch_plan(50, 42, 64, slots=256)
+    assert train.tile == 32 and not train.hoist
+    # the widest layers the parent took still fit: a square layer of 83
+    # units, the first layer of a 92-tag hourglass (without the hoist)
+    assert ll.launch_plan(83, 83, 4085, slots=64, lookback=12).smem_bytes <= ll.SMEM_LIMIT
+    assert not ll.launch_plan(92, 77, 144, lookback=12).hoist
     assert ll.launch_plan(3, 2, 1).groups == 1  # no more groups than windows
-    with pytest.raises(ValueError, match="wide LSTM layers"):
+    with pytest.raises(ValueError, match="item 14"):
         ll.launch_plan(256, 128, 100)
+
+
+def test_bwd_launch_plan_fits_the_bench_widths_and_refuses_wide_layers():
+    # one lockstep step of the bench's LSTM build, 256 slots x 64 windows:
+    # the recurrence in blocks of four groups (16 windows, 1,024 blocks),
+    # the weight gradients a block of every gate column per slot, dx in
+    # blocks that stage 32 rows twice; each within a block's shared memory
+    # and threads
+    dims = [50, 42, 33, 25, 25, 33, 42]
+    for i, (n_in, h) in enumerate(zip(dims[:-1], dims[1:])):
+        plan = lb.launch_plan(n_in, h, 64, i > 0, slots=256)
+        assert plan.groups == lb.RECUR_GROUPS and plan.groups * h <= lb.MAX_THREADS
+        assert 256 * -(-64 // (plan.groups * lb.WINDOWS_PER_THREAD)) >= lb.MIN_BLOCKS
+        assert max(plan.recur_smem, plan.wgrad_smem, plan.dx_smem) <= lb.SMEM_LIMIT
+        assert plan.grad_cols >= 4 * h and plan.k_pad >= n_in + h + 1
+        assert (plan.k_pad // 4) * (plan.grad_cols // 8) <= lb.MAX_THREADS
+        assert (plan.dx_rows, plan.dx_smem > 0) == ((lb.DX_ROWS, True) if i else (0, False))
+    # a few slots: smaller blocks, so that the recurrence still spreads
+    assert lb.launch_plan(50, 42, 64, False, slots=4).groups == 1
+    # the widths the parent trained still train, and those it refused
+    # still wait for item 14 (the 92-tag hourglass's middle and first
+    # layers)
+    assert lb.launch_plan(46, 46, 64, True, slots=16).dx_smem <= lb.SMEM_LIMIT
+    for args in ((92, 77, 64, False), (256, 128, 100, True)):
+        with pytest.raises(NotImplementedError, match="item 14"):
+            lb.launch_plan(*args)
 
 
 def test_estimators_window_offsets_and_refuse_to_fit():
