@@ -125,11 +125,17 @@ itself.  Phases, each printing one JSON line:
    bucket; each kernel's launches (set to 0 just before), the bf16 ones
    and ``fake_quant``'s at the int8 load.
 16. ``stream_kernel_check``: ``stream_step`` for a default detector
-   (window 144) and an LSTM ae detector's head (50 tags, lookback 12), at
-   f32 and over bf16, at steady state and in warm-up, against its plain
-   version, and bit for bit against the request path's kernels
-   (``fleet_score``, after ``lstm_layer``, then ``rolling_median``) over
-   the same rows; the ring shift alone; times and bounds.
+   (window 144), an LSTM ae detector's head (50 tags, lookback 12) and a
+   chain-C detector (its ``chain_apply`` output the dense stack's input),
+   at f32 and over bf16, at steady state and in warm-up, against its
+   plain version, and bit for bit against the request path's kernels
+   (``fleet_score``, after ``lstm_layer`` or ``chain_apply``, then
+   ``rolling_median``) over the same rows; rows streamed from an empty
+   ring past a full one, the carried one-row mode (the LSTM's layers and
+   the chain over the newest window or row) bit for bit the full-window
+   mode at every row, verdicts and carried tag scores; the ring shift
+   alone; both modes' times beside the card's launch floor (an empty
+   kernel), and bounds.
 17. ``stream``: 64 default and 8 LSTM ae detectors (window 144) fed 300
    rows each through ``StreamHub.ingest_rows`` (launches set to 0 just
    before: one ``stream_step`` per row; an LSTM's row also one shift and
@@ -291,6 +297,7 @@ a run without CUDA or outside a checkout of the repository.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import math
@@ -1180,18 +1187,20 @@ def _valid_err(ref, got, counts, what: str, tol: float):
 LSTM_STREAM_ROWS = SMOOTH_WINDOW + LOOKBACK - 1
 
 
-def lstm_stream_shape(net, x, scale, offset) -> dict:
-    """The six ``lstm_layer`` launches at the stream's shape (machine 0 of
-    the bucket, its first LSTM_STREAM_ROWS rows), each fed the kernel's
-    output of the layer before and held to its plain version; the layers'
-    summed device times, plain times and ``torch.nn.LSTM`` times (one call
-    a layer), and their bound."""
+def lstm_stream_shape(net, x, scale, offset, rows: int = LOOKBACK) -> dict:
+    """The six ``lstm_layer`` launches at a stream's shape (machine 0 of the
+    bucket, its first ``rows`` rows: LOOKBACK, one window, a streamed
+    row's launch; LSTM_STREAM_ROWS, the window's 144, the launch that
+    primes a stream), each fed the kernel's output of the layer before and
+    held to its plain version; the layers' summed device times, plain
+    times and ``torch.nn.LSTM`` times (one call a layer), and their
+    bound."""
     from gordo_tpu_torch.kernels import lstm_layer as ll
     from gordo_tpu_torch.ops.windows import make_windows
 
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a[:1])).to(x.device)  # noqa: E731
     s1, o1 = scale[:1].contiguous(), offset[:1].contiguous()
-    h = x[:1, :LSTM_STREAM_ROWS].contiguous()
+    h = x[:1, :rows].contiguous()
     layers = []
     for i, cell in enumerate(net["cells"]):
         ki, kh, b = (put(a) for a in cell)
@@ -1218,13 +1227,13 @@ def lstm_stream_shape(net, x, scale, offset) -> dict:
                     return torch.tanh(lstm(wins)[0])
 
             entry["library_ms"], _ = time_calls_ms(library, 20)
-        entry.update(bound(*lstm_layer_cost(1, LSTM_STREAM_ROWS, n_in, hidden, first, last)))
+        entry.update(bound(*lstm_layer_cost(1, rows, n_in, hidden, first, last)))
         layers.append(entry)
         h = got
-    out = {"shape": [1, LSTM_STREAM_ROWS, int(x.shape[-1])], "windows": SMOOTH_WINDOW, "layers": layers,
+    out = {"shape": [1, rows, int(x.shape[-1])], "windows": rows - LOOKBACK + 1, "layers": layers,
            "max_abs_err": max(e["max_abs_err"] for e in layers)}
     out.update({k: sum(e[k] for e in layers) for k in ("ms", "plain_ms", "library_ms") if k in layers[0]})
-    out.update(lstm_layer_bound(1, LSTM_STREAM_ROWS, net["dims"]))
+    out.update(lstm_layer_bound(1, rows, net["dims"]))
     return out
 
 
@@ -1301,8 +1310,9 @@ def lstm_redesign_line(lstm_kernels: dict, lstm_train_kernels: dict, lstm_train:
     fwd, bwd = lstm_kernels["lstm_layer"], lstm_train_kernels["lstm_layer_bwd"]
     return {"phase": "lstm_redesign",
             "lstm_layer_ms": fwd.get("ms"), "lstm_layer_bound_ms": fwd["bound_ms"],
-            "lstm_layer_stream_ms": fwd["stream_shape"].get("ms"),
-            "lstm_layer_stream_bound_ms": fwd["stream_shape"]["bound_ms"],
+            "lstm_layer_stream_ms": fwd["stream_prime_shape"].get("ms"),
+            "lstm_layer_stream_bound_ms": fwd["stream_prime_shape"]["bound_ms"],
+            "lstm_layer_stream_newest_ms": fwd["stream_shape"].get("ms"),
             "lstm_layer_bwd_ms": bwd.get("ms"), "lstm_layer_bwd_bound_ms": bwd["bound_ms"],
             "lstm_build_seconds": lstm_train["build_seconds"],
             "parent": PARENT_LSTM}
@@ -1394,10 +1404,11 @@ def phase_lstm_kernel_check():
     total.update(lstm_layer_bound(machines, n, net["dims"]))
     entries["lstm_layer"] = {"layers": layers, "tolerance": LSTM_TOLERANCE["lstm_layer"], **total,
                              "variants": lstm_layer_variants(rng, net, x, scale, offset),
-                             "stream_shape": lstm_stream_shape(net, x, scale, offset)}
+                             "stream_shape": lstm_stream_shape(net, x, scale, offset),
+                             "stream_prime_shape": lstm_stream_shape(net, x, scale, offset, LSTM_STREAM_ROWS)}
     entries["lstm_layer"]["max_abs_err"] = max(
         [e["max_abs_err"] for e in layers] + [v["max_abs_err"] for v in entries["lstm_layer"]["variants"]]
-        + [entries["lstm_layer"]["stream_shape"]["max_abs_err"]])
+        + [entries["lstm_layer"][k]["max_abs_err"] for k in ("stream_shape", "stream_prime_shape")])
 
     # the head and detector epilogue: fleet_score on the final states
     W, bh = put(net["head"][0]), put(net["head"][1])
@@ -3380,24 +3391,49 @@ def phase_precision_serve():
     return out
 
 
-def stream_bound(H: int, F: int, W: int, dims, elem: int, lstm: bool):
+def stream_bound(H: int, F: int, W: int, dims, elem: int, lstm: bool, rows: int = None):
     """Least time of one ``stream_step``: the ring read and written, the new
     row, the chain's weights and stats read once at the storage width (an
-    LSTM's state in f32), the verdict written; the dense stack's FLOPs over
-    the W rows."""
+    LSTM's state in f32: ``rows`` of it), the carried tag scores read and
+    written (f32), the verdict written; the dense stack's FLOPs over the
+    ``rows`` scored rows (default W, the priming mode; 1 a carried step)
+    and every row's L2 total."""
+    rows = W if rows is None else rows
     weights = sum(dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(dims) - 1))
     fo = dims[-1]
     nbytes = elem * (2 * H * F + F + weights + (0 if lstm else 2 * F) + 2 * fo) + 4 * (fo + 4)
+    nbytes += 4 * (W * fo if rows == W else 2 * W * fo)
     if lstm:
-        nbytes += 4 * W * dims[0]
-    flops = 2 * W * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1))
+        nbytes += 4 * rows * dims[0]
+    flops = 2 * rows * sum(dims[i] * dims[i + 1] for i in range(len(dims) - 1)) + 2 * W * fo
     return bound(nbytes, flops)
+
+
+#: rows a kernel check streams from an empty ring: across the warm-up
+#: (an LSTM's first valid row is its LOOKBACK-th) and past a full ring
+STREAM_CHECK_EXTRA_ROWS = 8
+
+
+def launch_floor_ms() -> dict:
+    """The card's launch floor: an empty kernel from ``stream_step``'s
+    library, timed as a step is (``time_ms``: CUDA events around launches
+    enqueued while the card sleeps; and the host's enqueue time)."""
+    from gordo_tpu_torch.kernels import stream_step as sk
+
+    ms, host_ms = time_ms(lambda: sk.empty_launch(torch.device(DEVICE)), 500)
+    return {"ms": ms, "host_ms": host_ms}
 
 
 def phase_stream_kernel_check():
     """``stream_step`` (and its shift alone) against its plain version and,
     bit for bit, against the request path's kernels over the same rows, for
-    a default detector and an LSTM ae detector, at f32 and over bf16."""
+    a default detector, an LSTM ae detector and a chain-C detector (its
+    chain's output as the dense stack's input), at f32 and over bf16; a
+    stream of rows from an empty ring through the carried one-row mode
+    (the LSTM's layers over the newest window) held bit for bit to the
+    full-window mode at every row, and the plain version's carried mode to
+    its full mode; both modes' times beside the card's launch floor."""
+    from gordo_tpu_torch.kernels import chain_apply as ca
     from gordo_tpu_torch.kernels import fleet_score as fs
     from gordo_tpu_torch.kernels import lstm_layer as ll
     from gordo_tpu_torch.kernels import rolling_median as rm
@@ -3407,9 +3443,14 @@ def phase_stream_kernel_check():
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)  # noqa: E731
     entries = {}
     W = SMOOTH_WINDOW
-    for kind in ("default", "lstm"):
+    for kind in ("default", "lstm", "chain"):
         if kind == "default":
             src = random_chain(rng, 1, 10)
+            layers = [(put(w), put(b)) for w, b in src["layers"]]
+            acts, dims, offset_rows, F = src["acts"], src["dims"], 0, 10
+        elif kind == "chain":
+            # chain C's stream: chain_apply's output of the ring's rows feeds the dense stack
+            src = random_chain_c(rng, 1, 10, CHAIN_C_K)
             layers = [(put(w), put(b)) for w, b in src["layers"]]
             acts, dims, offset_rows, F = src["acts"], src["dims"], 0, 10
         else:
@@ -3427,20 +3468,37 @@ def phase_stream_kernel_check():
             cells = [tuple(cast(put(a)) for a in c) for c in src.get("cells", [])]
             ring = cast(put(rng.standard_normal((H, F))))
             row = cast(put(rng.standard_normal(F)))
+            if kind == "chain":
+                steps = [dataclasses.replace(st, a=cast(st.a), b=cast(st.b)) for st in chain_c_steps(src, DEVICE)]
 
-            def score(ring_in, count, x=None, ring_out=None, plain=False):
+            def model_input(ring_now, newest=False, plain=False):
+                # the dense stack's input: the LSTM's last-layer state of the
+                # ring's windows, or the chain's output of its rows; or of the
+                # newest window (row) alone
+                if kind == "chain":
+                    fn = ca.chain_apply_plain if plain else ca.chain_apply
+                    x = ring_now[None, W - 1:] if newest else ring_now[None]
+                    return fn(x, steps, out_dtype=torch.float32)[0]
+                fn = ll.lstm_layer_plain if plain else ll.lstm_layer
+                h = ring_now[None, W - 1: W - 1 + LOOKBACK] if newest else ring_now[None]
+                for i, (ki, kh, b) in enumerate(cells):
+                    h = fn(h, ki, kh, b, lookback=LOOKBACK, act="tanh",
+                           n_windows=(1 if newest else W) if i == 0 else None, chain=pipe if i == 0 else None,
+                           last=i == len(cells) - 1)
+                return h[0]
+
+            def score(ring_in, count, x=None, ring_out=None, plain=False, tags_in=None, tags_out=None):
                 fn = sk.stream_step_plain if plain else sk.stream_step
-                kw = dict(window=W, mode_offset=offset_rows, det=det, agg_thr=thr)
+                kw = dict(window=W, mode_offset=offset_rows, det=det, agg_thr=thr,
+                          tags_in=tags_in, tags_out=tags_out)
                 if kind == "default":
                     return fn(ring_in, count, lay, acts, chain=pipe, x=x, ring_out=ring_out, **kw)
-                h = ring_in[None]
-                for i, ((ki, kh, b), act) in enumerate(zip(cells, ["tanh"] * len(cells))):
-                    h = ll.lstm_layer(h, ki, kh, b, lookback=LOOKBACK, act=act,
-                                      n_windows=W if i == 0 else None, chain=pipe if i == 0 else None,
-                                      last=i == len(cells) - 1)
-                return fn(ring_in, count, lay, acts, h=h[0], **kw)
+                # the newest window alone, as the stream takes it on the card
+                newest = tags_in is not None and not plain and DEVICE == "cuda"
+                return fn(ring_in, count, lay, acts, h=model_input(ring_in, newest, plain), **kw)
 
-            e = {"ring": [H, F], "window": W, "storage": str(dtype).replace("torch.", "")}
+            e = {"ring": [H, F], "window": W, "storage": str(dtype).replace("torch.", ""),
+                 "sort_k": sk.launch_plan(dims, W).sort_k}
             # steady state, and warm-up (count < H: older scores masked)
             for label, count0 in (("steady", 10 * H), ("warm_up", offset_rows + 3)):
                 count_k = torch.tensor([count0], dtype=torch.int32, device=DEVICE)
@@ -3467,12 +3525,8 @@ def phase_stream_kernel_check():
                     if kind == "default":
                         scored = fs.fleet_score(out_k[None], lay, acts, chain=pipe, det=det)
                     else:
-                        h = out_k[None]
-                        for i, (ki, kh, b) in enumerate(cells):
-                            h = ll.lstm_layer(h, ki, kh, b, lookback=LOOKBACK, act="tanh",
-                                              n_windows=W if i == 0 else None, chain=pipe if i == 0 else None,
-                                              last=i == len(cells) - 1)
-                        scored = fs.fleet_score(h, lay, acts, y=out_k[None], y_offset=offset_rows, det=det)
+                        scored = fs.fleet_score(model_input(out_k)[None], lay, acts, y=out_k[None],
+                                                y_offset=offset_rows, det=det)
                     med = rm.rolling_median(scored["tag-anomaly-scores"], scored["total-anomaly-score"], W,
                                             agg_thr=thr)
                     want = torch.cat([med["tag-anomaly-scores"][0, -1], med["total-anomaly-score"][0, -1:],
@@ -3480,25 +3534,96 @@ def phase_stream_kernel_check():
                     check(bool(torch.equal(got[:fo + 2], want)),
                           f"stream_step {kind} {str(dtype)}: the verdict is bit for bit the request path's")
                     check(float(got[fo + 2]) == 1.0, "a steady-state row is valid")
-            e["max_abs_err"] = max(e["steady"]["max_abs_err"], e["warm_up"]["max_abs_err"])
+            e["carried"] = _carried_stream_check(kind, score, rng, H, F, W, dtype)
+            e["max_abs_err"] = max(e["steady"]["max_abs_err"], e["warm_up"]["max_abs_err"],
+                                   e["carried"]["max_abs_err"])
             count_t = torch.tensor([H], dtype=torch.int32, device=DEVICE)
             out_t = torch.empty_like(ring)
+            fo = dims[-1]
+            tags_t = [torch.randn((W, fo), device=DEVICE).abs() for _ in range(2)]
             if DEVICE == "cuda":
                 if kind == "default":
-                    run = lambda: score(ring, count_t, row, out_t)  # noqa: E731
-                    plain = lambda: score(ring, count_t.clone(), row, out_t.clone(), plain=True)  # noqa: E731
+                    full = lambda: score(ring, count_t, row, out_t)  # noqa: E731
+                    one = lambda: score(ring, count_t, row, out_t, tags_in=tags_t[0], tags_out=tags_t[1])  # noqa: E731
+                    plain = lambda: score(ring, count_t.clone(), row, out_t.clone(), plain=True,  # noqa: E731
+                                          tags_in=tags_t[0], tags_out=tags_t[1].clone())
                 else:
-                    h_fixed = torch.randn((W, dims[0]), device=DEVICE)
-                    skw = dict(window=W, mode_offset=offset_rows, det=det, agg_thr=thr, h=h_fixed)
-                    run = lambda: sk.stream_step(out_t, count_t, lay, acts, **skw)  # noqa: E731
-                    plain = lambda: sk.stream_step_plain(out_t, count_t, lay, acts, **skw)  # noqa: E731
+                    h_full = torch.randn((W, dims[0]), device=DEVICE)
+                    skw = dict(window=W, mode_offset=offset_rows, det=det, agg_thr=thr)
+                    full = lambda: sk.stream_step(out_t, count_t, lay, acts, h=h_full, **skw)  # noqa: E731
+                    one = lambda: sk.stream_step(out_t, count_t, lay, acts, h=h_full[-1:], tags_in=tags_t[0],  # noqa: E731
+                                                 tags_out=tags_t[1], **skw)
+                    plain = lambda: sk.stream_step_plain(out_t, count_t, lay, acts, h=h_full[-1:],  # noqa: E731
+                                                         tags_in=tags_t[0], tags_out=tags_t[1].clone(), **skw)
                     e["shift_ms"], e["shift_host_ms"] = time_ms(lambda: sk.stream_shift(ring, out_t, count_t, row), 200)
-                e["ms"], e["host_ms"] = time_ms(run, 200)
+                e["ms"], e["host_ms"] = time_ms(one, 200)
+                e["full_ms"], e["full_host_ms"] = time_ms(full, 200)
                 e["plain_ms"], e["plain_host_ms"] = time_calls_ms(plain, 20)
-            e.update(stream_bound(H, F, W, dims, 2 if dtype == torch.bfloat16 else 4, kind == "lstm"))
+            elem = 2 if dtype == torch.bfloat16 else 4
+            e.update(stream_bound(H, F, W, dims, elem, kind != "default", rows=1))
+            e["full_bound_ms"] = stream_bound(H, F, W, dims, elem, kind != "default")["bound_ms"]
             entries[f"{kind}_{e['storage']}"] = e
+    if DEVICE == "cuda":
+        entries["launch_floor"] = launch_floor_ms()
     emit({"phase": "stream_kernel_check", "kernels": {"stream_step": entries}})
     return entries
+
+
+def _carried_stream_check(kind, score, rng, H, F, W, dtype) -> dict:
+    """Rows streamed from an empty ring (count 0) past a full one, the
+    kernel's carried mode (primed at the first row, then one new row a
+    step; an LSTM's layers over the newest window) against its full mode
+    at every row, bit for bit (verdicts and carried tag scores), the plain
+    version's modes against each other the same way, and the kernel
+    against the plain version within TOLERANCE."""
+    rows = torch.from_numpy(rng.standard_normal((H + STREAM_CHECK_EXTRA_ROWS, F)).astype(np.float32))
+    rows = rows.to(DEVICE).to(dtype)
+    fo = F
+    state = {}
+    for name, plain in (("kernel", False), ("plain", True)):
+        for mode in ("carried", "full"):
+            rings = [torch.zeros((H, F), dtype=dtype, device=DEVICE), torch.zeros((H, F), dtype=dtype, device=DEVICE)]
+            tags = [torch.zeros((W, fo), device=DEVICE), torch.zeros((W, fo), device=DEVICE)]
+            state[name, mode] = {"rings": rings, "tags": tags, "cur": 0,
+                                 "count": torch.zeros(1, dtype=torch.int32, device=DEVICE), "plain": plain,
+                                 "carried": mode == "carried", "verdicts": [], "tag_hist": []}
+    from gordo_tpu_torch.kernels import stream_step as sk
+
+    for t in range(rows.shape[0]):
+        for st in state.values():
+            ring_in, ring_out = st["rings"][st["cur"]], st["rings"][1 - st["cur"]]
+            tags_in = st["tags"][st["cur"]] if st["carried"] and t > 0 else None
+            tags_out = st["tags"][1 - st["cur"]]
+            if kind == "default":
+                v = score(ring_in, st["count"], rows[t], ring_out, plain=st["plain"],
+                          tags_in=tags_in, tags_out=tags_out)
+            else:
+                (sk.stream_shift_plain if st["plain"] else sk.stream_shift)(ring_in, ring_out, st["count"], rows[t])
+                v = score(ring_out, st["count"], plain=st["plain"], tags_in=tags_in, tags_out=tags_out)
+            st["cur"] = 1 - st["cur"]
+            st["verdicts"].append(v)
+            st["tag_hist"].append(tags_out.clone())
+    out = {"rows": int(rows.shape[0]), "max_abs_err": 0.0, "max_norm_err": 0.0}
+    for name in ("kernel", "plain"):
+        a, b = state[name, "carried"], state[name, "full"]
+        same = all(torch.equal(x, y) or (torch.isnan(x) == torch.isnan(y)).all()
+                   and torch.equal(x[~torch.isnan(x)], y[~torch.isnan(y)])
+                   for x, y in zip(a["verdicts"], b["verdicts"]))
+        same_tags = all(torch.equal(x, y) for x, y in zip(a["tag_hist"], b["tag_hist"]))
+        check(same and same_tags, f"stream_step {kind} {dtype} {name}: the carried mode is the full mode "
+                                  f"bit for bit at every row (verdicts {same}, tags {same_tags})")
+    valid = 0
+    for got, ref in zip(state["kernel", "carried"]["verdicts"], state["plain", "carried"]["verdicts"]):
+        fin = ~torch.isnan(ref)
+        check(bool(torch.equal(fin, ~torch.isnan(got))), f"stream_step {kind} carried: NaN where the plain version has it")
+        if fin.any():
+            out["max_norm_err"] = max(out["max_norm_err"], norm_err(ref[fin], got[fin]))
+            out["max_abs_err"] = max(out["max_abs_err"], float((ref[fin].double() - got[fin].double()).abs().max()))
+        valid += int(float(got[-1]) == 1.0)
+    check(out["max_norm_err"] <= TOLERANCE, f"stream_step {kind} carried within {TOLERANCE}: {out['max_norm_err']}")
+    check(valid == rows.shape[0] - (H - W), f"stream_step {kind} carried: {valid} valid rows of {rows.shape[0]}")
+    out["valid_rows"] = valid
+    return out
 
 
 def _sse_reader(url: str, want_last: list, events: list):
@@ -5674,14 +5799,14 @@ def _chain_stream_kernel_ms(hub, collection, rows, dtype) -> dict:
 
 def chain_stream_bound(src, tags: int, elem: int) -> dict:
     """Least time of one streamed chain-C row: the shift (the ring read and
-    written, the new row), ``chain_apply`` over the ring (its rows read, the
-    chain's output written, its stats read once; the PCA's operations), and
-    ``stream_step`` on the chain's output (``stream_bound``), stats and
-    weights at the storage width ``elem``."""
+    written, the new row), ``chain_apply`` over the ring's newest row (read,
+    the chain's output written, its stats read once; the PCA's operations),
+    and ``stream_step`` on that row's output with the carried tag scores
+    (``stream_bound``), stats and weights at the storage width ``elem``."""
     H, k, dims = SMOOTH_WINDOW, CHAIN_C_K, src["dims"]
-    chain_bytes = 4 * (H * tags + H * k) + elem * (2 * tags + tags * k + 2 * k)
-    chain_ops = H * (tags + 2 * tags * k + 2 * k)
-    step = stream_bound(H, k, SMOOTH_WINDOW, dims, elem, False)
+    chain_bytes = 4 * (tags + k) + elem * (2 * tags + tags * k + 2 * k)
+    chain_ops = tags + 2 * tags * k + 2 * k
+    step = stream_bound(H, k, SMOOTH_WINDOW, dims, elem, False, rows=1)
     b = bound(step["bytes"] + chain_bytes + 4 * (2 * H * tags + tags), step["flops"] + chain_ops)
     return {"kernel_bound_ms": b["bound_ms"], "kernel_bound_by": b["bound_by"]}
 
@@ -6694,8 +6819,9 @@ def main() -> int:
             "shape": list(LSTM_SHAPE),
         })
         if name == "lstm_layer":
-            summary[-1]["stream_shape"] = {k: entry["stream_shape"][k] for k in (
-                "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for key in ("stream_shape", "stream_prime_shape"):
+                summary[-1][key] = {k: entry[key][k] for k in (
+                    "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     for name, entry in lstm_train_kernels.items():
         mod = importlib.import_module(
             f"gordo_tpu_torch.kernels.{'lstm_layer' if name == 'lstm_layer_train' else name}")
@@ -6817,12 +6943,14 @@ def main() -> int:
         "launches": stream["launches"]["stream_step"] + stream["launches"]["stream_shift"],
         "launches_by_path": {"stream": stream["launches"]["stream_step"],
                              "stream_shift": stream["launches"]["stream_shift"]},
-        "max_abs_err": max(e["max_abs_err"] for e in stream_kernels.values()),
+        "max_abs_err": max(e["max_abs_err"] for k, e in stream_kernels.items() if k != "launch_floor"),
         "ms": step["ms"], "plain_ms": step["plain_ms"], "bound_ms": step["bound_ms"],
         "bound_by": step["bound_by"], "library_ms": None,
-        "shape": [*step["ring"], "window", step["window"]],
-        "variants": {k: {f: e.get(f) for f in ("ms", "plain_ms", "bound_ms", "shift_ms")}
-                     for k, e in stream_kernels.items()},
+        "shape": [*step["ring"], "window", step["window"], "one new row"],
+        "variants": {k: {f: e.get(f) for f in ("ms", "full_ms", "plain_ms", "bound_ms", "full_bound_ms",
+                                               "shift_ms", "sort_k")}
+                     for k, e in stream_kernels.items() if k != "launch_floor"},
+        "launch_floor": stream_kernels["launch_floor"],
     })
     # resumable fits: the LSTM estimator's launches on the resume path;
     # the stateful and weighted fleet_fit (whose launches are not in

@@ -16,6 +16,7 @@
 #include <math.h>
 
 #include "activations.cuh"
+#include "copy_async.cuh"
 #include "scaler_prefix.cuh"
 #include "storage.cuh"
 
@@ -71,6 +72,22 @@ __device__ __forceinline__ void dense_load_resident(const DenseChain& ch, int ma
   }
 }
 
+// dense_load_resident for float weights by cp.async: the copies do not
+// wait, so every layer's are in flight at once; the caller commits and
+// waits (copy_async.cuh) before its barrier
+__device__ __forceinline__ void dense_copy_resident(const DenseChain& ch, int mach, float* wbuf) {
+  int off = 0;
+  for (int l = 0; l < ch.n_layers; ++l) {
+    const int nw = ch.dims[l] * ch.dims[l + 1];
+    const int nb = ch.dims[l + 1];
+    const float* W = static_cast<const float*>(ch.w[l]) + (size_t)mach * nw;
+    const float* B = static_cast<const float*>(ch.b[l]) + (size_t)mach * nb;
+    for (int e = threadIdx.x; e < nw; e += DR_THREADS) copy_async(wbuf + off + e, W + e);
+    for (int e = threadIdx.x; e < nb; e += DR_THREADS) copy_async(wbuf + off + nw + e, B + e);
+    off += nw + nb;
+  }
+}
+
 // The dense stack of machine `mach` over the R rows (a multiple of DR_RPT)
 // of `in` (row stride D); activations ping-pong between `in` and `out`.
 // Starts with a barrier, so the caller's writes to `in` (and, resident,
@@ -120,6 +137,44 @@ __device__ __forceinline__ float* dense_rows(const DenseChain& ch, int mach, flo
   return in;
 }
 
+// One row `in` through the dense stack of machine `mach` by the calling
+// warp alone, a warp barrier between layers: each lane computes outputs
+// j = lane, lane + 32, ... by the FMAs dense_rows runs for a row of its
+// tile, in the same order, so the row's outputs are dense_rows' bit for
+// bit.  `in` and `out` hold max_dim floats; with the weights not resident
+// the warp loads each layer into wbuf in turn.  Returns the buffer holding
+// the last layer's output, which the warp reads after a warp barrier.
+template <typename T>
+__device__ __forceinline__ float* warp_dense_row(const DenseChain& ch, int mach, float* wbuf, float* in,
+                                                 float* out) {
+  const int lane = threadIdx.x & 31;
+  int woff = 0;
+  for (int l = 0; l < ch.n_layers; ++l) {
+    const int din = ch.dims[l];
+    const int dout = ch.dims[l + 1];
+    const int code = ch.act[l];
+    if (!ch.weights_resident) {
+      const T* W = static_cast<const T*>(ch.w[l]) + (size_t)mach * din * dout;
+      const T* B = static_cast<const T*>(ch.b[l]) + (size_t)mach * dout;
+      for (int e = lane; e < din * dout; e += 32) wbuf[e] = ld(W + e);
+      for (int e = lane; e < dout; e += 32) wbuf[din * dout + e] = ld(B + e);
+    }
+    __syncwarp();  // `in` written; streamed: this layer's weights loaded
+    const float* wl = wbuf + woff;
+    for (int j = lane; j < dout; j += 32) {
+      float acc = 0.f;
+      for (int k = 0; k < din; ++k) acc = fmaf(in[k], wl[k * dout + j], acc);
+      out[j] = act_fn(code, acc + wl[din * dout + j]);
+    }
+    __syncwarp();  // `out` written; streamed: the readers of wbuf done
+    if (ch.weights_resident) woff += din * dout + dout;
+    float* t = in;
+    in = out;
+    out = t;
+  }
+  return in;
+}
+
 // The detector's score of one tag, its scaler a step of `form` with stats
 // a, b applied to the prediction and the target alike: |d(p) - d(y)|, a
 // MinMax as one FMA each, as XLA:CPU fuses `anomaly.scores`' `y * scale +
@@ -136,6 +191,21 @@ __device__ __forceinline__ float row_l2(const float* sq, int fo, int row) {
   int j = row % fo;
   for (int n = 0; n < fo; ++n) {
     s += sq[j];
+    if (++j == fo) j = 0;
+  }
+  return sqrtf(s);
+}
+
+// row_l2 of a row whose fo tag scores lie `stride` apart (`tags[j *
+// stride]`): the same additions in the same order, each square rounded
+// before it is added as row_l2's stored squares are, so a total computed
+// from carried tag scores is row_l2's bit for bit.
+__device__ __forceinline__ float tags_l2(const float* tags, int stride, int fo, int row) {
+  float s = 0.f;
+  int j = row % fo;
+  for (int n = 0; n < fo; ++n) {
+    const float t = tags[(size_t)j * stride];
+    s = __fadd_rn(s, __fmul_rn(t, t));
     if (++j == fo) j = 0;
   }
   return sqrtf(s);

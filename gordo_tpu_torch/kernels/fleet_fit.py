@@ -119,6 +119,8 @@ class _Args(ctypes.Structure):
         ("one_b1", ctypes.c_float),
         ("one_b2", ctypes.c_float),
         ("n_params", ctypes.c_int),
+        ("fit_order", ctypes.c_int * MAX_FITS),
+        ("warp_partials", ctypes.c_int),
         ("row_stride", ctypes.c_int),
         ("smem_bytes", ctypes.c_int),
     ]
@@ -225,18 +227,28 @@ class LaunchPlan(NamedTuple):
     threads: int
     row_stride: int
     smem_bytes: int
+    warp_partials: bool
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
 
 
 def launch_plan(dims: Sequence[int], max_bs: int) -> LaunchPlan:
     """Block size and shared memory for widths ``dims`` and minibatches of
-    up to ``max_bs`` rows.  Raises ``NotImplementedError`` (wide fleet fit)
-    when one machine's weights, Adam moments and a minibatch's rows do not
-    fit one block."""
+    up to ``max_bs`` rows.  Takes the widths it has always taken: one
+    machine's weights, Adam moments and a minibatch's rows of activations
+    and deltas at a thread a row (an odd stride) within a block; raises
+    ``NotImplementedError`` (wide fleet fit) otherwise.  The kernel keeps
+    each feature's column of the minibatch (``row_stride`` floats, a
+    multiple of 4, padded to 4 more than a multiple of 32 where that
+    fits), every layer's input and two layers' deltas and each warp's
+    partial sums of every parameter (``warp_partials``), or, where those
+    do not fit, every layer's deltas: never more than the rule allows."""
     P = n_params(dims)
     threads = -(-max_bs // 32) * 32
     per_row = sum(dims[:-1]) + sum(dims[1:])
-    stride = per_row | 1
-    smem = 4 * (3 * P + 3 * 32 + threads * stride)
+    smem = 4 * (3 * P + 3 * 32 + threads * (per_row | 1))
     if threads > MAX_THREADS or smem > SMEM_LIMIT:
         raise NotImplementedError(
             f"fleet_fit cannot take widths {list(dims)} with {max_bs}-row batches: "
@@ -244,7 +256,18 @@ def launch_plan(dims: Sequence[int], max_bs: int) -> LaunchPlan:
             f"{smem} bytes of shared memory and {threads} threads, over a "
             f"block's {SMEM_LIMIT} and {MAX_THREADS}; that waits for {WIDE_ITEM}"
         )
-    return LaunchPlan(threads, stride, smem)
+    widest = max(dims[1::2], default=0) + max(dims[2::2], default=0)
+    rows = _round4(max_bs)
+    # columns 4 floats more than a multiple of 32 start on different banks,
+    # so the lanes of a warp reading rows r..r+3 of neighbouring features
+    # (the weight gradients, a layer's outputs) do not queue on one bank
+    for partials in (True, False):
+        columns = sum(dims[:-1]) + (widest if partials else sum(dims[1:]))
+        for stride in (rows + (4 - rows) % 32, rows):
+            floats = 3 * P + 3 * 32 + stride * columns + (threads // 32 * P if partials else 0)
+            if 4 * floats <= SMEM_LIMIT:
+                return LaunchPlan(threads, stride, 4 * floats, partials)
+    raise AssertionError("unreachable: every layer's deltas at a row stride of the rows fit")
 
 
 def _check(t: torch.Tensor, name: str, shape, dtype, device) -> None:
@@ -419,6 +442,10 @@ def fleet_fit(
         args.fit_row_off[i], args.fit_perm_off[i] = row_off, perm_off
         row_off += fg.n
         perm_off += epochs * fg.n_total
+    # the fits with the most steps first, so the last blocks to start are short
+    for i, g in enumerate(sorted(range(G), key=lambda g: -fits[g].steps)):
+        args.fit_order[i] = g
+    args.warp_partials = int(plan.warp_partials)
     args.lr, args.b1, args.b2, args.eps = hp["lr"], hp["b1"], hp["b2"], hp["eps"]
     args.one_b1, args.one_b2 = 1 - hp["b1"], 1 - hp["b2"]
     args.n_params = P

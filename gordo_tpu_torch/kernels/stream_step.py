@@ -3,14 +3,18 @@
 Replaces the XLA program ``serve.stream_step``
 (``gordo_tpu/serve/stream.py:175`` ``_stream_step_fn``, registered at
 ``:275``).  :func:`stream_step` shifts the ring (into the other half of
-a double buffer) and scores the newest row: the W newest rows through the
-dense stack (or an LSTM's last-layer state through its ``out`` head), the
-detector's tag scores and L2 total, the masked nanmedian over the W raw
-scores, validity and confidence, into one (fo + 3) verdict.  For an LSTM
-chain :func:`stream_shift` shifts the ring first, ``lstm_layer`` runs
-over the shifted ring, and :func:`stream_step` scores (``h``).  The
-kernel is CUDA C++ for ``sm_90a`` (``gordo_tpu_torch/csrc/stream_step.cu``,
-whose header gives its bound and design); :func:`stream_step_plain` and
+a double buffer) and scores the newest row: its dense stack (or an LSTM's
+last-layer state of the newest window through its ``out`` head) and the
+detector's tag scores, carried with the W rows' earlier tag scores
+(``tags_in`` → ``tags_out``, another double buffer), every row's L2 total
+at its position, the masked nanmedian over the W raw scores (each series
+sorted), validity and confidence, into one (fo + 3) verdict.  Without
+``tags_in`` it scores all W rows: the mode that primes the carried tags.
+For an LSTM chain :func:`stream_shift` shifts the ring first,
+``lstm_layer`` runs over the shifted ring's newest window (all W when
+priming), and :func:`stream_step` scores (``h``).  The kernel is CUDA C++
+for ``sm_90a`` (``gordo_tpu_torch/csrc/stream_step.cu``, whose header
+gives its bound and design); :func:`stream_step_plain` and
 :func:`stream_shift_plain` are the same functions in plain PyTorch,
 through ``fleet_score_plain``.
 
@@ -65,16 +69,20 @@ class _Args(ctypes.Structure):
         ("chain", DenseChain),
         ("det", ScalerChain),
         ("agg_thr", ctypes.c_void_p),
+        ("tags_in", ctypes.c_void_p),
+        ("tags_out", ctypes.c_void_p),
         ("verdict", ctypes.c_void_p),
         ("H", ctypes.c_int),
         ("F", ctypes.c_int),
         ("W", ctypes.c_int),
         ("mode_offset", ctypes.c_int),
         ("score", ctypes.c_int),
+        ("h_first", ctypes.c_int),
         ("rows_per_tile", ctypes.c_int),
         ("max_dim", ctypes.c_int),
         ("wbuf_floats", ctypes.c_int),
         ("smem_bytes", ctypes.c_int),
+        ("sort_k", ctypes.c_int),
         ("bf16", ctypes.c_int),
     ]
 
@@ -92,6 +100,8 @@ def _library() -> ctypes.CDLL:
             lib.stream_step_launch.restype = ctypes.c_int
             lib.stream_step_error_string.argtypes = [ctypes.c_int]
             lib.stream_step_error_string.restype = ctypes.c_char_p
+            lib.stream_step_empty_launch.argtypes = [ctypes.c_void_p]
+            lib.stream_step_empty_launch.restype = ctypes.c_int
             lib.stream_step_args_size.argtypes = []
             lib.stream_step_args_size.restype = ctypes.c_int
             if lib.stream_step_args_size() != ctypes.sizeof(_Args):
@@ -108,22 +118,43 @@ class LaunchPlan(NamedTuple):
     smem_bytes: int
     weights_resident: bool
     wbuf_floats: int
+    one_row_smem_bytes: int
+    sort_k: int
+
+
+#: a lane of the median's sort holds up to this many values in registers
+#: (32 of them a warp); longer windows sort in shared memory
+MAX_SORT_K = 32
+#: rows a thread of the dense stack computes (``csrc/dense_rows.cuh``)
+ROWS_PER_THREAD = 4
+
+
+def sort_k(window: int) -> int:
+    """Values a lane sorts for a series of ``window`` values: the least
+    power of two K with 32 K >= window, or 0 (the shared-memory sort) past
+    ``32 * MAX_SORT_K``."""
+    k = 1
+    while 32 * k < window:
+        k *= 2
+    return k if k <= MAX_SORT_K else 0
 
 
 def launch_plan(dims: Sequence[int], window: int) -> LaunchPlan:
-    """Row tile and shared memory of one step: the W x (fo + 1) raw scores
-    stay in shared memory; the tile is the window (rounded up to the
-    kernel's 4 rows a thread) when it fits, else the largest of
-    fleet_score's tiles that does.  Raises ``ValueError`` when none fits."""
+    """Row tile and shared memory of one step: the (fo + 1) x W raw scores
+    stay in shared memory; priming, the tile is the window (rounded up to
+    the kernel's 4 rows a thread) when it fits, else the largest of
+    fleet_score's tiles that does; a carried step scores one tile of 4
+    rows.  Raises ``ValueError`` when none fits."""
     resident, wbuf, _ = weight_buffer(dims)
     fo, ns = dims[-1], dims[-1] + 1
-    fixed = wbuf + 2 * fo + window * ns + 3 * ns
+    fixed = wbuf + 2 * fo + window * ns
     per_row = fo + 2 * max(dims)
-    whole = -(-window // 4) * 4
+    whole = -(-window // ROWS_PER_THREAD) * ROWS_PER_THREAD
     for rows in [whole] + [r for r in _ROW_TILES if r < whole]:
         smem = 4 * (fixed + rows * per_row)
         if smem <= SMEM_LIMIT:
-            return LaunchPlan(rows, smem, resident, wbuf)
+            one_row = 4 * (fixed + ROWS_PER_THREAD * per_row)
+            return LaunchPlan(rows, smem, resident, wbuf, one_row, sort_k(window))
     raise ValueError(
         f"stream_step cannot take widths {list(dims)} with a window of {window} rows: "
         f"they need {smem} bytes of shared memory, over the {SMEM_LIMIT} a block has"
@@ -143,6 +174,17 @@ def _launch(args: _Args, device) -> None:
             launches += 1
         else:
             shift_launches += 1
+
+
+def empty_launch(device) -> None:
+    """One launch of an empty kernel from the step's library on ``device``'s
+    current stream: the card's launch floor, for timing beside a step
+    (counted in neither :data:`launches` nor :data:`shift_launches`)."""
+    lib = _library()
+    with torch.cuda.device(device):
+        rc = lib.stream_step_empty_launch(ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+    if rc != 0:
+        raise RuntimeError(f"stream_step's empty launch failed: {lib.stream_step_error_string(rc).decode()}")
 
 
 def _check_ring(ring_in, ring_out, count, x):
@@ -191,6 +233,8 @@ def stream_step(
     x: Optional[torch.Tensor] = None,
     ring_out: Optional[torch.Tensor] = None,
     h: Optional[torch.Tensor] = None,
+    tags_in: Optional[torch.Tensor] = None,
+    tags_out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Score the newest row of a machine's ring; returns the verdict (fo + 3,)
     float32: the W-row nanmedian of each tag score, of the total, the
@@ -204,11 +248,17 @@ def stream_step(
     the chain's dense stack of one machine (``(W (1, in, out), b (1,
     out))``), fed the ring rows from ``mode_offset`` on through the
     pipeline's scaler steps (``chain``, stats (1, F), ``fleet_score``'s
-    form) or ``h`` (W, f_in)
-    float32: an LSTM's last-layer state of the ring's W windows, or a
-    transform chain's output for the ring's W rows (``chain_apply``).
+    form) or ``h`` float32: an LSTM's last-layer state of the ring's
+    windows, or a transform chain's output for the ring's scored rows,
+    (W, f_in), or with ``tags_in`` (1, f_in), the newest one only.
     Targets: the ring rows from ``mode_offset`` on.  ``det`` the detector
-    scaler's step, stats (1, fo); ``agg_thr`` (1,) float32."""
+    scaler's step, stats (1, fo); ``agg_thr`` (1,) float32.
+
+    ``tags_in`` (W, fo) float32: the carried tag scores of the W scored
+    rows before this step; the step then scores the newest row alone and
+    carries the others one position older.  Without it every row is
+    scored.  ``tags_out`` (W, fo) float32 (not ``tags_in``) receives the
+    W rows' tag scores after the step.  Both modes give the same bits."""
     steps = list(chain or ())
     dets = [] if det is None else [det]
     if not dets:
@@ -217,6 +267,7 @@ def stream_step(
         return stream_step_plain(
             ring_in, count, layers, acts, window=window, mode_offset=mode_offset,
             det=det, chain=steps, agg_thr=agg_thr, x=x, ring_out=ring_out, h=h,
+            tags_in=tags_in, tags_out=tags_out,
         )
     if ring_in.device.type != "cuda":
         raise ValueError(f"stream_step runs on cuda or cpu tensors, got {ring_in.device}")
@@ -235,7 +286,14 @@ def stream_step(
         raise ValueError(f"the chain takes {dims[0]} inputs and the ring has {F} tags")
     if h is not None and steps:
         raise ValueError("an LSTM's state takes no pipeline scaler")
-    _check(h, "h", (window, dims[0]), device)
+    h_rows = window
+    if h is not None and tags_in is not None and h.dim() == 2 and int(h.shape[0]) == 1:
+        h_rows = 1
+    _check(h, "h", (h_rows, dims[0]), device)
+    _check(tags_in, "tags_in", (window, fo), device)
+    _check(tags_out, "tags_out", (window, fo), device)
+    if tags_in is not None and tags_out is not None and tags_in.data_ptr() == tags_out.data_ptr():
+        raise ValueError("tags_out must be another buffer than tags_in")
     check_steps(steps, (1, F), device, (store,), "pipeline scaler")
     check_steps(dets, (1, fo), device, (store,), "detector scaler")
     _check(agg_thr, "agg_thr", (1,), device)
@@ -250,10 +308,15 @@ def stream_step(
     args.chain.fill(layers, acts, dims, plan.weights_resident)
     args.det.fill(dets)
     args.agg_thr = _ptr(agg_thr)
+    args.tags_in, args.tags_out = _ptr(tags_in), _ptr(tags_out)
     args.verdict = verdict.data_ptr()
     args.H, args.F, args.W, args.mode_offset, args.score = H, F, window, mode_offset, 1
-    args.rows_per_tile, args.max_dim = plan.rows_per_tile, max(dims)
-    args.wbuf_floats, args.smem_bytes = plan.wbuf_floats, plan.smem_bytes
+    args.h_first = window - h_rows
+    if tags_in is None:
+        args.rows_per_tile, args.smem_bytes = plan.rows_per_tile, plan.smem_bytes
+    else:
+        args.rows_per_tile, args.smem_bytes = ROWS_PER_THREAD, plan.one_row_smem_bytes
+    args.max_dim, args.wbuf_floats, args.sort_k = max(dims), plan.wbuf_floats, plan.sort_k
     args.bf16 = int(store == torch.bfloat16)
     _launch(args, device)
     return verdict
@@ -283,10 +346,15 @@ def masked_nanmedian(raw: torch.Tensor, n_valid: int) -> torch.Tensor:
 
 def stream_step_plain(
     ring_in, count, layers, acts, *, window, mode_offset, det=None, chain=None, agg_thr=None,
-    x=None, ring_out=None, h=None,
+    x=None, ring_out=None, h=None, tags_in=None, tags_out=None,
 ) -> torch.Tensor:
     """:func:`stream_step` in plain PyTorch: ``fleet_score_plain`` over the
-    W scored rows (one slot), then the masked nanmedian."""
+    W scored rows (one slot; a one-row ``h`` alone), the newest row's tag
+    scores after ``tags_in``'s older ones, each row's total from its tag
+    scores, then the masked nanmedian.  The plain matrix products pick
+    their kernel by the number of rows, so the ring's rows and a W-row
+    ``h`` are scored at the full mode's shape and the newest row kept:
+    the carried verdicts are then the full mode's bit for bit."""
     ring = ring_in
     if x is not None:
         stream_shift_plain(ring_in, ring_out, count, x)
@@ -296,8 +364,17 @@ def stream_step_plain(
     if h is None:
         scored = fleet_score_plain(y, layers, acts, chain=chain, det=det)
     else:
-        scored = fleet_score_plain(h[None], layers, acts, y=y, det=det)
-    raw = torch.cat([scored["tag-anomaly-scores"][0], scored["total-anomaly-score"][0][:, None]], 1)
+        scored = fleet_score_plain(h[None], layers, acts, y=y[:, y.shape[1] - h.shape[0]:], det=det)
+    tags = scored["tag-anomaly-scores"][0]
+    if tags_in is not None:
+        tags = torch.cat([tags_in[1:], tags[-1:]])
+    if tags_out is not None:
+        tags_out.copy_(tags)
+    # the total of each row from its tag scores, as fleet_score_plain sums
+    # them (the same shape, so the same reduction)
+    sq = tags[None] * tags[None]
+    total = torch.sqrt(torch.sum(sq, dim=-1))[0]
+    raw = torch.cat([tags, total[:, None]], 1)
     med = masked_nanmedian(raw, min(max(n - mode_offset, 0), window))
     conf = (med[-1:] / torch.clamp_min(agg_thr, 1e-12) if agg_thr is not None
             else med.new_full((1,), float("nan")))

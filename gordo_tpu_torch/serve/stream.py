@@ -6,26 +6,36 @@ time and verdicts are pushed to subscribers.
 * **The step** (``kernels/stream_step.py``).  The carried state is a raw
   input ring of ``H = offset + W`` rows (W = max(detector window, 1)) and
   the count of rows ever ingested, resident on the card as a double
-  buffer; one arriving row of a feedforward chain is ONE ``stream_step``
-  launch (ring shift, scaler, dense stack over the W newest rows, detector
-  scores, masked nanmedian, confidence).  An LSTM chain (``ae``,
-  ``forecast``) shifts the ring first (``stream_shift``), runs one
-  ``lstm_layer`` per layer over the ring's W windows, then scores with
-  ``stream_step`` (its ``out`` head).  A fused transform chain
-  (``SimpleImputer``, ``PCA`` and scaler steps, the JAX package's
+  buffer, beside the tag scores of the W scored rows (W x fo float32,
+  double-buffered too).  One arriving row of a feedforward chain is ONE
+  ``stream_step`` launch (ring shift, scaler, dense stack over the newest
+  row, detector scores, the carried tags shifted, every row's total,
+  masked nanmedian, confidence).  An LSTM chain (``ae``, ``forecast``)
+  shifts the ring first (``stream_shift``), runs one ``lstm_layer`` per
+  layer over the ring's newest window, then scores with ``stream_step``
+  (its ``out`` head).  A fused transform chain (``SimpleImputer``,
+  ``PCA`` and scaler steps, the JAX package's
   ``gordo_tpu/serve/stream.py:227-228``) takes the same route: the shift,
-  one ``chain_apply`` over the shifted ring, the LSTM layers if any, then
-  ``stream_step`` with the chain's (or the last layer's) output as the
-  dense stack's input, scored against the raw ring rows.  At steady
-  state (``count >= H``) the verdict is bit for bit the port's request
-  path over the same H trailing rows (:func:`reference_verdict`).  The ring is stored at the
-  serving precision's storage dtype.
+  one ``chain_apply`` over the shifted ring's newest row (window), the
+  LSTM layers if any, then ``stream_step`` with the chain's (or the last
+  layer's) output as the dense stack's input, scored against the raw
+  ring rows.  The first step after the stream binds or rebinds (a
+  generation flip, another precision, a geometry re-prime) scores all W
+  rows (windows) and primes the carried tags; the kernels compute a row
+  or window by the same instructions whichever launch holds it, so both
+  modes give the same bits.  On the CPU the plain versions' matrix
+  products pick their kernel by the number of rows, so there every step
+  runs the chain and the LSTM over the whole ring and keeps the newest
+  row.  At steady state (``count >= H``) the verdict is bit for bit the
+  port's request path over the same H trailing rows
+  (:func:`reference_verdict`).  The ring is stored at the serving
+  precision's storage dtype.
 
 * **Per-machine state** (:class:`MachineStream`): the device ring, the
-  count and a host mirror of the raw rows.  ``rebind`` after a model swap
-  keeps the ring when the window geometry is unchanged (the first verdict
-  after it is already the new model's exact one) and re-primes a fresh
-  ring from the mirror when it changed.
+  count, the carried tag scores and a host mirror of the raw rows.
+  ``rebind`` after a model swap keeps the ring when the window geometry
+  is unchanged (the first verdict after it is already the new model's
+  exact one) and re-primes a fresh ring from the mirror when it changed.
 
 * **The hub** (:class:`StreamHub`): a monotonic event log with a bounded
   replay ring, fan-out to per-subscriber bounded queues, SSE framing and
@@ -145,6 +155,8 @@ class MachineStream:
         self.count = 0
         self.exceeding = False
         self._rings: Optional[List[torch.Tensor]] = None
+        self._tags: Optional[List[torch.Tensor]] = None
+        self._primed = False
         self._cur = 0
         self._count_dev: Optional[torch.Tensor] = None
         self._rows: "collections.deque[np.ndarray]" = collections.deque()
@@ -175,6 +187,7 @@ class MachineStream:
                 "cross_validate() never derived them"
             )
         prior_rows = self.state_rows
+        self._primed = False  # the next step scores every row and primes the carried tags
         self._scorer = scorer
         self.chain = c
         self.dtype = precision.canonical(dtype) if dtype else scorer.dtype
@@ -217,6 +230,10 @@ class MachineStream:
     def _init_state(self, ring: np.ndarray, count: int) -> None:
         first = precision.cast_input(torch.from_numpy(ring), self.dtype).to(self.device)
         self._rings = [first, torch.empty_like(first)]
+        fo = int(self._stack.layers[-1][0].shape[2])
+        self._tags = [torch.empty((self.window, fo), dtype=torch.float32, device=self.device)
+                      for _ in range(2)]
+        self._primed = False
         self._cur = 0
         self._count_dev = torch.tensor([count], dtype=torch.int32).to(self.device)
 
@@ -224,8 +241,14 @@ class MachineStream:
         """One step on the device: the row's verdict (fo + 3,) float32."""
         st = self._stack
         ring_in, ring_out = self._rings[self._cur], self._rings[1 - self._cur]
+        tags_in = self._tags[self._cur] if self._primed else None
+        tags_out = self._tags[1 - self._cur]
+        # the newest row (window) alone once the tags are primed; the plain
+        # versions on the CPU take the whole ring (see the module's doc)
+        newest = self._primed and self.device.type == "cuda"
         row = precision.cast_input(torch.from_numpy(x), self.dtype).to(self.device)
-        kw = dict(window=self.window, mode_offset=self.offset, det=st.det, agg_thr=st.agg_thr)
+        kw = dict(window=self.window, mode_offset=self.offset, det=st.det, agg_thr=st.agg_thr,
+                  tags_in=tags_in, tags_out=tags_out)
         with torch.no_grad():
             if st.mode == "none" and not st.transform_steps:
                 verdict = stream_step(ring_in, self._count_dev, st.layers, st.acts,
@@ -233,23 +256,27 @@ class MachineStream:
                                       ring_out=ring_out, **kw)
             else:
                 stream_shift(ring_in, ring_out, self._count_dev, row)
-                h = ring_out[None]
+                # window t is ring rows t .. t + lookback - 1, t < W (a
+                # feedforward chain's lookback is 1)
+                h = ring_out[None, self.window - 1: self.window - 1 + st.lookback] if newest else ring_out[None]
+                n_windows = 1 if newest else self.window
                 if st.transform_steps:
-                    # the chain over the shifted ring, out at the type the
-                    # next kernel reads, as the request path's
+                    # the chain over those rows, out at the type the next
+                    # kernel reads, as the request path's
                     h = chain_apply(h, st.transform_steps,
                                     out_dtype=torch.float32 if st.mode == "none" else h.dtype)
                 for i, ((ki, kh, b), act) in enumerate(zip(st.cells, st.cell_acts)):
                     first = i == 0
                     h = lstm_layer(
                         h, ki, kh, b, lookback=st.lookback, act=act,
-                        n_windows=self.window if first else None,
+                        n_windows=n_windows if first else None,
                         chain=st.scalers if first else None,
                         last=i == len(st.cells) - 1,
                     )
                 verdict = stream_step(ring_out, self._count_dev, st.layers, st.acts,
                                       h=h[0], **kw)
         self._cur = 1 - self._cur
+        self._primed = True
         return verdict
 
     def ingest(self, x: np.ndarray) -> Optional[Dict[str, Any]]:

@@ -1,0 +1,38 @@
+"""Run chosen ``chip_smoke.py`` phases from one tree of the repository.
+
+    python3 scripts/chip_phases.py TREE PHASE[,PHASE...]
+
+``TREE`` is a checkout (the working tree, or a parent commit unpacked with
+``git archive`` where ``.gitignore`` allows); its kernels are built from
+its own sources and its own ``chip_smoke.py`` runs each ``phase_<name>``.
+One JSON line a phase: the tree, the phase, whether it passed, its
+seconds and what it returned.  To compare two commits on one card, run
+them in turns in one command (parent, change, change, parent).
+"""
+
+import json
+import os
+import sys
+import time
+import traceback
+
+tree, phases = os.path.abspath(sys.argv[1]), sys.argv[2].split(",")
+os.chdir(tree)
+sys.path.insert(0, tree)
+import chip_smoke as cs  # noqa: E402
+from gordo_tpu_torch.device import resolve_device  # noqa: E402
+
+resolve_device()
+label = os.path.basename(tree.rstrip("/"))
+t0 = time.perf_counter()
+cs.phase_build()
+print(json.dumps({"tree": label, "phase": "build", "seconds": time.perf_counter() - t0}), flush=True)
+for ph in phases:
+    t0 = time.perf_counter()
+    try:
+        out, ok = getattr(cs, "phase_" + ph)(), True
+    except Exception as exc:  # the other phases and trees still run
+        traceback.print_exc()
+        out, ok = {"error": repr(exc)}, False
+    print(json.dumps({"tree": label, "phase": ph, "ok": ok, "seconds": time.perf_counter() - t0,
+                      "out": out}, default=str), flush=True)

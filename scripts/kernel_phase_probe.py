@@ -1,0 +1,223 @@
+"""Per-phase clocks of ``stream_step`` and ``fleet_fit`` on the card.
+
+    python3 scripts/kernel_phase_probe.py
+
+A copy of each kernel's source reads ``%globaltimer`` at its phase
+boundaries (thread 0; for ``fleet_fit`` thread 0 of the first block, one
+of the longest fits) and adds each phase's nanoseconds to a device array.
+The copies are built with ``nvcc`` beside the kernels' own libraries and
+launched through the kernels' wrappers (the wrapper's library swapped for
+the copy), at the smoke's shapes: a default detector and an LSTM head
+streamed (one new row, and the full window), and ``fleet_fit`` at
+512 x 576 x 10.  Prints one JSON line each: microseconds a launch (a
+stream step) or a step of the first block (``fleet_fit``) by phase.  The
+probes cost a few clock reads; read the split, not the total.
+"""
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.getcwd())
+import chip_smoke as cs  # noqa: E402
+from gordo_tpu_torch.device import resolve_device  # noqa: E402
+from gordo_tpu_torch.kernels import build  # noqa: E402
+from gordo_tpu_torch.kernels import fleet_fit as ff  # noqa: E402
+from gordo_tpu_torch.kernels import stream_step as sk  # noqa: E402
+
+PROBE_DEFS = r"""
+__device__ unsigned long long g_probe_acc[16];
+__device__ __forceinline__ unsigned long long probe_now() {
+  unsigned long long t; asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)); return t; }
+extern "C" int probe_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, g_probe_acc, sizeof(g_probe_acc)); }
+extern "C" int probe_zero() { unsigned long long z[16] = {0};
+  return (int)cudaMemcpyToSymbol(g_probe_acc, z, sizeof(z)); }
+"""
+
+
+def clock(i: int, cond: str = "threadIdx.x == 0") -> str:
+    """CUDA source: add the time since the last clock to phase ``i``."""
+    return (f"if ({cond}) {{ const unsigned long long pt_ = probe_now(); "
+            f"g_probe_acc[{i}] += pt_ - probe_prev; probe_prev = pt_; }}")
+
+
+def _insert(src: str, anchor: str, text: str, after: bool = True) -> str:
+    if src.count(anchor) < 1:
+        raise SystemExit(f"anchor not found in the source: {anchor!r}")
+    return src.replace(anchor, anchor + text if after else text + anchor, 1)
+
+
+#: stream_step's phases: the ring shift; the stats, weights and carried
+#: tags loaded; the newest row scored beside the older totals (or every
+#: row, priming); the medians
+STREAM_PHASES = ["shift", "loads", "score_and_totals", "median"]
+
+
+def patch_stream(src: str) -> str:
+    src = _insert(src, '#include "dense_rows.cuh"', "\n" + PROBE_DEFS)
+    src = _insert(src, "  const int F = a.F;\n", "  unsigned long long probe_prev = probe_now();\n", after=False)
+    src = _insert(src, "  __syncthreads();\n  if (a.x && threadIdx.x == 0) a.count[0] = s_count;",
+                  "\n  " + clock(1))
+    src = _insert(src, "    __syncthreads();  // stats, resident weights and the older tags in shared memory",
+                  "\n    " + clock(2))
+    src = _insert(src, "  __syncthreads();\n\n  // the masked nanmedian", "\n  " + clock(3), after=False)
+    end = src.rindex("}", 0, src.index('extern "C" int stream_step_args_size()'))
+    return src[:end] + "  __syncthreads();\n  " + clock(4) + "\n" + src[end:]
+
+
+#: fleet_fit's phases a step: the pack barrier; thread 0's warp loading
+#: its rows and running its forward pass; its loss and backward pass; the
+#: wait for the other warps; the Adam step
+FIT_PHASES = ["pack", "load_forward_warp0", "loss_backward_warp0", "wait_other_warps", "adam"]
+
+
+def patch_fit(src: str) -> str:
+    first = "blockIdx.x == 0 && threadIdx.x == 0"
+    src = _insert(src, '#include "scaler_prefix.cuh"', "\n" + PROBE_DEFS)
+    src = _insert(src, "  for (int e = 0; e < a.epochs; ++e) {\n    float epoch_acc",
+                  "  unsigned long long probe_prev = probe_now();\n", after=False)
+    src = _insert(src, "      __syncthreads();  // the last step's Adam done; the warps' weights visible",
+                  "\n      " + clock(1, first))
+    src = _insert(src, "      __syncwarp();\n\n      // the loss and the last layer's deltas",
+                  "      " + clock(2, first) + "\n", after=False)
+    src = _insert(src, "      __syncthreads();  // every warp's partial sums (or every layer's deltas)",
+                  "      " + clock(3, first) + "\n", after=False)
+    src = _insert(src, "      __syncthreads();  // every warp's partial sums (or every layer's deltas)",
+                  "\n      " + clock(4, first))
+    return _insert(src, "      if (t == 0) {\n        float batch = 0.f;", "      " + clock(5, first) + "\n",
+                   after=False)
+
+
+def build_probe(name: str, patch) -> ctypes.CDLL:
+    """The patched copy of ``csrc/<name>.cu`` built beside the kernels."""
+    out = os.path.join(build.BUILD_DIR, "probe")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, f"{name}_probe.cu")
+    with open(build.source_path(name)) as f:
+        src = patch(f.read())
+    with open(path, "w") as f:
+        f.write(src)
+    lib_path = os.path.join(out, f"lib{name}_probe.so")
+    cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-I", build.CSRC_DIR, "-o", lib_path, path]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    if r.returncode:
+        raise SystemExit(r.stderr[-4000:])
+    print(json.dumps({"probe_build": name,
+                      "ptxas": [ln for ln in r.stderr.splitlines() if "registers" in ln or "stack" in ln]}))
+    lib = ctypes.CDLL(lib_path)
+    lib.probe_read.argtypes = [ctypes.c_void_p]
+    lib.probe_zero.argtypes = []
+    return lib
+
+
+def read_us(lib, launches: int, names) -> dict:
+    """Microseconds a launch of each phase, since the last ``probe_zero``."""
+    torch.cuda.synchronize()
+    buf = (ctypes.c_ulonglong * 16)()
+    lib.probe_read(buf)
+    return {nm: buf[i + 1] / launches / 1e3 for i, nm in enumerate(names)}
+
+
+def probe_stream(reps: int = 200) -> None:
+    lib = build_probe("stream_step", patch_stream)
+    lib.stream_step_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    lib.stream_step_launch.restype = ctypes.c_int
+    lib.stream_step_error_string.argtypes = [ctypes.c_int]
+    lib.stream_step_error_string.restype = ctypes.c_char_p
+    sk._lib = lib
+    rng = np.random.default_rng(7)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()  # noqa: E731
+    W = cs.SMOOTH_WINDOW
+    for kind in ("default", "lstm"):
+        if kind == "default":
+            src = cs.random_chain(rng, 1, 10)
+            F, off, f_in = 10, 0, 10
+            layers, acts = [(put(w), put(b)) for w, b in src["layers"]], src["acts"]
+        else:
+            src = cs.random_lstm(rng, 1, cs.LSTM_SHAPE[2])
+            F, off, f_in = cs.LSTM_SHAPE[2], cs.LOOKBACK - 1, src["dims"][-1]
+            layers, acts = [(put(src["head"][0]), put(src["head"][1]))], ["linear"]
+        H = off + W
+        det = cs.minmax_step(put(src["det_scale"]), put(src["det_offset"]))
+        pipe = [cs.minmax_step(put(src["scale"]), put(src["offset"]))] if kind == "default" else None
+        ring, out = put(rng.standard_normal((H, F))), torch.empty((H, F), device="cuda")
+        row, count = put(rng.standard_normal(F)), torch.tensor([H], dtype=torch.int32, device="cuda")
+        tags = [torch.rand((W, F), device="cuda") for _ in range(2)]
+        h_full = torch.randn((W, f_in), device="cuda")
+        for mode in ("carried", "full"):
+            kw = dict(window=W, mode_offset=off, det=det, agg_thr=put(src["agg"]))
+            if mode == "carried":
+                kw.update(tags_in=tags[0], tags_out=tags[1])
+            h = h_full[-1:] if mode == "carried" else h_full
+            if kind == "default":
+                def step():
+                    sk.stream_step(ring, count, layers, acts, chain=pipe, x=row, ring_out=out, **kw)
+            else:
+                def step():
+                    sk.stream_step(out, count, layers, acts, h=h, **kw)
+            for _ in range(20):
+                step()
+            torch.cuda.synchronize()
+            lib.probe_zero()
+            for _ in range(reps):
+                step()
+            print(json.dumps({"probe": "stream_step", "kind": kind, "mode": mode,
+                              "us": read_us(lib, reps, STREAM_PHASES)}), flush=True)
+
+
+def probe_fit() -> None:
+    from gordo_tpu_torch.parallel.fleet import fleet_draws, put_draws
+    from gordo_tpu_torch.train.cv import TimeSeriesSplit
+    from gordo_tpu_torch.train.fit import TrainConfig, adam_hparams
+
+    lib = build_probe("fleet_fit", patch_fit)
+    lib.fleet_fit_launch.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.fleet_fit_launch.restype = ctypes.c_int
+    lib.fleet_fit_error_string.argtypes = [ctypes.c_int]
+    lib.fleet_fit_error_string.restype = ctypes.c_char_p
+    ff._lib = lib
+    machines, rows, tags = cs.TRAIN_SHAPE
+    X = torch.from_numpy(cs.bench_fleet(np.random.default_rng(5), machines, rows, tags)).cuda()
+    cfg = TrainConfig()
+    folds = list(TimeSeriesSplit(3).split(np.empty((rows, 1))))
+    fits = [ff.geometry(r, cfg.batch_size) for r in [tr for tr, _ in folds] + [np.arange(rows)]]
+    dims = cs.hourglass(tags)
+    acts = ["tanh"] * (len(dims) - 2) + ["linear"]
+    params0, perms = put_draws(fleet_draws, 0, dims, fits, cfg.epochs, X.device)
+    draw = np.zeros(machines, np.int64)
+
+    def fit():
+        return ff.fleet_fit(X, X, fits, params0, perms, draw, acts, cfg.epochs, adam_hparams(cfg))
+
+    fit()
+    torch.cuda.synchronize()
+    lib.probe_zero()
+    t0 = time.perf_counter()
+    fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = cfg.epochs * max(f.steps for f in fits)
+    us = read_us(lib, 1, FIT_PHASES)
+    print(json.dumps({"probe": "fleet_fit", "block0_steps": steps, "us_total": us,
+                      "us_per_step": {k: v / steps for k, v in us.items()}, "launch_wall_ms": wall * 1e3}),
+          flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_phase_probe: needs a CUDA card", file=sys.stderr)
+        return 1
+    resolve_device()
+    probe_stream()
+    probe_fit()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -106,7 +106,7 @@ def test_wide_fleet_fit_is_refused():
     with pytest.raises(NotImplementedError, match="wide fleet fit"):
         ff.launch_plan(dims, 256)
     plan = ff.launch_plan([10, 8, 7, 5, 5, 7, 8, 10], 256)
-    assert plan.threads == 256 and plan.row_stride % 2 == 1
+    assert plan.threads == 256 and plan.row_stride % 4 == 0 and plan.warp_partials
 
 
 # -- (b) MinMax stats (K3) ---------------------------------------------------
