@@ -113,17 +113,20 @@ itself.  Phases, each printing one JSON line:
    their plain versions on the card: ``fleet_score`` over bf16 storage at
    512 × 2048 × 10 (and a subset with ragged rows) and the bf16 LSTM head
    at 64 × 4085 × 42→50; ``lstm_layer`` over bf16 storage, six layers at
-   64 × 4096 × 50; ``fake_quant`` over every stacked leaf of a 512-machine
-   default bucket and of a 64-machine LSTM bucket (bf16, one scale across
-   the machines) and over one machine's f32 leaves, bit for bit; times,
-   and bounds with the inputs at their storage width.
+   64 × 4096 × 50; ``fake_quant_many`` over every stacked leaf of a
+   512-machine default bucket and of a 64-machine LSTM bucket (bf16, one
+   scale across the machines), over one machine's f32 leaves and over
+   edge leaves (zero, one element, NaN, gate blocks), each set in one
+   launch, bit for bit the plain version leaf by leaf, NaN by place;
+   times, and bounds with the inputs at their storage width.
 15. ``precision_serve``: 512 default and 8 LSTM detectors served over HTTP
    at ``GORDO_SERVE_DTYPE=float32``, ``bfloat16`` and ``int8``
    (``GORDO_SERVE_INT8=1``): six per-machine requests, a bulk request of
    all 520 and a one-machine subset of each bucket; the reduced responses
    held to the f32 ones with the r12 bounds; device bytes resident per
    bucket; each kernel's launches (set to 0 just before), the bf16 ones
-   and ``fake_quant``'s at the int8 load.
+   and ``fake_quant``'s at the int8 load (one a load: each machine's
+   scorer and each bucket).
 16. ``stream_kernel_check``: ``stream_step`` for a default detector
    (window 144), an LSTM ae detector's head (50 tags, lookback 12) and a
    chain-C detector (its ``chain_apply`` output the dense stack's input),
@@ -170,13 +173,19 @@ itself.  Phases, each printing one JSON line:
 21. ``fleet_init_kernel_check``: K11 (``fleet_init``) against its plain
    version on the card: 512 seeds of the 10-tag hourglass with the
    permutations of the four fits of 576 rows under TimeSeriesSplit(3) and
-   batch 256 over 10 epochs, one seed of the bench's LSTM and one
-   permutation of a year of 10-minute rows (52,560, sorted in global
-   scratch); every leaf's raw bits (its key and fold-in) and every
-   permutation bit for bit, the draws within FLEET_INIT_ULP, the
-   orthogonal kernels after their QR within FLEET_INIT_QR_TOLERANCE;
-   times of the kernel, its plain version and ``torch.randperm`` over the
-   same permutations, and the bound.
+   batch 256 over 10 epochs, one seed of the bench's LSTM, one
+   permutation of a year of 10-minute rows (52,560, sorted over a
+   cluster), every sort path's edge lengths for 3 seeds × 3 epochs in one
+   launch and the warp path's for 205 × 5 (alone and beside a cluster
+   job), and the longest permutation
+   (131,072; a longer one raises);
+   every leaf's raw bits (its key and fold-in) and every permutation bit
+   for bit, the draws within FLEET_INIT_ULP, the orthogonal kernels after
+   their QR within FLEET_INIT_QR_TOLERANCE; times of the kernel, its plain
+   version and ``torch.randperm`` over the same permutations, and the
+   bound.  Then the ``init_quant_redesign`` line: ``fleet_init``'s and
+   ``fake_quant``'s times and the int8 load seconds beside the parent
+   design's (``PARENT_FLEET_INIT``, ``PARENT_FAKE_QUANT``).
 22. ``build_project``: ``builder.build_project`` of a 512-machine
    RandomDataset project YAML (10 tags, 576 rows, the default model,
    TrainConfig and TimeSeriesSplit(3)) on the card: seconds, models/h,
@@ -1300,6 +1309,34 @@ def lstm_layer_variants(rng, net, x, scale, offset):
 #: one call (PERF.md §6, "NVIDIA H100 80GB HBM3, 700.00 W")
 PARENT_LSTM = {"lstm_layer_ms": 25.485, "lstm_layer_stream_ms": 0.6869, "lstm_layer_bwd_ms": 8.677,
                "lstm_build_seconds": 1.093}
+
+
+#: the parent design's figures beside which the smoke prints the
+#: redesigned fleet_init and fake_quant (``init_quant_redesign_line``):
+#: each the mean of the parent tree's runs of these phases before and
+#: after the redesign's in one call (PERF.md §6, "NVIDIA H100 80GB HBM3,
+#: 700.00 W")
+PARENT_FLEET_INIT = {"bucket_ms": 1.25268, "lstm_seed_ms": 0.031284, "year_ms": 2.538686}
+PARENT_FAKE_QUANT = {"default_bucket_ms": 0.225414, "lstm_bucket_ms": 0.94417, "int8_launches": 9450,
+                     "int8_load_seconds": 6.881269}
+
+
+def init_quant_redesign_line(fleet_init_kernels: dict, precision_kernels: dict, precision: dict) -> dict:
+    """``fleet_init`` at the bench's bucket, an LSTM seed and a year's
+    permutation (with ``torch.randperm``'s time there), ``fake_quant`` over
+    each bucket's leaves, and the int8 load's seconds and launches, beside
+    the parent design's (PARENT_FLEET_INIT, PARENT_FAKE_QUANT)."""
+    fq = precision_kernels["fake_quant"]["variants"]
+    int8 = precision["dtypes"]["int8"]
+    return {"phase": "init_quant_redesign",
+            "fleet_init_bucket_ms": fleet_init_kernels["hourglass_bucket"].get("ms"),
+            "fleet_init_lstm_seed_ms": fleet_init_kernels["lstm_hourglass"].get("ms"),
+            "fleet_init_year_ms": fleet_init_kernels["year_permutation"].get("ms"),
+            "randperm_year_ms": fleet_init_kernels["year_permutation"].get("library_ms"),
+            "fake_quant_default_bucket_ms": fq["default_bucket"].get("ms"),
+            "fake_quant_lstm_bucket_ms": fq["lstm_bucket"].get("ms"),
+            "int8_load_seconds": int8["load_seconds"], "int8_launches": int8["launches"]["fake_quant"],
+            "parent": {"fleet_init": PARENT_FLEET_INIT, "fake_quant": PARENT_FAKE_QUANT}}
 
 
 def lstm_redesign_line(lstm_kernels: dict, lstm_train_kernels: dict, lstm_train: dict) -> dict:
@@ -3108,12 +3145,38 @@ def serve_dtype_env(dtype: str):
 
 
 def fake_quant_leaves(leaves, groups):
-    """``fake_quant`` over every leaf, and its plain version, as two calls."""
+    """``fake_quant_many`` over every leaf (one launch, as a load takes
+    them), and its plain version leaf by leaf, as two calls."""
     from gordo_tpu_torch.kernels import fake_quant as fq
 
-    run = lambda: [fq.fake_quant(t, g) for t, g in zip(leaves, groups)]  # noqa: E731
+    run = lambda: fq.fake_quant_many(leaves, groups)  # noqa: E731
     plain = lambda: [fq.fake_quant_plain(t, g) for t, g in zip(leaves, groups)]  # noqa: E731
     return run, plain
+
+
+def _bf16_nan(t: torch.Tensor) -> torch.Tensor:
+    """Where a bf16 tensor holds NaN."""
+    return torch.isnan(t.float())
+
+
+def fake_quant_edge_leaves(rng, put):
+    """Leaves at the kernel's edges, beside each bucket's: all zero (the
+    1e-12 floor) in f32 and bf16, one element, a NaN in a small bf16 leaf
+    and in one past ``BIG`` (a cluster's), gate blocks of unequal ranges
+    (``groups=4``) in both dtypes, a leaf whose rows are one column."""
+    from gordo_tpu_torch.kernels import fake_quant as fq
+
+    bf = torch.bfloat16
+    small_nan = rng.standard_normal((3, 7))
+    small_nan[1, 2] = np.nan
+    big_nan = rng.standard_normal((fq.BIG + 5, 2))
+    big_nan[fq.BIG, 1] = np.nan
+    gates = rng.standard_normal((64, 50, 4 * 50))
+    gates[..., 50:100] *= 20.0
+    leaves = [put(np.zeros((5, 3))), put(np.zeros((5, 3))).to(bf), put(np.array([0.37])),
+              put(small_nan).to(bf), put(big_nan), put(gates), put(gates).to(bf),
+              put(rng.standard_normal((fq.BIG * 3, 1)))]
+    return leaves, [1, 1, 1, 1, 1, 4, 4, 1]
 
 
 def phase_precision_kernel_check():
@@ -3236,22 +3299,34 @@ def phase_precision_kernel_check():
     del x, h, got, ref
 
     # fake_quant: every stacked leaf of the two buckets (stored bf16, one
-    # scale across the machines, as the bucket path quantises), and one
-    # machine's f32 leaves (the per-machine path); bit for bit the plain
-    # version
+    # scale across the machines, as the bucket path quantises), one
+    # machine's f32 leaves (the per-machine path) and the kernel's edge
+    # leaves, each set in one launch; bit for bit the plain version leaf by
+    # leaf, NaN by place
+    from gordo_tpu_torch.kernels import fake_quant as fq
+
+    edge_leaves, edge_groups = fake_quant_edge_leaves(rng, put)
     fq_entries = {}
     for name, leaves, groups in (
         ("default_bucket", stacked_ff, [1] * len(stacked_ff)),
         ("lstm_bucket", stacked_lstm, groups_lstm),
         ("default_machine_f32", [t[:1].float().contiguous() for t in stacked_ff], [1] * len(stacked_ff)),
+        ("edges", edge_leaves, edge_groups),
     ):
         run, plain = fake_quant_leaves(leaves, groups)
+        before = fq.launches
         got, ref = run(), plain()
+        if DEVICE == "cuda":
+            check(fq.launches - before == 1, f"fake_quant {name}: one launch, got {fq.launches - before}")
         worst = 0.0
         for a, g, r in zip(leaves, got, ref):
             check(g.dtype == bf and tuple(g.shape) == tuple(a.shape), f"fake_quant {name}: bf16 of the leaf's shape")
-            check(bool(torch.equal(g.view(torch.int16), r.view(torch.int16))),
-                  f"fake_quant {name} bit for bit its plain version")
+            nan = _bf16_nan(r)
+            check(bool(torch.equal(_bf16_nan(g), nan))
+                  and bool(torch.equal(g.view(torch.int16)[~nan], r.view(torch.int16)[~nan])),
+                  f"fake_quant {name} bit for bit its plain version, NaN by place")
+            if bool(nan.any()):
+                continue
             levels = (g.float() / g.float().abs().amax().clamp_min(1e-30) * 127).round().unique().numel()
             check(levels <= 255, f"fake_quant {name}: at most 255 levels, got {levels}")
             worst = max(worst, float((g.double() - r.double()).abs().max()))
@@ -3351,14 +3426,13 @@ def phase_precision_serve():
             n_cells = len(hourglass(LSTM_SHAPE[2])) - 2
             want = {"fleet_score": 10, "fleet_score_bf16": 10 if reduced else 0,
                     "lstm_layer": n_cells * 4, "lstm_layer_bf16": n_cells * 4 if reduced else 0}
-            # int8 quantises every float leaf once: each machine's scorer
-            # (every layer's W and b, and the two scalers' stats; an LSTM's
-            # cells' three leaves, its head's two and the four stats), then
-            # each bucket's stacked leaves once
-            ff_leaves = 2 * (len(hourglass(10)) - 1) + 4
-            lstm_leaves = 3 * (len(hourglass(LSTM_SHAPE[2])) - 2) + 2 + 4
-            want["fake_quant"] = ((PRECISION_FLEET["default"] + 1) * ff_leaves
-                                  + (PRECISION_FLEET["lstm"] + 1) * lstm_leaves) if dtype == "int8" else 0
+            # int8 quantises every float leaf once, all the leaves of a load
+            # (each machine's scorer: every layer's W and b and the two
+            # scalers' stats, an LSTM's cells' three leaves, its head's two
+            # and the four stats; then each bucket's stacked leaves) in one
+            # launch
+            want["fake_quant"] = (PRECISION_FLEET["default"] + PRECISION_FLEET["lstm"] + 2
+                                  if dtype == "int8" else 0)
             if DEVICE == "cuda":
                 check(launches == want, f"{dtype} serving launches {launches}, expected {want}")
             info["launches"] = launches
@@ -4227,8 +4301,10 @@ FLEET_INIT_ULP = 4
 #: normals), r12
 FLEET_INIT_QR_TOLERANCE = 1e-5
 #: fleet_stage's seeds of TRAIN_SHAPE's bucket; one seed of the bench's
-#: LSTM; one permutation of a year of 10-minute rows (global scratch)
+#: LSTM; one permutation of a year of 10-minute rows (a cluster's sort)
 FLEET_INIT_YEAR = 52_560
+#: the cases timed (the others are the paths' edges, held but not timed)
+FLEET_INIT_TIMED = ("hourglass_bucket", "lstm_hourglass", "year_permutation")
 #: the build-project phase: TRAIN_SHAPE's project (RandomDataset, the
 #: default model and TrainConfig), its bulk request's rows per machine
 #: and the machines held to the plain scorer on the CPU
@@ -4271,12 +4347,24 @@ def _fleet_init_cases():
         n_features=ltags, n_features_out=ltags, lookback_window=LOOKBACK)
     ldims = lstm_chain_of(module)[0]
     lstm_total = window_fit(np.arange(lrows), lstm_kwargs["batch_size"], LOOKBACK - 1).n_total
+    edges = [1, 2, 32, 33, fi.BLOCK_MIN_KEYS // 2, fi.BLOCK_MIN_KEYS // 2 + 1, fi.WARP_KEYS, fi.WARP_KEYS + 1, 1625, 1626,
+             fi.BLOCK_KEYS, fi.BLOCK_KEYS + 1, FLEET_INIT_YEAR, fi.MAX_ITEMS // 2 + 1]
     return [
         ("hourglass_bucket", np.arange(machines), with_raw(chain_leaves(hourglass(tags))), n_totals,
          cfg.epochs),
         ("lstm_hourglass", np.array([SEED % 2 ** 32]), with_raw(chain_leaves(ldims)), [lstm_total],
          lstm_kwargs["epochs"]),
         ("year_permutation", np.array([7]), [], [FLEET_INIT_YEAR], 1),
+        # every path's edges in one launch of a few permutations (3 seeds x
+        # 3 epochs: a block each from 256 keys, a cluster of 8 blocks of
+        # 16,384 keys for the longest), then the warp path's with 1,025
+        # permutations (its last block holds one of its eight)
+        ("edges", np.array([0, 7, 2 ** 32 - 1]), with_raw(chain_leaves([4, 3, 4])), edges, 3),
+        ("edges_warp", np.arange(205), [], [1, 2, 33, fi.BLOCK_MIN_KEYS // 2, fi.BLOCK_MIN_KEYS // 2 + 1,
+                                            fi.WARP_KEYS], 5),
+        # the same beside a cluster job (sixteen a block of 512)
+        ("edges_cluster_launch", np.arange(205), [], [33, fi.WARP_KEYS // 2, fi.WARP_KEYS, fi.BLOCK_KEYS + 1], 5),
+        ("longest", np.array([11]), [], [fi.MAX_ITEMS], 1),
     ], ldims
 
 
@@ -4284,14 +4372,22 @@ def phase_fleet_init_kernel_check():
     """K11 against its plain version on the card: the raw bits (keys,
     fold-ins) and the permutations bit for bit, the lecun-normal and
     normal draws within FLEET_INIT_ULP, the orthogonal kernels after their
-    QR within FLEET_INIT_QR_TOLERANCE; the kernel, its plain version and
-    ``torch.randperm`` over the same permutations timed at the bench's
-    bucket, and the bound."""
+    QR within FLEET_INIT_QR_TOLERANCE, at the bench's bucket, an LSTM
+    seed, a year's permutation, every sort path's edge lengths (3 seeds x
+    3 epochs; the warp path's at 205 x 5) and the longest permutation; a
+    longer one raises.  The
+    kernel, its plain version and ``torch.randperm`` over the same
+    permutations timed at FLEET_INIT_TIMED, and the bound."""
     from gordo_tpu_torch.kernels import fleet_init as fi
     from gordo_tpu_torch.parallel.fleet import _orthogonal
 
     cases, ldims = _fleet_init_cases()
     out = {}
+    try:
+        fi.fleet_init(torch.tensor([1], device=DEVICE), [], [fi.MAX_ITEMS + 1], 1)
+        check(False, f"a permutation of {fi.MAX_ITEMS + 1} items raises")
+    except NotImplementedError:
+        pass
     for name, seeds_np, leaves, n_totals, epochs in cases:
         seeds = torch.from_numpy(seeds_np.astype(np.int64)).to(DEVICE)
         got_v, got_p = fi.fleet_init(seeds, leaves, n_totals, epochs)
@@ -4327,7 +4423,8 @@ def phase_fleet_init_kernel_check():
             qr = max(qr, norm_err(q_ref, q_got))
         check(qr <= FLEET_INIT_QR_TOLERANCE, f"fleet_init {name}: kernel_h after QR {qr}")
         entry.update({"max_ulp": ulp, "max_abs_err": abs_err, "kernel_h_max_norm_err": qr})
-        if DEVICE == "cuda":  # timed on the path's work: the raw-bit leaves are the check's
+        entry["paths"] = [("warp", "block", "cluster")[fi.path_of(n, len(seeds_np) * epochs)] for n in n_totals]
+        if DEVICE == "cuda" and name in FLEET_INIT_TIMED:  # on the path's work: the raw leaves are the check's
             path_leaves = [leaf for leaf in leaves if leaf.kind != fi.RAW]
             run = lambda: fi.fleet_init(seeds, path_leaves, n_totals, epochs)  # noqa: E731
             entry["ms"], entry["host_ms"] = time_ms(run, 20)
@@ -6737,6 +6834,7 @@ def main() -> int:
     fleet_api = phase_fleet_api()
     emit({"phase": "fleet_api", **fleet_api})
     fleet_init_kernels = phase_fleet_init_kernel_check()
+    emit(init_quant_redesign_line(fleet_init_kernels, precision_kernels, precision))
     project = phase_build_project()
     emit({"phase": "build_project", **project})
     scaler_kernels = phase_scaler_kernel_check()

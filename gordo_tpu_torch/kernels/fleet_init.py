@@ -79,11 +79,33 @@ _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
 _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
 
-#: sort in shared memory while a block's two key-value buffers and its
-#: digit histogram fit the H100's 227 KB; beyond it, in global scratch
-_SHARED_LIMIT = 232448
-_HIST_BYTES = 16 * 256 * 4
-_THREADS = 256
+#: the kernel's paths (``csrc/fleet_init.cu``): a permutation's keys,
+#: padded to a power of two P of at least 32, are sorted by a warp in
+#: registers up to WARP_KEYS (when a launch has WARP_PATH_PERMS of that
+#: length or more, or P is below BLOCK_MIN_KEYS), else by one block (a
+#: segment of P / 16 keys a warp) up to BLOCK_KEYS, past it by a
+#: thread-block cluster of up to CLUSTER_BLOCKS blocks of up to
+#: CHUNK_KEYS keys each
+WARP, BLOCK, CLUSTER = 0, 1, 2
+WARP_KEYS = 1024
+WARP_PATH_PERMS = 1024
+BLOCK_MIN_KEYS = 256
+BLOCK_KEYS = 8192
+CLUSTER_BLOCKS = 8
+CHUNK_KEYS = 16384
+#: the longest permutation a launch takes on the card
+MAX_ITEMS = CLUSTER_BLOCKS * CHUNK_KEYS
+LONG_SERIES_ITEM = "ROADMAP queue 1 item 20 (long series)"
+#: threads a block: a launch whose permutations all take the warp path
+#: runs blocks of _WARP_LAUNCH_THREADS, any other blocks of _THREADS (the
+#: kernel's ``FI_MAX_THREADS``); a cluster is sized for
+#: CLUSTER_CHUNK_KEYS keys a block
+_THREADS = 512
+_WARP_LAUNCH_THREADS = 256
+CLUSTER_CHUNK_KEYS = 8192
+_VALUES_PER_BLOCK = 1024
+#: a warp's output stage: WARP_KEYS int32, one pad every 32
+_WARP_STAGE_BYTES = 4 * (WARP_KEYS + WARP_KEYS // 32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,8 +324,12 @@ class _JobArgs(ctypes.Structure):
     _fields_ = [
         ("n", ctypes.c_int),
         ("rounds", ctypes.c_int),
+        ("log_p", ctypes.c_int),
+        ("path", ctypes.c_int),
+        ("chunk", ctypes.c_int),
+        ("first_block", ctypes.c_int),
+        ("blocks", ctypes.c_int),
         ("out", ctypes.c_void_p),
-        ("scratch", ctypes.c_void_p),
     ]
 
 
@@ -324,8 +350,11 @@ class _Args(ctypes.Structure):
         ("epochs", ctypes.c_int),
         ("n_jobs", ctypes.c_int),
         ("jobs", _JobArgs * MAX_JOBS),
-        ("value_blocks", ctypes.c_int),
-        ("shared_sort", ctypes.c_int),
+        ("value_first_block", ctypes.c_int),
+        ("value_blocks_per_seed", ctypes.c_int),
+        ("blocks", ctypes.c_int),
+        ("cluster", ctypes.c_int),
+        ("threads", ctypes.c_int),
         ("smem_bytes", ctypes.c_int),
         ("trunc_lo", ctypes.c_float),
         ("trunc_span", ctypes.c_float),
@@ -360,10 +389,126 @@ def _library() -> ctypes.CDLL:
         return _lib
 
 
-def sort_in_shared(n_totals: Sequence[int]) -> bool:
-    """Whether a launch sorts in shared memory: its largest permutation's
-    two key-value buffers and the digit histogram fit a block."""
-    return not n_totals or 16 * max(n_totals) + _HIST_BYTES <= _SHARED_LIMIT
+def padded_keys(n: int) -> int:
+    """P: ``n`` sort keys padded to a power of two, at least 32 (a warp)."""
+    return max(32, 1 << (int(n) - 1).bit_length())
+
+
+def path_of(n: int, perms: int = WARP_PATH_PERMS) -> int:
+    """The path that sorts ``perms`` permutations of ``n`` items in a
+    launch: :data:`WARP` (many short ones: a warp each, the fewest
+    instructions), :data:`BLOCK` (a block each: a few short ones sort in
+    less time so) or :data:`CLUSTER`."""
+    p = padded_keys(n)
+    if p <= WARP_KEYS and (perms >= WARP_PATH_PERMS or p < BLOCK_MIN_KEYS):
+        return WARP
+    return BLOCK if p <= BLOCK_KEYS else CLUSTER
+
+
+@dataclasses.dataclass(frozen=True)
+class Job:
+    """One permutation length of a launch: its path, its keys ``2**log_p``,
+    the keys a block holds (``chunk``), and its blocks of the grid."""
+
+    n: int
+    rounds: int
+    path: int
+    log_p: int
+    chunk: int
+    first_block: int
+    blocks: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A launch's grid: the jobs (in ``n_totals``' order), the value
+    blocks after them, the cluster size, the threads a block and the
+    dynamic shared memory."""
+
+    jobs: Tuple[Job, ...]
+    value_first_block: int
+    value_blocks_per_seed: int
+    blocks: int
+    cluster: int
+    threads: int
+    smem_bytes: int
+
+
+def launch_plan(d: int, epochs: int, n_totals: Sequence[int], n_values: int) -> Plan:
+    """The grid of one launch: the cluster jobs' blocks first (each
+    permutation a whole cluster, so every cluster is one permutation's),
+    then the block jobs' (one a permutation), then the warp jobs' (a
+    permutation a warp of the block), then the value blocks (1,024 values
+    of one seed each), rounded up to whole clusters.  Blocks are of
+    _WARP_LAUNCH_THREADS where every permutation takes the warp path,
+    else of _THREADS.  Every cluster
+    job takes the launch's cluster size, the most any of them needs.
+    Raises ``NotImplementedError`` for a permutation of more than
+    :data:`MAX_ITEMS` items."""
+    for n in n_totals:
+        if n > MAX_ITEMS:
+            raise NotImplementedError(
+                f"a permutation of {n} items waits for {LONG_SERIES_ITEM}: fleet_init sorts at most "
+                f"{MAX_ITEMS} items on the card (a cluster of {CLUSTER_BLOCKS} blocks of {CHUNK_KEYS} keys)")
+    perms = d * epochs
+    paths = [path_of(n, perms) for n in n_totals]
+    cluster = max([padded_keys(n) // CLUSTER_CHUNK_KEYS for n, p in zip(n_totals, paths) if p == CLUSTER] + [1])
+    cluster = min(cluster, CLUSTER_BLOCKS)
+    threads = _WARP_LAUNCH_THREADS if paths and set(paths) == {WARP} else _THREADS
+    warps = threads // 32
+    jobs: List[Optional[Job]] = [None] * len(n_totals)
+    block = 0
+    for path in (CLUSTER, BLOCK, WARP):
+        for i, n in enumerate(n_totals):
+            if paths[i] != path:
+                continue
+            p = padded_keys(n)
+            blocks = perms * cluster if path == CLUSTER else perms if path == BLOCK else -(-perms // warps)
+            chunk = p // cluster if path == CLUSTER else p if path == BLOCK else 0
+            rounds = shuffle_rounds(int(n))
+            if rounds > 2 or (path == WARP and rounds > 1):
+                raise AssertionError(f"{rounds} rounds of {n} items on path {path}")
+            jobs[i] = Job(int(n), rounds, path, p.bit_length() - 1, chunk, block, blocks)
+            block += blocks
+    value_blocks = -(-n_values // _VALUES_PER_BLOCK)
+    total = block + d * value_blocks
+    total = -(-total // cluster) * cluster
+    smem = max([_WARP_STAGE_BYTES * warps if WARP in paths else 0]
+               + [8 * (j.chunk + j.chunk // 32) + 4 * j.chunk for j in jobs if j.path != WARP])
+    return Plan(tuple(jobs), block, value_blocks, total, cluster, threads, smem)
+
+
+def _args(seeds: torch.Tensor, leaves: Sequence[Leaf], epochs: int, values: torch.Tensor,
+          perms: Sequence[torch.Tensor], plan: Plan) -> "_Args":
+    """The kernel's arguments: the int64 seeds (the kernel takes each one's
+    low 32 bits, ``PRNGKey``'s), the outputs, and the grid of ``plan``."""
+    d, n_values = values.shape
+    args = _Args()
+    args.seeds = seeds.data_ptr()
+    args.d, args.n_values = d, n_values
+    args.values = values.data_ptr()
+    args.n_leaves = len(leaves)
+    off = 0
+    for i, leaf in enumerate(leaves):
+        la = args.leaves[i]
+        la.fold, la.kind, la.size, la.offset = leaf.fold, leaf.kind, leaf.size, off
+        la.scale = float(leaf.scale)
+        off += leaf.size
+    args.epochs = epochs
+    args.n_jobs = len(plan.jobs)
+    for i, (job, out) in enumerate(zip(plan.jobs, perms)):
+        ja = args.jobs[i]
+        ja.n, ja.rounds, ja.log_p, ja.path, ja.chunk = job.n, job.rounds, job.log_p, job.path, job.chunk
+        ja.first_block, ja.blocks, ja.out = job.first_block, job.blocks, out.data_ptr()
+    args.value_first_block = plan.value_first_block
+    args.value_blocks_per_seed = plan.value_blocks_per_seed
+    args.blocks, args.cluster, args.threads, args.smem_bytes = plan.blocks, plan.cluster, plan.threads, plan.smem_bytes
+    args.trunc_lo = float(_TRUNC_LO)
+    args.trunc_span = float(_TRUNC_HI - _TRUNC_LO)
+    args.norm_lo = float(_NORM_LO)
+    args.norm_span = float(_NORM_HI - _NORM_LO)
+    args.clip_lo, args.clip_hi = float(_CLIP_LO), float(_CLIP_HI)
+    return args
 
 
 def fleet_init(
@@ -373,7 +518,9 @@ def fleet_init(
     leaves' sizes) float32, each leaf's values row-major at its offset
     (lecun-normal kernels scaled; the standard normals an orthogonal
     kernel's QR takes), and per ``n_totals`` entry the ``(D, epochs, n)``
-    int32 permutations of ``split(fit_key, epochs)``'s keys."""
+    int32 permutations of ``split(fit_key, epochs)``'s keys.  On the card
+    a permutation of more than :data:`MAX_ITEMS` items raises
+    ``NotImplementedError``; the plain version takes any length."""
     if seeds.device.type == "cpu":
         return fleet_init_reference(seeds, leaves, n_totals, epochs)
     if seeds.device.type != "cuda":
@@ -384,50 +531,19 @@ def fleet_init(
                          f"permutation lengths, got {len(leaves)} and {len(n_totals)}")
     device = seeds.device
     d = int(seeds.shape[0])
-    u32 = seeds & MASK  # the seeds' uint32 bits, as int32
-    seeds32 = (u32 - (u32 >= 2 ** 31).to(torch.int64) * 2 ** 32).to(torch.int32)
+    seeds = seeds.contiguous()
     n_values = sum(leaf.size for leaf in leaves)
     if d * n_values >= 2 ** 31:
         raise ValueError(f"{d} seeds x {n_values} values overflow the kernel's indices")
     values = torch.empty((d, n_values), dtype=torch.float32, device=device)
     perms = [torch.empty((d, epochs, int(n)), dtype=torch.int32, device=device) for n in n_totals]
-    shared = sort_in_shared(n_totals)
+    plan = launch_plan(d, epochs, [int(n) for n in n_totals], n_values)
 
-    args = _Args()
-    args.seeds = seeds32.contiguous().data_ptr()
-    args.d = d
-    args.n_values = n_values
-    args.values = values.data_ptr()
-    args.n_leaves = len(leaves)
-    off = 0
-    for i, leaf in enumerate(leaves):
-        la = args.leaves[i]
-        la.fold, la.kind, la.size, la.offset = leaf.fold, leaf.kind, leaf.size, off
-        la.scale = float(leaf.scale)
-        off += leaf.size
-    args.epochs = epochs
-    args.n_jobs = len(n_totals)
-    scratch = []
-    for i, (n, out) in enumerate(zip(n_totals, perms)):
-        ja = args.jobs[i]
-        ja.n, ja.rounds, ja.out = int(n), shuffle_rounds(int(n)), out.data_ptr()
-        if not shared and epochs and d:
-            # two (key, value) buffers of n per (seed, epoch) block
-            buf = torch.empty((d * epochs, 4, int(n)), dtype=torch.int32, device=device)
-            scratch.append(buf)
-            ja.scratch = buf.data_ptr()
-        else:
-            ja.scratch = None
-    args.value_blocks = -(-d * n_values // _THREADS)
-    args.shared_sort = int(shared)
-    args.smem_bytes = _HIST_BYTES + (16 * max(n_totals) if shared and n_totals else 0)
-    args.trunc_lo = float(_TRUNC_LO)
-    args.trunc_span = float(_TRUNC_HI - _TRUNC_LO)
-    args.norm_lo = float(_NORM_LO)
-    args.norm_span = float(_NORM_HI - _NORM_LO)
-    args.clip_lo, args.clip_hi = float(_CLIP_LO), float(_CLIP_HI)
-    if args.value_blocks + (d * epochs * len(n_totals)) == 0:
+    args = _args(seeds, leaves, epochs, values, perms, plan)
+    if plan.blocks == 0:
         return values, perms
+    if plan.blocks >= 2 ** 31:
+        raise ValueError(f"fleet_init's grid of {plan.blocks} blocks is past the card's limit")
 
     lib = _library()
     with torch.cuda.device(device):
@@ -438,8 +554,6 @@ def fleet_init(
     global launches
     with _launches_lock:
         launches += 1
-    # the scratch and seeds may be freed now: the caching allocator hands
-    # their blocks only to work queued after this launch on this stream
     return values, perms
 
 

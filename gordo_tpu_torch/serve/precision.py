@@ -18,7 +18,8 @@ What each dtype means on the card:
 - ``int8``: experimental, behind the opt-in.  Every float leaf of the
   parameters and stats is fake-quantised once, when a model or bucket
   loads, by the ``fake_quant`` kernel (symmetric, one max-|a| scale per
-  leaf, 127 levels, rescaled and stored in bf16); rows are bf16 as above.
+  leaf, 127 levels, rescaled and stored in bf16), all the leaves of a load
+  in one launch (:func:`cast_params`); rows are bf16 as above.
 
 The JAX package casts inside its programs and computes in bf16 where its
 modules do; the port stores reduced and computes in f32.  Both are held to
@@ -28,7 +29,7 @@ the same f32 parity bounds (``tests/test_torch_precision.py``).
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -107,19 +108,21 @@ def cast_input(x: torch.Tensor, name: str) -> torch.Tensor:
     return x if st is None else x.to(st)
 
 
-def cast_params(t: torch.Tensor, name: str, groups: int = 1) -> torch.Tensor:
-    """One float leaf for serving at ``name``: identity at f32, a bf16 cast
-    at bf16, the ``fake_quant`` kernel at int8 (its plain version for a
-    CPU tensor).  ``groups``: the last axis holds that many equal column
-    blocks, each its own leaf (an LSTM's gates, which the JAX package
-    keeps as separate leaves); every leading axis belongs to the leaf, so
-    a stacked (M, ...) leaf takes one scale across its machines, as the
-    reference's bucket path does."""
+def cast_params(leaves: Sequence[torch.Tensor], name: str,
+                groups: Optional[Sequence[int]] = None) -> List[torch.Tensor]:
+    """The float leaves of one load (a model's or a bucket's stack) for
+    serving at ``name``: unchanged at f32, cast to bf16 at bf16, and at
+    int8 fake-quantised all in one ``fake_quant_many`` call (its plain
+    version for CPU tensors).  ``groups`` (default 1 a leaf): the last
+    axis holds that many equal column blocks, each its own leaf (an LSTM's
+    gates, which the JAX package keeps as separate leaves); every leading
+    axis belongs to the leaf, so a stacked (M, ...) leaf takes one scale
+    across its machines, as the reference's bucket path does."""
     name = canonical(name)
-    if name == "float32" or not t.is_floating_point():
-        return t
+    if name == "float32":
+        return list(leaves)
     if name == "bfloat16":
-        return t.to(torch.bfloat16).contiguous()
-    from gordo_tpu_torch.kernels.fake_quant import fake_quant
+        return [t.to(torch.bfloat16).contiguous() for t in leaves]
+    from gordo_tpu_torch.kernels.fake_quant import fake_quant_many
 
-    return fake_quant(t.contiguous(), groups=groups)
+    return fake_quant_many([t.contiguous() for t in leaves], groups)

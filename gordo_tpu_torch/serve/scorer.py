@@ -313,11 +313,18 @@ class _Stack:
         self.window = c0["detector"]["window"] if c0["detector"] else 0
         self.machines = len(chains)
 
+        # every float leaf of the stack is uploaded as ``put`` takes it,
+        # then all are cast in one call (at int8 one fake_quant launch) and
+        # each cast leaf takes its leaf's place
+        leaves, leaf_groups = [], []
+
         def put(arrays, groups=1):
             t = torch.from_numpy(np.ascontiguousarray(np.stack(arrays), np.float32)).to(device)
             if stacked:
                 t = precision.cast_storage(t, self.dtype)
-            return precision.cast_params(t, self.dtype, groups)
+            leaves.append(t)
+            leaf_groups.append(groups)
+            return t
 
         # an LSTM cell's four gate blocks are separate leaves of the reference
         self.cells = [
@@ -365,6 +372,22 @@ class _Stack:
                     [float(d["aggregate_threshold"]) for d in dets], np.float32
                 )
                 self.agg_thr = torch.from_numpy(self.agg_thresholds_np).to(device)
+        cast = dict(zip(map(id, leaves), precision.cast_params(leaves, self.dtype, leaf_groups)))
+        self._replace_leaves(lambda t: cast.pop(id(t)))
+        assert not cast, "every uploaded leaf is cast"
+
+    def _replace_leaves(self, f) -> None:
+        """Every leaf ``put`` uploaded (cells, layers, the steps of
+        ``stages`` and ``target_inverse``, ``scalers``, ``det``) replaced
+        by ``f(leaf)``."""
+        g = lambda t: None if t is None else f(t)  # noqa: E731
+        self.cells = [tuple(map(g, cell)) for cell in self.cells]
+        self.layers = [tuple(map(g, layer)) for layer in self.layers]
+        self.scalers = [(form,) + tuple(map(g, ab)) for form, *ab in self.scalers]
+        if self.det is not None:
+            self.det = (self.det[0],) + tuple(map(g, self.det[1:]))
+        for st in [st for stage in self.stages for branch in stage for st in branch] + self.target_inverse:
+            st.a, st.b = g(st.a), g(st.b)
 
     def resident_bytes(self) -> int:
         """Device bytes of the stacked parameters, stats and thresholds."""

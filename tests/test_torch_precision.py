@@ -38,7 +38,7 @@ from gordo_tpu_torch import serializer
 from gordo_tpu_torch.kernels import fake_quant as fq
 from gordo_tpu_torch.serve import precision
 from gordo_tpu_torch.serve.fleet_scorer import FleetScorer
-from gordo_tpu_torch.serve.scorer import CompiledScorer
+from gordo_tpu_torch.serve.scorer import CompiledScorer, _extract_chain
 from gordo_tpu_torch.serve.server import ModelCollection
 from torch_parity import carry, init_detector
 
@@ -162,6 +162,103 @@ def test_fake_quant_keeps_nan_as_jax_does():
     ref = np.asarray(jax_precision._fake_quant_int8(jnp.asarray(a)).astype(jnp.float32))
     got = fq.fake_quant_plain(torch.from_numpy(a)).float().numpy()
     assert np.isnan(ref).all() and np.isnan(got).all()
+
+
+def _jax_leaf_bits(a: np.ndarray, bf16: bool, groups: int = 1) -> np.ndarray:
+    """``_fake_quant_int8`` of each of a leaf's ``groups`` column blocks."""
+    x = jnp.asarray(a)
+    if bf16:
+        x = x.astype(jnp.bfloat16)
+    return np.concatenate([_bf16_bits(jax_precision._fake_quant_int8(g))
+                           for g in jnp.split(x, groups, axis=-1)], axis=-1)
+
+
+def test_fake_quant_many_is_jax_leaf_by_leaf():
+    """One call over a load's leaves (f32 and bf16, four gate blocks, an
+    all-zero leaf at the 1e-12 floor, one element, a NaN) gives each leaf
+    ``_fake_quant_int8``'s bits (NaN by place), into given outputs too."""
+    rng = np.random.default_rng(5)
+    gates = rng.standard_normal((4, 6, 4 * 5)).astype(np.float32)
+    gates[..., 5:10] *= 20.0
+    nan_leaf = rng.standard_normal((3, 7)).astype(np.float32)
+    nan_leaf[1, 2] = np.nan
+    cases = [  # (leaf, bf16, groups)
+        (rng.standard_normal((64, 10, 8)).astype(np.float32), False, 1),
+        ((1e-3 * rng.standard_normal((64, 8))).astype(np.float32), True, 1),
+        (gates, False, 4),
+        (gates, True, 4),
+        (np.zeros((5, 3), np.float32), False, 1),
+        (np.zeros((5, 3), np.float32), True, 1),
+        (np.array([0.37], np.float32), False, 1),
+        (nan_leaf, True, 1),
+    ]
+    leaves = []
+    for a, bf16, _ in cases:
+        t = torch.from_numpy(np.array(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32)) if bf16 else a)
+        leaves.append(t.to(torch.bfloat16) if bf16 else t)
+    groups = [g for _, _, g in cases]
+    got = fq.fake_quant_many(leaves, groups)
+    outs = [torch.empty(t.shape, dtype=torch.bfloat16) for t in leaves]
+    assert fq.fake_quant_many(leaves, groups, out=outs) == outs
+    def nan(bits):  # a bf16 NaN: every exponent bit set, a mantissa bit set
+        return ((bits & 0x7F80) == 0x7F80) & ((bits & 0x7F) != 0)
+
+    for (a, bf16, g), t, o in zip(cases, got, outs):
+        want = _jax_leaf_bits(a, bf16, g)
+        for bits in (_bf16_bits(t), _bf16_bits(o)):
+            np.testing.assert_array_equal(nan(bits), nan(want))
+            np.testing.assert_array_equal(bits[~nan(bits)], want[~nan(want)])
+    assert np.isnan(got[-1].float().numpy()).all()  # a NaN spreads to every output
+    assert not got[4].float().any()
+    assert fq.fake_quant_many([]) == []
+    with pytest.raises(ValueError, match="one groups count"):
+        fq.fake_quant_many(leaves[:2], [1])
+
+
+def test_launch_units_cut_at_the_kernels_limits():
+    """A load's units go big first (a cluster each), then the rest, in as
+    few launches as MAX_UNITS and MAX_LEAVES allow: one for a bucket."""
+    units = [(0, fq.BIG + 1), (1, 10), (2, fq.BIG), (3, 4 * fq.BIG)]
+    assert fq.launch_units(units) == [[0, 3, 1, 2]]
+    assert [len(s) for s in fq.launch_units([(i, 10) for i in range(fq.MAX_LEAVES + 2)])] == [fq.MAX_LEAVES, 2]
+    assert [len(s) for s in fq.launch_units([(i // 4, 10) for i in range(fq.MAX_UNITS + 1)])] == [fq.MAX_UNITS, 1]
+
+
+@pytest.mark.parametrize("kind", ["feedforward", "lstm"])
+def test_stack_quantises_its_leaves_in_one_call(models, kind, monkeypatch, int8_opt_in):
+    """A stack (a bucket, and each machine's scorer) quantises all its float
+    leaves (layers or cells with their gates, head, scaler and detector
+    stats) in one ``fake_quant_many`` call, each leaf as ``fake_quant``."""
+    calls = []
+
+    def counted(leaves, groups=None, out=None):
+        calls.append((len(leaves), list(groups)))
+        return real(leaves, groups, out=out)
+
+    real = fq.fake_quant_many
+    monkeypatch.setattr(fq, "fake_quant_many", counted)
+    ms = models["port"][kind]
+    fleet = FleetScorer.from_models(dict(zip(_names(kind, len(ms)), ms)), device="cpu", dtype="int8")
+    (bucket,) = fleet.buckets
+    assert len(calls) == 1
+    n_leaves, groups = calls[0]
+    if kind == "lstm":
+        assert groups[:3 * len(bucket.cells)] == [4] * (3 * len(bucket.cells))
+        first = bucket.cells[0][0]
+    else:
+        assert n_leaves == 2 * len(bucket.layers) + 4 and set(groups) == {1}
+        first = bucket.layers[0][0]
+    chains = [_extract_chain(m) for m in ms]
+    stacked = np.stack([c["cells"][0][0] if kind == "lstm" else c["layers"][0][0] for c in chains])
+    want = fq.fake_quant(torch.from_numpy(stacked.astype(np.float32)).to(torch.bfloat16),
+                         4 if kind == "lstm" else 1)
+    assert torch.equal(first.view(torch.int16), want.view(torch.int16))
+    calls.clear()
+    CompiledScorer(ms[0], device="cpu", dtype="int8")
+    assert len(calls) == 1 and calls[0][0] == n_leaves
+    calls.clear()
+    CompiledScorer(ms[0], device="cpu", dtype="bfloat16")
+    assert not calls
 
 
 # -- serving at reduced precision ----------------------------------------------
