@@ -299,7 +299,20 @@ variant, whose launches are not in ``scaler_quantiles``';
 ``chain_apply_inverse`` is ``chain_apply`` on a TransformedTargetRegressor's
 target inverse and ``fleet_score_epilogue`` the epilogue alone, whose
 launches are not in ``chain_apply``'s and ``fleet_score``'s) and, last,
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero without a result; so does
+``{"ok": true, "device": {...}}``.
+
+The phases that run ``fleet_score`` or ``chain_apply`` on seeded inputs
+(``kernel_check``, ``lstm_kernel_check``, ``precision_kernel_check``,
+``transform_kernel_check``, ``transform_serve_kernel_check``,
+``container_kernel_check``) print a hash of every output
+(``output_hashes``), so that two trees' kernels compare bit for bit
+through ``scripts/chip_phases.py --smoke``; after phase 27 a
+``score_chain_redesign`` line gives the two kernels' times at their main
+shapes beside the parent design's (``PARENT_FLEET_SCORE``,
+``PARENT_CHAIN_APPLY``).  A library call that computes a kernel's function
+in one launch (``torch.addcmul``, ``torch.addmm``, ``torch.baddbmm``,
+``torch.mm``, ``torch.mean``) is timed as the kernel is (``time_ms``); the
+plain versions and multi-launch library calls by ``time_calls_ms``.  Any failure raises and exits non-zero without a result; so does
 a run without CUDA or outside a checkout of the repository.
 """
 
@@ -307,6 +320,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import importlib
 import json
 import math
@@ -449,6 +463,27 @@ def differing(ref, got) -> int:
     r, g = ref.float() + 0.0, got.float() + 0.0
     both_nan = torch.isnan(r) & torch.isnan(g)
     return int(((r.view(torch.int32) != g.view(torch.int32)) & ~both_nan).sum())
+
+
+def output_hash(t: torch.Tensor, rows=None) -> str:
+    """The first 16 hex digits of the sha256 of ``t``'s bytes (each slot's
+    first ``rows[s]`` rows where given: the rows past them are
+    unspecified), every NaN as one payload: two runs on the same inputs
+    print the same hash exactly when their outputs agree bit for bit."""
+    if rows is not None:
+        t = torch.cat([t[i, : int(c)] for i, c in enumerate(rows)])
+    t = t.detach()
+    if t.is_floating_point():
+        t = torch.where(torch.isnan(t), torch.full_like(t, float("nan")), t)
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def output_hashes(out, rows=None) -> dict:
+    """``output_hash`` of each output of a dict (fleet_score's), or of one
+    tensor (under ``"out"``)."""
+    if isinstance(out, dict):
+        return {k: output_hash(v, rows) for k, v in sorted(out.items())}
+    return {"out": output_hash(out, rows)}
 
 
 def norm_err(ref, got) -> float:
@@ -612,7 +647,8 @@ def phase_kernel_check():
         errs, abs_err = compare(ref, got)
         check(all(e <= TOLERANCE for e in errs.values()),
               f"fleet_score at {machines}x{n}x{tags} within {TOLERANCE}: {errs}")
-        entry = {"shape": [machines, n, tags], "max_norm_err": errs, "max_abs_err": abs_err}
+        entry = {"shape": [machines, n, tags], "max_norm_err": errs, "max_abs_err": abs_err,
+                 "hashes": output_hashes(got)}
         if machines > 1:
             # a subset of the bucket by stack position, with ragged rows
             m_sub = machines // 8
@@ -624,7 +660,8 @@ def phase_kernel_check():
             errs_s, abs_s = compare(ref_s, got_s, rows)
             check(all(e <= TOLERANCE for e in errs_s.values()),
                   f"fleet_score subset of {m_sub} within {TOLERANCE}: {errs_s}")
-            entry["subset"] = {"machines": m_sub, "max_norm_err": errs_s, "max_abs_err": abs_s}
+            entry["subset"] = {"machines": m_sub, "max_norm_err": errs_s, "max_abs_err": abs_s,
+                               "hashes": output_hashes(got_s, rows)}
             entry["max_abs_err"] = max(abs_err, abs_s)
         # the plain version is ~30 launches a call: few calls, so that the
         # launches queued behind the sleep stay within the card's queue
@@ -1339,6 +1376,47 @@ def init_quant_redesign_line(fleet_init_kernels: dict, precision_kernels: dict, 
             "parent": {"fleet_init": PARENT_FLEET_INIT, "fake_quant": PARENT_FAKE_QUANT}}
 
 
+#: the parent design's figures beside which the smoke prints the
+#: redesigned fleet_score and chain_apply (``score_chain_redesign_line``):
+#: each the mean of the parent tree's runs of the kernel-check phases
+#: before and after the redesign's in one call (``scripts/chip_phases.py``,
+#: PERF.md §6, "NVIDIA H100 80GB HBM3, 700.00 W"); the streamed row's
+#: chain_apply from the parent's final smoke run (``torch.profiler``)
+PARENT_FLEET_SCORE = {"f32_ms": 0.215373, "bf16_ms": 0.213205, "wide_ms": 0.078639, "lstm_head_ms": 0.551174,
+                      "epilogue_ms": 0.094313}
+PARENT_CHAIN_APPLY = {"chain_c_f32_ms": 0.119307, "chain_c_bf16_ms": 0.120133, "chain_c_bf16_out_ms": 0.116472,
+                      "standard_inverse_ms": 0.06987, "robust_inverse_ms": 0.06981, "chain_a_ms": 0.006228,
+                      "stream_row_ms": 0.00199185}
+
+
+def score_chain_redesign_line(shapes: list, lstm_kernels: dict, precision_kernels: dict, transform_kernels: dict,
+                              transform_serve_kernels: dict, transform_serve: dict, container_kernels: dict) -> dict:
+    """``fleet_score`` at the bench's bucket (f32, bf16), the 128-tag shape,
+    the LSTM head and the epilogue alone at 512 × 2048 × 10, and
+    ``chain_apply`` on the stacked chain C (three instantiations), the
+    stacked Standard and Robust inverses (with ``torch.addcmul``'s time by
+    the same events), chain A and a streamed chain-C row, beside the
+    parent design's (PARENT_FLEET_SCORE, PARENT_CHAIN_APPLY)."""
+    rows, tags = TRANSFORM_SHAPES[0]
+    stacked = "x".join(str(v) for v in CONTAINER_SHAPES[-1])
+    stream = transform_serve["stream"]["float32"].get("kernel_ms_by_name", {})
+    return {"phase": "score_chain_redesign",
+            "fleet_score": {"f32_ms": shapes[0].get("ms"), "bf16_ms": precision_kernels["fleet_score_bf16"].get("ms"),
+                            "wide_ms": shapes[1].get("ms"),
+                            "lstm_head_ms": lstm_kernels["fleet_score_lstm_head"].get("ms"),
+                            "epilogue_ms": container_kernels[f"epilogue_thresholds_{stacked}"].get("ms")},
+            "chain_apply": {"chain_c_f32_ms": transform_serve_kernels["float32"].get("ms"),
+                            "chain_c_bf16_ms": transform_serve_kernels["bfloat16"].get("ms"),
+                            "chain_c_bf16_out_ms": transform_serve_kernels["bfloat16_out"].get("ms"),
+                            "standard_inverse_ms": container_kernels[f"standard_inverse_{stacked}"].get("ms"),
+                            "robust_inverse_ms": container_kernels[f"robust_inverse_{stacked}"].get("ms"),
+                            "chain_a_ms": transform_kernels[f"chain_a_{rows}x{tags}"].get("ms"),
+                            "stream_row_ms": sum(v for k, v in stream.items() if "chain_apply" in k) or None},
+            "addcmul_ms": {"standard": container_kernels[f"standard_inverse_{stacked}"].get("library_ms"),
+                           "robust": container_kernels[f"robust_inverse_{stacked}"].get("library_ms")},
+            "parent": {"fleet_score": PARENT_FLEET_SCORE, "chain_apply": PARENT_CHAIN_APPLY}}
+
+
 def lstm_redesign_line(lstm_kernels: dict, lstm_train_kernels: dict, lstm_train: dict) -> dict:
     """The redesigned LSTM kernels' times in this run beside the parent
     design's (PARENT_LSTM): ``lstm_layer`` at the bench's and the stream's
@@ -1459,7 +1537,8 @@ def phase_lstm_kernel_check():
     check(all(e <= LSTM_TOLERANCE["fleet_score"] for e in errs.values()),
           f"LSTM head within {LSTM_TOLERANCE['fleet_score']}: {errs}")
     head = {"shape": [machines, nw, hidden, tags], "max_norm_err": errs,
-            "max_abs_err": max(float((ref[k].double() - got[k].double()).abs().max()) for k in ref)}
+            "max_abs_err": max(float((ref[k].double() - got[k].double()).abs().max()) for k in ref),
+            "hashes": output_hashes(got)}
     timed(head, run, plain, 20)
     head.update(bound(4 * (machines * nw * (hidden + tags)  # states, targets
                            + machines * (hidden * tags + 3 * tags)  # head, detector stats
@@ -3210,7 +3289,8 @@ def phase_precision_kernel_check():
     check(DEVICE != "cuda" or fs.bf16_launches == launches0 + 1, "the bf16 fleet_score launch is counted as bf16")
     errs, abs_err = compare(ref, got)
     check(all(e <= TOLERANCE for e in errs.values()), f"bf16 fleet_score within {TOLERANCE}: {errs}")
-    entry = {"shape": [machines, n, tags], "storage": "bfloat16", "max_norm_err": errs, "max_abs_err": abs_err}
+    entry = {"shape": [machines, n, tags], "storage": "bfloat16", "max_norm_err": errs, "max_abs_err": abs_err,
+             "hashes": output_hashes(got)}
     m_sub = machines // 8
     idx = np.sort(rng.choice(machines, m_sub, replace=False))[::-1].copy()
     rows = rng.integers(1, n + 1, m_sub)
@@ -3219,7 +3299,8 @@ def phase_precision_kernel_check():
     ref_s = fs.fleet_score_plain(xs, layers, chain["acts"], idx=idx, n_rows=rows, **kw)
     errs_s, abs_s = compare(ref_s, got_s, rows)
     check(all(e <= TOLERANCE for e in errs_s.values()), f"bf16 fleet_score subset within {TOLERANCE}: {errs_s}")
-    entry["subset"] = {"machines": m_sub, "max_norm_err": errs_s, "max_abs_err": abs_s}
+    entry["subset"] = {"machines": m_sub, "max_norm_err": errs_s, "max_abs_err": abs_s,
+                       "hashes": output_hashes(got_s, rows)}
     entry["max_abs_err"] = max(abs_err, abs_s)
     # a NaN threshold gives a NaN confidence, as jnp.maximum and the plain
     # version keep it
@@ -3288,7 +3369,8 @@ def phase_precision_kernel_check():
     check(all(e <= LSTM_TOLERANCE["fleet_score"] for e in errs.values()), f"bf16 LSTM head within tolerance: {errs}")
     nw, hidden = n - LOOKBACK + 1, int(W.shape[1])
     head = {"shape": [machines, nw, hidden, tags], "storage": "bfloat16", "max_norm_err": errs,
-            "max_abs_err": max(float((ref[k].double() - got[k].double()).abs().max()) for k in ref)}
+            "max_abs_err": max(float((ref[k].double() - got[k].double()).abs().max()) for k in ref),
+            "hashes": output_hashes(got)}
     timed(head, run, plain, 20, 5)
     head.update(bound(4 * machines * nw * hidden + 2 * machines * nw * tags  # f32 states, bf16 targets
                       + 2 * machines * (hidden * tags + 3 * tags)  # bf16 head and detector stats
@@ -4995,7 +5077,10 @@ def phase_transform_kernel_check():
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)  # noqa: E731
     entries = {}
 
-    def hold(name, run, plain, bound_info, tol, library=None, reps=20, plain_reps=5):
+    def hold(name, run, plain, bound_info, tol, library=None, reps=20, plain_reps=5, one_launch=False):
+        """``library``: one PyTorch call computing the same function, timed
+        as the kernel is (``time_ms``) where it is ``one_launch``, else as
+        the plain version (``time_calls_ms``: its launch gaps included)."""
         got, ref = run(), plain()
         outs = list(got) if isinstance(got, (tuple, list)) else [got]
         refs = list(ref) if isinstance(ref, (tuple, list)) else [ref]
@@ -5005,11 +5090,13 @@ def phase_transform_kernel_check():
             errs.append(e)
             worst = max(worst, a)
         check(max(errs) <= tol, f"{name} within {tol}: {errs}")
-        entry = {"max_norm_err": max(errs), "max_abs_err": worst, "tolerance": tol, **bound_info}
+        entry = {"max_norm_err": max(errs), "max_abs_err": worst, "tolerance": tol, **bound_info,
+                 "hashes": [output_hash(g) for g in outs]}
         if DEVICE == "cuda":
             entry["ms"], entry["host_ms"] = time_ms(run, reps)
             entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, plain_reps)
-            entry["library_ms"] = None if library is None else time_calls_ms(library, plain_reps)[0]
+            entry["library_ms"] = None if library is None else (
+                time_ms(library, reps)[0] if one_launch else time_calls_ms(library, plain_reps)[0])
         entries[name] = entry
         return got
 
@@ -5068,7 +5155,7 @@ def phase_transform_kernel_check():
         hold(f"mean{label}", lambda: ss.scaler_stats(xm, whole, stat="mean")[0],
              lambda: ss.scaler_stats_plain(xm, whole, stat="mean")[0],
              single_stat_bound(n, tags, 0, 1), TRANSFORM_TOLERANCE["mean"],
-             library=lambda: torch.mean(xm, dim=1), reps=reps, plain_reps=3)
+             library=lambda: torch.mean(xm, dim=1), reps=reps, plain_reps=3, one_launch=True)
         check(bool(torch.isnan(ss.scaler_stats(xm, whole, stat="mean")[0][0, 0, 3])), "a NaN column's mean is NaN")
         mean_bits(f"mean{label}", "mean", xm, whole)
         hold(f"nanmean{label}", lambda: ss.scaler_stats(xm, whole, stat="nanmean")[0],
@@ -5149,7 +5236,7 @@ def phase_transform_kernel_check():
         centred = x - mean
         hold(f"pca_k{f}_{n}x{f}", lambda: ca.chain_apply(x, pca), lambda: ca.chain_apply_plain(x, pca),
              chain_apply_bound(n, pca, f), TRANSFORM_TOLERANCE["chain_apply"],
-             library=lambda: torch.mm(centred, pca[0].b))
+             library=lambda: torch.mm(centred, pca[0].b), one_launch=True)
         for label, steps, rows_in in (
             ("quantile_uniform", [ca.Step(ca.QUANTILE, grid, qs)], xq_nan),
             ("quantile_normal", [ca.Step(ca.QUANTILE, grid, qs, normal=True)], xq_nan),
@@ -5618,7 +5705,7 @@ def phase_transform_serve_kernel_check():
         check(err <= tolerance, f"stacked chain_apply {name} within {tolerance}: {err}")
         entry = {"max_norm_err": err, "max_abs_err": abs_err, "tolerance": tolerance,
                  "slots": int(rows_in.shape[0]), "rows": int(counts.sum()), "storage": str(rows_in.dtype),
-                 "out": str(out_dtype),
+                 "out": str(out_dtype), "hashes": output_hashes(got.float(), counts),
                  **stacked_chain_bound(int(counts.sum()), F, k, len(np.unique(kw["idx"])) if "idx" in kw else M,
                                        in_bytes, out_bytes)}
         if DEVICE == "cuda":
@@ -6209,8 +6296,9 @@ def phase_container_kernel_check():
     at the stacked shape, each slot its own machine's; the epilogue with
     and without thresholds on predictions and targets with NaN cells.
     Times, bounds, the plain version's time and, where one PyTorch call
-    computes the same function, that call's (``torch.addcmul`` for the
-    affine inverse, ``torch.addmm``/``torch.baddbmm`` for PCA_INV)."""
+    computes the same function, that call's by the kernel's own events
+    (``torch.addcmul`` for the affine inverse, ``torch.addmm``/
+    ``torch.baddbmm`` for PCA_INV); a hash of every output."""
     from gordo_tpu_torch.kernels import chain_apply as ca
     from gordo_tpu_torch.kernels import fleet_score as fs
     from gordo_tpu_torch.kernels import scaler_quantiles as sq
@@ -6220,7 +6308,10 @@ def phase_container_kernel_check():
     entries = {}
 
     def hold(name, run, plain, bound_info, tol, library=None, reps=20, plain_reps=3):
+        """``library``: one PyTorch call computing the same function, timed
+        as the kernel is (``time_ms``)."""
         got, ref = run(), plain()
+        hashes = output_hashes(got)
         if isinstance(got, dict):
             keys = sorted(ref)
             check(sorted(got) == keys, f"{name}: outputs {sorted(got)} against {keys}")
@@ -6233,11 +6324,11 @@ def phase_container_kernel_check():
             errs.append(e)
             worst = max(worst, a)
         check(max(errs) <= tol, f"{name} within {tol}: {errs}")
-        entry = {"max_norm_err": max(errs), "max_abs_err": worst, "tolerance": tol, **bound_info}
+        entry = {"max_norm_err": max(errs), "max_abs_err": worst, "tolerance": tol, **bound_info, "hashes": hashes}
         if DEVICE == "cuda":
             entry["ms"], entry["host_ms"] = time_ms(run, reps)
             entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, plain_reps)
-            entry["library_ms"] = None if library is None else time_calls_ms(library, plain_reps)[0]
+            entry["library_ms"] = None if library is None else time_ms(library, reps)[0]
         entries[name] = entry
 
     for m, n, f in CONTAINER_SHAPES:
@@ -6354,7 +6445,7 @@ def pca_forms_check(rng, put, entries) -> None:
 
     n, f, idx, counts, col = (PCA_FORMS[k] for k in ("rows", "tags", "idx", "n_rows", "out_col"))
     machines = max(idx) + 1
-    worst = {}
+    worst, hashes = {}, {}
     for k in PCA_FORMS["ks"]:
         comps = np.linalg.qr(rng.standard_normal((machines, f, f)))[0][:, :, :k].transpose(0, 2, 1)  # (M, k, f)
         mean = rng.standard_normal((machines, f))
@@ -6381,6 +6472,7 @@ def pca_forms_check(rng, put, entries) -> None:
                        else TRANSFORM_TOLERANCE["chain_apply"])
                 check(e <= tol, f"{name} within {tol}: {e}")
                 worst[name] = e
+                hashes[name] = output_hash(got[..., col:col + w_out][valid].float())
     # the register-tiled product sums each output as the FMA chain it replaced
     comps = put(np.linalg.qr(rng.standard_normal((128, 128)))[0].T)    # (k, F)
     z = put(rng.standard_normal((4096, 128)))
@@ -6389,7 +6481,8 @@ def pca_forms_check(rng, put, entries) -> None:
     ref = _sequential_fma(z, comps, pmean, inverse=True)
     mismatched = int((got.view(torch.int32) != ref.view(torch.int32)).sum())
     check(mismatched == 0, f"PCA_INV k 128: {mismatched} outputs differ from the FMA chain's bits")
-    entries["pca_forms"] = {"max_norm_err": worst, "cases": len(worst), "pca_inv_k128_fma_chain_mismatches": mismatched}
+    entries["pca_forms"] = {"max_norm_err": worst, "cases": len(worst), "pca_inv_k128_fma_chain_mismatches": mismatched,
+                            "hashes": hashes}
 
 
 def _container_counters():
@@ -6847,6 +6940,8 @@ def main() -> int:
     transform_serve = phase_transform_serve()
     emit({"phase": "transform_serve", **transform_serve})
     container_kernels = phase_container_kernel_check()
+    emit(score_chain_redesign_line(shapes, lstm_kernels, precision_kernels, transform_kernels,
+                                   transform_serve_kernels, transform_serve, container_kernels))
     container_build = phase_container_build()
     emit({"phase": "container_build", **container_build})
     uncentred = phase_uncentred_chain()

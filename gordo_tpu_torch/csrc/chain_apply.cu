@@ -85,7 +85,40 @@
 // MFLOP of fp32 FMAs (2.0 us at 67 TFLOP/s), so the PCA step alone is
 // just above the ridge and bound by its arithmetic.
 //
-// Design: one block per tile of R rows of one slot (grid: tiles x slots;
+// Design: three paths, which the wrapper's launch plan picks from the
+// steps and widths; every path rounds each form as below, so a chain's
+// outputs do not depend on the path.
+//
+// The elementwise path, for a chain of elementwise steps alone (AFFINE,
+// CENTER, IMPUTE, MUL, ADD, LOG1P, EXPM1: every affine inverse a TTR runs,
+// a scaler chain that does not fold).  A block takes a tile of rows of one
+// slot, a contiguous span of values; it reads its machine's stats of every
+// step once into shared memory, and after that one barrier each thread
+// takes four values at a time with one 16-byte load (8 bytes at bf16) and
+// one store, where the rows and the output are aligned and the output is
+// contiguous, each value's column advancing without a division, every
+// step applied in registers.  The parent ran such a chain through the
+// tile below: an integer division a value, a barrier a step, each value's
+// stats a 4-byte read of their own.
+//
+// The row path, for a chain with a PCA or PCA_INV step and no quantile
+// step, every width at most CA_NARROW_MAX (chain C, Imputer -> PCA(8) ->
+// MinMax at 10 tags; chain A; PCA_INV k 8 -> 10).  A block reads its
+// machine's stats of every step (a PCA step's components padded to a
+// multiple of four columns) into shared memory once, its first tile's rows
+// in flight meanwhile, then walks a run of its slot's tiles of R rows, one
+// a thread, through a ring of
+// CA_ROW_STAGES raw tiles: the next tile's rows load by 16-byte cp.async
+// copies (bf16 as they are) while this one's go through the chain.  A
+// thread widens its row into its own row of shared memory and takes it
+// through every step there (a PCA step's outputs in registers, the
+// components read as float4 broadcasts, the loop over its inputs at run
+// time, over its outputs unrolled in fours), and the outputs leave in
+// coalesced stores.
+//
+// The tile path, for chains with a quantile step or wider than
+// CA_NARROW_MAX (the k 128 PCA of the 128-tag shape):
+// one block per tile of R rows of one slot (grid: tiles x slots;
 // R = 32..256, the most whose two buffers of R x max_width floats stay
 // within 32 KB and that still give two blocks an SM).  A FeatureUnion's
 // branches each write their own columns of one wider output (out_stride,
@@ -120,6 +153,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
+#include "spans.cuh"
 #include "storage.cuh"
 
 #define CA_MAX_STEPS 8
@@ -131,6 +167,18 @@
 #define CA_RT 4            // rows of a PCA step's register tile
 #define CA_CT 4            // columns of it (one float4 of components)
 #define CA_SMEM_LIMIT 232448
+#define CA_NARROW_MAX 16   // the row path's widest step
+#define CA_ROW_STRIDE 17   // a row's floats in the row path's shared memory: odd, so a warp's rows take 32 banks
+#ifndef CA_ROW_STAGES
+#define CA_ROW_STAGES 2    // raw tiles in the row path's ring: this one and the next ones in flight
+#endif
+#ifndef CA_EW_BATCH
+#define CA_EW_BATCH 4      // groups of four values in flight a thread on the elementwise path
+#endif
+
+#define CA_PATH_TILE 0
+#define CA_PATH_ELEMENTWISE 1
+#define CA_PATH_ROWS 2
 
 #define CA_AFFINE 0
 #define CA_CENTER 1
@@ -177,6 +225,9 @@ struct ChainApplyArgs {
   int out_bf16;         // TO is __nv_bfloat16; needs bf16
   int out_stride;       // values per output row (f_out, or a FeatureUnion's whole width)
   int out_col;          // the first output column written
+  int path;             // CA_PATH_TILE, CA_PATH_ELEMENTWISE or CA_PATH_ROWS
+  int vec;              // elementwise path: rows and output 16-byte aligned, the output contiguous
+  int blocks_per_slot;  // grid columns: a tile each, or on the row path a run of tiles each
   ChainStep steps[CA_MAX_STEPS];
 };
 
@@ -331,7 +382,23 @@ __device__ __forceinline__ float clip_unit(float u) {
   return fminf(fmaxf(u, lo), hi);
 }
 
-// `a` and `b` are this slot's machine's stats
+// an elementwise step of form `form` on v, with its stats a, b (AFFINE,
+// CENTER; IMPUTE's fill a) and constant c (MUL, ADD), as `elementwise`
+// below rounds it: the elementwise and row paths' map
+__device__ __forceinline__ float ew_apply(int form, float v, float a, float b, float c) {
+  switch (form) {
+    case CA_AFFINE: return __fadd_rn(__fmul_rn(v, a), b);
+    case CA_CENTER: return __fdiv_rn(__fsub_rn(v, a), b);
+    case CA_IMPUTE: return v != v ? a : v;
+    case CA_MUL: return __fmul_rn(v, c);
+    case CA_ADD: return __fadd_rn(v, c);
+    case CA_LOG1P: return log1pf(v);
+    case CA_EXPM1: return expm1f(v);
+    default: return v;
+  }
+}
+
+// the tile path's: `a` and `b` are this slot's machine's stats
 template <typename T>
 __device__ __forceinline__ float elementwise(const ChainStep& s, const T* a, const T* b, int col, float v) {
   switch (s.form) {
@@ -345,6 +412,24 @@ __device__ __forceinline__ float elementwise(const ChainStep& s, const T* a, con
     default: return v;
   }
 }
+
+// body(form) with `decltype(form)::value` the elementwise form `form_value`
+// as a compile-time constant, so that a loop over values carries one form
+template <typename Body>
+__device__ __forceinline__ void with_ew_form(int form_value, Body body) {
+  switch (form_value) {
+    case CA_AFFINE: body(std::integral_constant<int, CA_AFFINE>()); break;
+    case CA_CENTER: body(std::integral_constant<int, CA_CENTER>()); break;
+    case CA_IMPUTE: body(std::integral_constant<int, CA_IMPUTE>()); break;
+    case CA_MUL: body(std::integral_constant<int, CA_MUL>()); break;
+    case CA_ADD: body(std::integral_constant<int, CA_ADD>()); break;
+    case CA_LOG1P: body(std::integral_constant<int, CA_LOG1P>()); break;
+    default: body(std::integral_constant<int, CA_EXPM1>()); break;
+  }
+}
+
+__device__ __forceinline__ bool has_a(int form) { return form <= CA_IMPUTE || form == CA_PCA || form == CA_PCA_INV; }
+__device__ __forceinline__ bool has_b(int form) { return form <= CA_CENTER; }
 
 // PCA: the chain has a PCA or PCA_INV step.  Its register tile takes 48
 // registers a thread (five blocks an SM); a chain without one runs an
@@ -475,6 +560,240 @@ __global__ void __launch_bounds__(CA_THREADS, PCA ? 5 : 8) chain_apply_kernel(co
   }
 }
 
+// four values from `p` (16 bytes of floats, 8 of bf16, aligned), widened
+__device__ __forceinline__ void load4(const float* p, float (&v)[4]) {
+  const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float (&v)[4]) {
+  const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&q.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&q.y);
+  v[0] = __low2float(lo);
+  v[1] = __high2float(lo);
+  v[2] = __low2float(hi);
+  v[3] = __high2float(hi);
+}
+
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// each value rounded as st() rounds it
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float (&v)[4]) {
+  uint2 q;
+  *reinterpret_cast<__nv_bfloat162*>(&q.x) = __halves2bfloat162(__float2bfloat16_rn(v[0]), __float2bfloat16_rn(v[1]));
+  *reinterpret_cast<__nv_bfloat162*>(&q.y) = __halves2bfloat162(__float2bfloat16_rn(v[2]), __float2bfloat16_rn(v[3]));
+  *reinterpret_cast<uint2*>(p) = q;
+}
+
+// The elementwise path (the header's first): a tile of rows of one slot,
+// its stats of every step in shared memory, four values a load.
+template <typename T, typename TO>
+__global__ void __launch_bounds__(CA_THREADS) chain_apply_ew_kernel(const __grid_constant__ ChainApplyArgs a) {
+  __shared__ float s_st[CA_MAX_STEPS][2][CA_MAX_WIDTH];
+  const int slot = blockIdx.y;
+  const int n_valid = a.n_rows ? a.n_rows[slot] : a.n;
+  const int r0 = blockIdx.x * a.rows_per_tile;
+  if (r0 >= n_valid) return;
+  const size_t mach = a.idx ? a.idx[slot] : slot;
+  const int F = a.f;
+  const int t = threadIdx.x;
+  for (int k = 0; k < a.n_steps; ++k) {
+    const ChainStep& s = a.steps[k];
+    const T* sa = static_cast<const T*>(s.a) + mach * s.a_stride;
+    const T* sb = static_cast<const T*>(s.b) + mach * s.b_stride;
+    for (int c = t; c < F; c += CA_THREADS) {
+      if (has_a(s.form)) s_st[k][0][c] = ld(sa + c);
+      if (has_b(s.form)) s_st[k][1][c] = ld(sb + c);
+    }
+  }
+  __syncthreads();
+  const int rows = min(a.rows_per_tile, n_valid - r0);
+  const size_t row0 = (size_t)slot * a.n + r0;
+  const int count = rows * F;
+  const T* x = static_cast<const T*>(a.x) + row0 * F;
+  TO* out = static_cast<TO*>(a.out);
+  // the steps over values v[u] of columns c[u], in registers
+  auto apply = [&](auto& v, const auto& c) {
+    for (int k = 0; k < a.n_steps; ++k) {
+      const float* sa = s_st[k][0];
+      const float* sb = s_st[k][1];
+      const float cst = a.steps[k].c;
+      with_ew_form(a.steps[k].form, [&](auto form) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = ew_apply(decltype(form)::value, v[u], sa[c[u]], sb[c[u]], cst);
+      });
+    }
+  };
+  if (a.vec) {
+    // values before the first 16-byte boundary and past the last whole
+    // group go one a thread; the groups between, four a load
+    TO* o = out + row0 * F;
+    const int head = min((int)((4 - (row0 * F & 3)) & 3), count);
+    const int groups = (count - head) >> 2;
+    const int tail = head + 4 * groups;
+    const int i1 = t < head ? t : t >= 4 && t - 4 < count - tail ? tail + t - 4 : -1;
+    if (i1 >= 0) {
+      float v[4] = {ld(x + i1), 0.f, 0.f, 0.f};
+      const int c[4] = {i1 % F, 0, 0, 0};
+      apply(v, c);
+      st(o + i1, v[0]);
+    }
+    const int dc = 4 * CA_THREADS % F;
+    int c0 = (head + 4 * t) % F;
+    for (int g0 = t; g0 < groups; g0 += CA_EW_BATCH * CA_THREADS) {
+      float v[CA_EW_BATCH][4];
+#pragma unroll
+      for (int b = 0; b < CA_EW_BATCH; ++b) {
+        const int g = g0 + b * CA_THREADS;
+        if (g < groups) load4(x + head + 4 * g, v[b]);
+      }
+#pragma unroll
+      for (int b = 0; b < CA_EW_BATCH; ++b) {
+        const int g = g0 + b * CA_THREADS;
+        if (g < groups) {
+          int c[4] = {c0, 0, 0, 0};
+#pragma unroll
+          for (int u = 1; u < 4; ++u) c[u] = c[u - 1] + 1 == F ? 0 : c[u - 1] + 1;
+          apply(v[b], c);
+          store4(o + head + 4 * g, v[b]);
+        }
+        c0 += dc;
+        if (c0 >= F) c0 -= F;
+      }
+    }
+  } else {
+    walk_nt(rows, F, t, CA_THREADS, [&](int r, int c) {
+      float v[4] = {ld(x + r * F + c), 0.f, 0.f, 0.f};
+      const int cs[4] = {c, 0, 0, 0};
+      apply(v, cs);
+      st(out + (row0 + r) * a.out_stride + a.out_col + c, v[0]);
+    });
+  }
+}
+
+// A PCA (or, `inv`, PCA_INV) step on one row `h` (shared memory, its
+// own): each output a chain of FMAs, c ascending, from 0, as the tile's;
+// the padded components `comp` (w, 4 DQ) read as float4 broadcasts, DQ =
+// pad4(ko) / 4, so that no FMA past the padding is issued
+template <int DQ>
+__device__ __forceinline__ void pca_row(float* h, const float* mean, const float* comp, int w, int ko, bool inv) {
+  constexpr int kp = 4 * DQ;
+  float o[kp];
+#pragma unroll
+  for (int j = 0; j < kp; ++j) o[j] = 0.f;
+#pragma unroll 2
+  for (int c = 0; c < w; ++c) {
+    const float v = inv ? h[c] : __fsub_rn(h[c], mean[c]);
+#pragma unroll
+    for (int q = 0; q < DQ; ++q) {
+      const float4 b4 = *reinterpret_cast<const float4*>(comp + c * kp + 4 * q);
+      o[4 * q] = __fmaf_rn(v, b4.x, o[4 * q]);
+      o[4 * q + 1] = __fmaf_rn(v, b4.y, o[4 * q + 1]);
+      o[4 * q + 2] = __fmaf_rn(v, b4.z, o[4 * q + 2]);
+      o[4 * q + 3] = __fmaf_rn(v, b4.w, o[4 * q + 3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kp; ++j)
+    if (j < ko) h[j] = inv ? __fadd_rn(o[j], mean[j]) : o[j];
+}
+
+// The row path (the header's second): R rows of one slot a tile, one a
+// thread, each row (CA_ROW_STRIDE floats of shared memory, its own)
+// through every step, the step's outputs in registers; a block walks a run
+// of its slot's tiles through a ring of CA_ROW_STAGES raw tiles, the next
+// ones' rows loading while it applies the chain to this one's.
+template <typename T, typename TO>
+__global__ void __launch_bounds__(CA_THREADS) chain_apply_rows_kernel(const __grid_constant__ ChainApplyArgs a) {
+  __shared__ float s_a[CA_MAX_STEPS][CA_NARROW_MAX];
+  __shared__ __align__(16) float s_b[CA_MAX_STEPS][CA_NARROW_MAX * CA_NARROW_MAX];
+  extern __shared__ float4 dyn4[];
+  const int R = a.rows_per_tile;
+  float* hs = reinterpret_cast<float*>(dyn4);                    // R rows of CA_ROW_STRIDE
+  char* raw = reinterpret_cast<char*>(hs + R * CA_ROW_STRIDE);   // CA_ROW_STAGES tiles of raw rows (T)
+  const int slot = blockIdx.y;
+  const int n_valid = a.n_rows ? a.n_rows[slot] : a.n;
+  const int tiles = (n_valid + R - 1) / R;
+  if ((int)blockIdx.x >= tiles) return;
+  const size_t mach = a.idx ? a.idx[slot] : slot;
+  const int t = threadIdx.x;
+  const int x_bytes = (R * a.f * (int)sizeof(T) + 15) & ~15;
+  // tile `tile`'s raw rows into ring slot `buf` (none past the slot's
+  // tiles), one copy group a call
+  auto fetch = [&](int tile, int buf) {
+    if (tile < tiles)
+      copy_raw(raw + buf * x_bytes, static_cast<const T*>(a.x) + ((size_t)slot * a.n + tile * R) * a.f,
+               min(R, n_valid - tile * R) * a.f * (int)sizeof(T), t, R);
+    copy_async_commit();
+  };
+  // the first tiles' rows in flight while the stats load
+  for (int s = 0; s < CA_ROW_STAGES - 1; ++s) fetch(blockIdx.x + s * gridDim.x, s);
+  for (int k = 0; k < a.n_steps; ++k) {
+    const ChainStep& s = a.steps[k];
+    const T* sa = static_cast<const T*>(s.a) + mach * s.a_stride;
+    const T* sb = static_cast<const T*>(s.b) + mach * s.b_stride;
+    if (s.form == CA_PCA || s.form == CA_PCA_INV) {
+      // the mean (PCA's of its inputs, PCA_INV's of its outputs), then
+      // the components (w, ko) padded to kp columns of zeros
+      const int ko = s.width_out;
+      const int kp = pad4(ko);
+      for (int c = t; c < (s.form == CA_PCA ? s.width_in : ko); c += R) s_a[k][c] = ld(sa + c);
+      walk_batched<4>(
+          s.width_in, kp, t, R, [&](int c, int j) { return j < ko ? ld(sb + (size_t)c * ko + j) : 0.f; },
+          [&](int c, int j, float v) { s_b[k][c * kp + j] = v; });
+    } else {
+      for (int c = t; c < s.width_in; c += R) {
+        if (has_a(s.form)) s_a[k][c] = ld(sa + c);
+        if (has_b(s.form)) s_b[k][c] = ld(sb + c);
+      }
+    }
+  }
+  TO* out = static_cast<TO*>(a.out);
+  for (int tile = blockIdx.x, i = 0; tile < tiles; tile += gridDim.x, ++i) {
+    copy_async_wait<CA_ROW_STAGES - 2>();
+    __syncthreads();  // this tile's rows in; the last tile's rows read and stores done
+    fetch(tile + (CA_ROW_STAGES - 1) * gridDim.x, (i + CA_ROW_STAGES - 1) % CA_ROW_STAGES);
+    const int buf = i % CA_ROW_STAGES;
+    const int rows = min(R, n_valid - tile * R);
+    const size_t row0 = (size_t)slot * a.n + tile * R;
+    if (t < rows) {
+      float* h = hs + t * CA_ROW_STRIDE;
+      const T* xr = reinterpret_cast<const T*>(raw + buf * x_bytes) + t * a.f;
+      for (int c = 0; c < a.f; ++c) h[c] = widen(xr[c]);
+      for (int k = 0; k < a.n_steps; ++k) {
+        const ChainStep& s = a.steps[k];
+        const int w = s.width_in;
+        const float* sa = s_a[k];
+        const float* sb = s_b[k];
+        if (s.form == CA_PCA || s.form == CA_PCA_INV) {
+          const bool inv = s.form == CA_PCA_INV;
+          switch ((s.width_out + 3) >> 2) {
+            case 1: pca_row<1>(h, sa, sb, w, s.width_out, inv); break;
+            case 2: pca_row<2>(h, sa, sb, w, s.width_out, inv); break;
+            case 3: pca_row<3>(h, sa, sb, w, s.width_out, inv); break;
+            default: pca_row<4>(h, sa, sb, w, s.width_out, inv); break;
+          }
+        } else {
+          const float cst = s.c;
+          with_ew_form(s.form, [&](auto form) {
+            for (int c = 0; c < w; ++c) h[c] = ew_apply(decltype(form)::value, h[c], sa[c], sb[c], cst);
+          });
+        }
+      }
+    }
+    __syncthreads();
+    walk_nt(rows, a.f_out, t, R, [&](int r, int c) {
+      st(out + (row0 + r) * a.out_stride + a.out_col + c, hs[r * CA_ROW_STRIDE + c]);
+    });
+  }
+}
+
 extern "C" int chain_apply_args_size() { return (int)sizeof(ChainApplyArgs); }
 
 extern "C" int chain_apply_limits(int* out) {
@@ -482,6 +801,8 @@ extern "C" int chain_apply_limits(int* out) {
   out[1] = CA_MAX_WIDTH;
   out[2] = CA_MAX_Q;
   out[3] = CA_MAX_SLOTS;
+  out[4] = CA_NARROW_MAX;
+  out[5] = CA_THREADS;
   return 0;
 }
 
@@ -510,31 +831,82 @@ static int launch_with(const ChainApplyArgs* a, size_t smem, cudaStream_t stream
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((a->n + a->rows_per_tile - 1) / a->rows_per_tile, a->m);
+  const dim3 grid(a->blocks_per_slot, a->m);
   chain_apply_kernel<T, TO, PCA><<<grid, CA_THREADS, smem, stream>>>(*a);
   return (int)cudaGetLastError();
 }
 
+// the row path's dynamic shared memory: the rows, the ring of raw tiles
+template <typename T>
+static size_t rows_smem(const ChainApplyArgs* a) {
+  return (size_t)a->rows_per_tile * CA_ROW_STRIDE * sizeof(float) +
+         CA_ROW_STAGES * (((size_t)a->rows_per_tile * a->f * sizeof(T) + 15) & ~(size_t)15);
+}
+
 template <typename T, typename TO>
 static int launch(const ChainApplyArgs* a, cudaStream_t stream) {
+  const dim3 grid(a->blocks_per_slot, a->m);
+  if (a->path == CA_PATH_ELEMENTWISE) {
+    chain_apply_ew_kernel<T, TO><<<grid, CA_THREADS, 0, stream>>>(*a);
+    return (int)cudaGetLastError();
+  }
+  if (a->path == CA_PATH_ROWS) {
+    const size_t smem = rows_smem<T>(a);
+    // with the kernel's static stats, over 48 KB a block only by the opt-in
+    if (smem + sizeof(float) * CA_MAX_STEPS * CA_NARROW_MAX * (CA_NARROW_MAX + 1) > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(chain_apply_rows_kernel<T, TO>,
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    chain_apply_rows_kernel<T, TO><<<grid, a->rows_per_tile, smem, stream>>>(*a);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = smem_bytes(a);
   const bool pca = smem > (size_t)2 * a->rows_per_tile * a->max_width * sizeof(float);
   return pca ? launch_with<T, TO, true>(a, smem, stream) : launch_with<T, TO, false>(a, smem, stream);
 }
 
+// whether the plan's path takes the chain: the elementwise path elementwise
+// steps alone (and 16-byte access only to a contiguous output), the row
+// path no quantile step and widths up to CA_NARROW_MAX, the tile path a
+// tile within its shared memory
+static bool path_takes(const ChainApplyArgs* a) {
+  const int tiles = (a->n + a->rows_per_tile - 1) / a->rows_per_tile;
+  if (a->path == CA_PATH_ROWS ? a->blocks_per_slot < 1 || a->blocks_per_slot > tiles : a->blocks_per_slot != tiles)
+    return false;
+  bool elementwise = true, quantile = false;
+  for (int k = 0; k < a->n_steps; ++k) {
+    const int form = a->steps[k].form;
+    elementwise = elementwise && form <= CA_EXPM1;
+    quantile = quantile || form == CA_QUANTILE || form == CA_QUANTILE_INV;
+  }
+  switch (a->path) {
+    case CA_PATH_ELEMENTWISE:
+      return elementwise && a->f == a->f_out && (!a->vec || (a->out_stride == a->f_out && a->out_col == 0));
+    case CA_PATH_ROWS:
+      return !quantile && a->max_width <= CA_NARROW_MAX && a->rows_per_tile >= 32 &&
+             a->rows_per_tile <= CA_THREADS && a->rows_per_tile % 32 == 0;
+    case CA_PATH_TILE:
+      return a->rows_per_tile % CA_RT == 0 &&
+             (size_t)2 * a->rows_per_tile * a->max_width * sizeof(float) <= 48 * 1024 &&
+             smem_bytes(a) + CA_MAX_Q * sizeof(float) <= CA_SMEM_LIMIT;
+    default:
+      return false;
+  }
+}
+
 // Launches on `stream` without synchronising; returns cudaGetLastError(),
-// or cudaErrorInvalidValue for arguments past the kernel's limits.
+// or cudaErrorInvalidValue for arguments past the kernel's limits or a
+// path that does not take the chain.
 extern "C" int chain_apply_launch(const ChainApplyArgs* a, void* stream) {
   if (a->n < 1 || a->m < 1 || a->m > CA_MAX_SLOTS || a->n_steps < 1 || a->n_steps > CA_MAX_STEPS ||
-      a->max_width < 1 || a->max_width > CA_MAX_WIDTH || a->rows_per_tile < 1 || a->rows_per_tile % CA_RT ||
-      (size_t)2 * a->rows_per_tile * a->max_width * sizeof(float) > 48 * 1024 || (a->out_bf16 && !a->bf16) ||
-      a->out_col < 0 || a->out_col + a->f_out > a->out_stride)
+      a->max_width < 1 || a->max_width > CA_MAX_WIDTH || a->rows_per_tile < 1 || (a->out_bf16 && !a->bf16) ||
+      a->out_col < 0 || a->out_col + a->f_out > a->out_stride || !path_takes(a))
     return (int)cudaErrorInvalidValue;
   for (int k = 0; k < a->n_steps; ++k)
     if ((a->steps[k].form == CA_QUANTILE || a->steps[k].form == CA_QUANTILE_INV) &&
         (a->steps[k].q < 2 || a->steps[k].q > CA_MAX_Q))
       return (int)cudaErrorInvalidValue;
-  if (smem_bytes(a) + CA_MAX_Q * sizeof(float) > CA_SMEM_LIMIT) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (!a->bf16) return launch<float, float>(a, s);
   if (a->out_bf16) return launch<__nv_bfloat16, __nv_bfloat16>(a, s);

@@ -41,7 +41,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import threading
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -56,11 +56,29 @@ AFFINE, CENTER, IMPUTE, MUL, ADD, LOG1P, EXPM1, PCA, QUANTILE, PCA_INV, QUANTILE
 FORM_NAMES = ("affine", "center", "impute", "mul", "add", "log1p", "expm1", "pca", "quantile",
               "pca_inv", "quantile_inv")
 #: the kernel's limits (``CA_MAX_STEPS``, ``CA_MAX_WIDTH``, ``CA_MAX_Q``,
-#: ``CA_MAX_SLOTS``)
+#: ``CA_MAX_SLOTS``, ``CA_NARROW_MAX``: the row path's widest step,
+#: ``CA_THREADS``: a block's threads, the row path's most rows)
 MAX_STEPS = 8
 MAX_WIDTH = 128
 MAX_Q = 1000
 MAX_SLOTS = 65535
+NARROW_MAX = 16
+THREADS = 256
+#: the kernel's paths (``CA_PATH_TILE``, ``CA_PATH_ELEMENTWISE``, ``CA_PATH_ROWS``)
+PATH_TILE, PATH_ELEMENTWISE, PATH_ROWS = range(3)
+PATH_NAMES = ("tile", "elementwise", "rows")
+#: the forms the elementwise path takes
+ELEMENTWISE = frozenset((AFFINE, CENTER, IMPUTE, MUL, ADD, LOG1P, EXPM1))
+#: values a block of the elementwise path takes: four a load, CA_EW_BATCH
+#: loads a thread
+EW_TILE_VALUES = 4 * 4 * THREADS
+#: the row path's largest and smallest blocks
+ROW_THREADS_MAX = 128
+ROW_THREADS_MIN = 64
+#: the row path's resident blocks an SM that its plan aims at: each block
+#: walks a run of its slot's tiles, the next tile's rows loading while it
+#: applies the chain to one
+ROW_BLOCKS_PER_SM = 8
 #: the storage types the kernel reads and writes
 STORAGE_DTYPES = (torch.float32, torch.bfloat16)
 LIMITS_ITEM = "ROADMAP queue 1 item 2 (training breadth: wider transform chains)"
@@ -237,6 +255,9 @@ class _Args(ctypes.Structure):
         ("out_bf16", ctypes.c_int),
         ("out_stride", ctypes.c_int),
         ("out_col", ctypes.c_int),
+        ("path", ctypes.c_int),
+        ("vec", ctypes.c_int),
+        ("blocks_per_slot", ctypes.c_int),
         ("steps", _Step * MAX_STEPS),
     ]
 
@@ -263,9 +284,9 @@ def _library() -> ctypes.CDLL:
                     f"chain_apply: ChainApplyArgs is {lib.chain_apply_args_size()} bytes in "
                     f"the library but {ctypes.sizeof(_Args)} in the wrapper"
                 )
-            limits = (ctypes.c_int * 4)()
+            limits = (ctypes.c_int * 6)()
             lib.chain_apply_limits(limits)
-            if tuple(limits) != (MAX_STEPS, MAX_WIDTH, MAX_Q, MAX_SLOTS):
+            if tuple(limits) != (MAX_STEPS, MAX_WIDTH, MAX_Q, MAX_SLOTS, NARROW_MAX, THREADS):
                 raise RuntimeError("chain_apply: the kernel's limits differ from the wrapper's")
             _lib = lib
         return _lib
@@ -301,14 +322,50 @@ def widths(steps: Sequence[Step], f: int):
 
 
 def rows_per_tile(max_width: int, m: int, n: int, sm_count: int) -> int:
-    """The kernel's tile for ``m`` slots of ``n`` rows: the most rows (32..256,
-    a power of two) whose two buffers of ``max_width`` floats a row fit 32
-    KB of shared memory and that still give two blocks an SM (a short
-    request keeps 32-row tiles, as many blocks as it has)."""
+    """The tile path's tile for ``m`` slots of ``n`` rows: the most rows
+    (32..256, a power of two) whose two buffers of ``max_width`` floats a
+    row fit 32 KB of shared memory and that still give two blocks an SM (a
+    short request keeps 32-row tiles, as many blocks as it has)."""
     rows = 256
     while rows > 32 and (2 * rows * max_width * 4 > 32 * 1024 or m * -(-n // rows) < 2 * sm_count):
         rows //= 2
     return rows
+
+
+class LaunchPlan(NamedTuple):
+    path: int
+    rows_per_tile: int
+    blocks_per_slot: int
+
+
+def launch_plan(forms: Sequence[int], ws: Sequence[int], m: int, n: int, sm_count: int) -> LaunchPlan:
+    """The kernel's path for a chain of step ``forms`` over widths ``ws``
+    (:func:`widths`), ``m`` slots of ``n`` rows, and its row tile:
+
+    - elementwise steps alone: the elementwise path, a tile of the slot's
+      rows split evenly into spans of about ``EW_TILE_VALUES`` values (a
+      grid short of SMs in smaller tiles, as many as there are SMs);
+    - a PCA or PCA_INV step, no quantile step, every width at most
+      ``NARROW_MAX``: the row path, a row a thread, tiles of
+      ``ROW_THREADS_MAX`` rows halved (down to ``ROW_THREADS_MIN``) while
+      the grid has fewer tiles than SMs, and as many blocks a slot as
+      leave ``ROW_BLOCKS_PER_SM`` an SM (at least one, at most a tile
+      each), each walking a run of the slot's tiles;
+    - else the tile path (:func:`rows_per_tile`).
+
+    Blocks a slot: a tile each, but on the row path."""
+    if set(forms) <= ELEMENTWISE:
+        rows = -(-n // -(-n * ws[0] // EW_TILE_VALUES))
+        if m * -(-n // rows) < sm_count:
+            rows = max(1, min(rows, m * n // sm_count))
+        return LaunchPlan(PATH_ELEMENTWISE, rows, -(-n // rows))
+    if not set(forms) & {QUANTILE, QUANTILE_INV} and max(ws) <= NARROW_MAX:
+        rows = ROW_THREADS_MAX
+        while rows > ROW_THREADS_MIN and m * -(-n // rows) < sm_count:
+            rows //= 2
+        return LaunchPlan(PATH_ROWS, rows, min(-(-n // rows), max(1, ROW_BLOCKS_PER_SM * sm_count // m)))
+    rows = rows_per_tile(max(ws), m, n, sm_count)
+    return LaunchPlan(PATH_TILE, rows, -(-n // rows))
 
 
 def _slots(x: torch.Tensor, steps: Sequence[Step], idx, n_rows):
@@ -383,6 +440,31 @@ def chain_apply(x: torch.Tensor, steps: Sequence[Step], *, idx=None, n_rows=None
         return chain_apply_plain(x, steps, idx=idx, n_rows=n_rows, out_dtype=out_dtype, out=out, out_col=out_col)
     if x.device.type != "cuda":
         raise ValueError(f"chain_apply runs on cuda or cpu tensors, got {x.device}")
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    args, result, M = launch_args(x, steps, idx, n_rows, out_dtype, out, out_col, sm_count)
+    if args is None:
+        return result
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.chain_apply_launch(ctypes.byref(args), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"chain_apply launch failed: {lib.chain_apply_error_string(rc).decode()}")
+    global launches, stacked_launches, bf16_launches, inverse_launches
+    with _launches_lock:
+        launches += 1
+        stacked_launches += int(M is not None and not args.bf16)
+        bf16_launches += args.bf16
+        inverse_launches += int(any(s.inverse for s in steps))
+    return result
+
+
+def launch_args(x: torch.Tensor, steps: Sequence[Step], idx, n_rows, out_dtype: torch.dtype,
+                out: Optional[torch.Tensor], out_col: int, sm_count: int):
+    """``(args, result, M)``: :func:`chain_apply`'s checked arguments for the
+    kernel, planned for ``sm_count`` SMs (None for a call of no rows), its
+    output tensor (on ``x``'s device, not yet written) and the stacked
+    machine count (None for one set of stats)."""
     if x.dtype not in STORAGE_DTYPES or out_dtype not in STORAGE_DTYPES or x.dim() < 2:
         raise TypeError(f"x must be float32 or bfloat16 (..., n, F) and out_dtype one of the two, got "
                         f"{x.dtype} {tuple(x.shape)} and {out_dtype}")
@@ -408,18 +490,19 @@ def chain_apply(x: torch.Tensor, steps: Sequence[Step], *, idx=None, n_rows=None
     m, n = int(rows.shape[0]), int(rows.shape[1])
     result = _out_buffer(x, ws[-1], out_dtype, out, out_col)
     if n == 0:
-        return result
+        return None, result, M
     args = _Args()
     args.x, args.out = rows.data_ptr(), result.data_ptr()
     args.idx = None if idx is None else idx.data_ptr()
     args.n_rows = None if n_rows is None else n_rows.data_ptr()
     args.m, args.n, args.f, args.f_out, args.max_width = m, n, ws[0], ws[-1], max(ws)
-    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
-    args.rows_per_tile = rows_per_tile(max(ws), m, n, sm_count)
+    plan = launch_plan([s.form for s in steps], ws, m, n, sm_count)
+    args.path, args.rows_per_tile, args.blocks_per_slot = plan
     args.n_steps = len(steps)
     args.bf16 = int(x.dtype == torch.bfloat16)
     args.out_bf16 = int(out_dtype == torch.bfloat16)
     args.out_stride, args.out_col = int(result.shape[-1]), int(out_col)
+    args.vec = int(args.out_stride == ws[-1] and rows.data_ptr() % 16 == 0 and result.data_ptr() % 16 == 0)
     for i, s in enumerate(steps):
         st = args.steps[i]
         st.form, st.width_in, st.width_out = int(s.form), ws[i], ws[i + 1]
@@ -430,19 +513,8 @@ def chain_apply(x: torch.Tensor, steps: Sequence[Step], *, idx=None, n_rows=None
         st.b = None if s.b is None else s.b.data_ptr()
         st.a_stride = int(s.a[0].numel()) if s.stacked and s.a is not None else 0
         st.b_stride = int(s.b[0].numel()) if s.stacked and s.b is not None else 0
-    lib = _library()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.chain_apply_launch(ctypes.byref(args), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"chain_apply launch failed: {lib.chain_apply_error_string(rc).decode()}")
-    global launches, stacked_launches, bf16_launches, inverse_launches
-    with _launches_lock:
-        launches += 1
-        stacked_launches += int(M is not None and not args.bf16)
-        bf16_launches += args.bf16
-        inverse_launches += int(any(s.inverse for s in steps))
-    return result
+    args.inputs = (rows, idx, n_rows, steps)  # alive until the launch is enqueued
+    return args, result, M
 
 
 def chain_apply_union(x: torch.Tensor, branches: Sequence[Sequence[Step]], *,

@@ -33,6 +33,7 @@ import torch
 
 from gordo_tpu_torch.device import to_device
 from gordo_tpu_torch.kernels import build
+from gordo_tpu_torch.kernels.scaler_stats import MAX_STEPS as SCALER_STEPS
 from gordo_tpu_torch.kernels.scaler_stats import Prefix, ScalerChain, apply_steps, check_steps
 from gordo_tpu_torch.models.factories.feedforward import ACTIVATIONS
 
@@ -45,14 +46,34 @@ ACT_CODES = {
     "selu": 5, "softplus": 6, "leaky_relu": 7, "gelu": 8,
 }
 MAX_LAYERS = 16
-#: rows of a tile are a multiple of the rows each thread computes (FS_RPT)
-_ROW_TILES = (256, 128, 64, 32, 16, 8)
 #: shared memory one block may use on sm_90
 SMEM_LIMIT = 232448
 #: all layers' weights are loaded at once (one round of global loads)
 #: when they take at most this much shared memory; wider models stream
-#: one layer at a time
+#: one layer at a time (the tile path, and stream_step's)
 RESIDENT_WEIGHT_BYTES = 32 * 1024
+#: the kernel's paths (``FS_PATH_TILE``, ``FS_PATH_ROWS``)
+PATH_TILE, PATH_ROWS = 0, 1
+PATH_NAMES = ("tile", "rows")
+#: the row path's widest layer (``FS_NARROW_MAX``), largest block
+#: (``FS_ROW_THREADS``) and most rows a thread (``FS_ROW_RPT``); its
+#: planned tile at ``ROW_RPT`` rows a thread (at one, half as many rows)
+NARROW_MAX = 16
+ROW_THREADS_MAX = 256
+ROW_RPT = 2
+ROW_TILE = 256
+#: floats a row takes in the row path's shared memory (``FS_ROW_STRIDE``)
+ROW_STRIDE = NARROW_MAX + 1
+#: the row path's resident blocks an SM that its plan aims at: each block
+#: walks a run of its slot's tiles, the next tile's rows loading while it
+#: scores one
+ROW_BLOCKS_PER_SM = 8
+#: the tile path's rows a thread's register tile takes (``FS_RT``), and its
+#: row tiles, largest first (at most 64, so that two blocks share an SM)
+TILE_RT = 4
+_TILE_ROWS = (64, 32, 16, 8)
+#: the tile path's smallest row tile (a grid short of SMs takes smaller ones)
+TILE_MIN_ROWS = 8
 #: grid rows are ``blockIdx.y``
 MAX_SLOTS = 65535
 
@@ -119,6 +140,9 @@ class _Args(ctypes.Structure):
         ("smem_bytes", ctypes.c_int),
         ("x_bf16", ctypes.c_int),
         ("bf16", ctypes.c_int),
+        ("path", ctypes.c_int),
+        ("blocks_per_slot", ctypes.c_int),
+        ("row_rpt", ctypes.c_int),
     ]
 
 
@@ -137,58 +161,112 @@ def _library() -> ctypes.CDLL:
             lib.fleet_score_error_string.restype = ctypes.c_char_p
             lib.fleet_score_args_size.argtypes = []
             lib.fleet_score_args_size.restype = ctypes.c_int
+            lib.fleet_score_limits.argtypes = [ctypes.c_void_p]
+            lib.fleet_score_limits.restype = ctypes.c_int
             if lib.fleet_score_args_size() != ctypes.sizeof(_Args):
                 raise RuntimeError(
                     "fleet_score: FleetScoreArgs is "
                     f"{lib.fleet_score_args_size()} bytes in the library but "
                     f"{ctypes.sizeof(_Args)} in the wrapper"
                 )
+            limits = (ctypes.c_int * 4)()
+            lib.fleet_score_limits(limits)
+            if tuple(limits) != (NARROW_MAX, ROW_THREADS_MAX, ROW_RPT, TILE_RT):
+                raise RuntimeError("fleet_score: the kernel's limits differ from the wrapper's")
             _lib = lib
         return _lib
 
 
 class LaunchPlan(NamedTuple):
+    path: int
     rows_per_block: int
     smem_bytes: int
     weights_resident: bool
     wbuf_floats: int
+    blocks_per_slot: int
+    row_rpt: int = 1
 
 
-def weight_buffer(dims: Sequence[int]):
-    """``(resident, wbuf_floats, layer_sizes)`` of a dense chain of widths
-    ``dims`` in shared memory (``csrc/dense_rows.cuh``): all layers at once
-    when they take at most ``RESIDENT_WEIGHT_BYTES``, else one at a time."""
-    sizes = [dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(dims) - 1)]
+def _pad4(v: int) -> int:
+    return -(-v // 4) * 4
+
+
+def padded_layers(dims: Sequence[int]):
+    """Floats of each layer in ``fleet_score``'s shared memory: W's rows
+    and b padded to a multiple of four columns (``load_layer_padded``)."""
+    return [(dims[i] + 1) * _pad4(dims[i + 1]) for i in range(len(dims) - 1)]
+
+
+def _ceil16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def row_plan(dims: Sequence[int], m: int, n: int, sm_count: int, with_detector: bool = True, x_bytes: int = 4,
+             store_bytes: int = 4, targets: bool = False) -> LaunchPlan:
+    """The row path's plan: ``ROW_RPT`` rows a thread in tiles of
+    ``ROW_TILE`` rows where the grid fills the SMs and there are layers
+    (each float4 of weights feeds ``ROW_RPT`` rows), else one row a thread
+    in tiles of ``ROW_TILE // ROW_RPT`` rows halved (down to a warp) while
+    the grid has fewer tiles than SMs; as many blocks a slot as leave
+    ``ROW_BLOCKS_PER_SM`` an SM (at least one, at most a tile each), each
+    walking a run of the slot's tiles.  Shared memory: every layer
+    resident, the detector's and scaler steps' stats, the rows'
+    activations and tag scores, and two tiles of raw rows (``x_bytes`` a
+    value) and, with ``targets``, raw targets (``store_bytes`` a value).
+    Raises ``ValueError`` for a width over ``NARROW_MAX``."""
+    if max(dims) > NARROW_MAX:
+        raise ValueError(f"fleet_score's row path takes widths up to {NARROW_MAX}, got {list(dims)}")
+    rpt = ROW_RPT if len(dims) > 1 and m * math.ceil(n / ROW_TILE) >= sm_count else 1
+    rows = ROW_TILE if rpt > 1 else ROW_TILE // ROW_RPT
+    while rows > 32 * rpt and m * math.ceil(n / rows) < sm_count:
+        rows //= 2
+    tiles = math.ceil(n / rows)
+    blocks = min(tiles, max(1, ROW_BLOCKS_PER_SM * sm_count // m))
+    wbuf = sum(padded_layers(dims))
+    f, fo = dims[0], dims[-1]
+    floats = (wbuf + 2 * NARROW_MAX * (1 + SCALER_STEPS) + rows * ROW_STRIDE
+              + (_pad4(rows * fo) if with_detector else 0))
+    raw = 2 * (_ceil16(rows * f * x_bytes) + (_ceil16(rows * fo * store_bytes) if targets else 0))
+    return LaunchPlan(PATH_ROWS, rows, 4 * floats + raw, True, wbuf, blocks, rpt)
+
+
+def tile_plan(dims: Sequence[int], m: int, n: int, sm_count: int, with_detector: bool = True) -> LaunchPlan:
+    """The tile path's plan: weights resident when all padded layers fit
+    in ``RESIDENT_WEIGHT_BYTES``, else streamed a layer at a time; the
+    row tile the largest of ``_TILE_ROWS`` that leaves two blocks an SM
+    (else the largest that fits one), or, where that grid has fewer
+    blocks than SMs, the rows an SM takes when they are spread over every
+    SM, up to a multiple of ``TILE_RT`` (``TILE_MIN_ROWS`` at least): one
+    wave of blocks, none an SM's second (at 1 × 4096 rows, 128 blocks of
+    32 rows on 132 SMs ran faster than 256 of 16 and 147 of 28, PERF.md).
+    Raises ``ValueError`` for widths whose largest layer does not fit."""
+    sizes = padded_layers(dims)
     resident = 4 * sum(sizes) <= RESIDENT_WEIGHT_BYTES
-    return resident, sum(sizes) if resident else max(sizes), sizes
-
-
-def launch_plan(
-    dims: Sequence[int], m: int, n: int, sm_count: int, with_detector: bool = True
-) -> LaunchPlan:
-    """Row tile and shared memory for a chain of widths ``dims``.
-
-    Weights are resident when all layers fit in ``RESIDENT_WEIGHT_BYTES``,
-    else streamed one layer at a time.  The row tile is the largest whose
-    shared memory fits, halved (down to 16 rows) while the grid has fewer
-    blocks than SMs.  Raises ``ValueError`` for widths whose largest layer
-    does not fit."""
-    resident, wbuf, sizes = weight_buffer(dims)
+    wbuf = sum(sizes) if resident else max(sizes)
     fixed = wbuf + 2 * dims[-1]
     per_row = 2 * max(dims) + (dims[-1] if with_detector else 0)
-    for rows in _ROW_TILES:
-        smem = 4 * (fixed + rows * per_row)
-        if smem <= SMEM_LIMIT:
-            break
-    else:
+    fits = [r for r in _TILE_ROWS if 4 * (fixed + r * per_row) <= SMEM_LIMIT]
+    if not fits:
         raise ValueError(
             f"fleet_score cannot take widths {list(dims)}: its largest layer "
-            f"({max(sizes)} floats) and an {_ROW_TILES[-1]}-row tile need "
-            f"{smem} bytes of shared memory, over the {SMEM_LIMIT} a block has"
+            f"({max(sizes)} floats) and an {_TILE_ROWS[-1]}-row tile need "
+            f"{4 * (fixed + _TILE_ROWS[-1] * per_row)} bytes of shared memory, over the "
+            f"{SMEM_LIMIT} a block has"
         )
-    while rows > 16 and m * math.ceil(n / rows) < sm_count:
-        rows //= 2
-    return LaunchPlan(rows, 4 * (fixed + rows * per_row), resident, wbuf)
+    rows = next((r for r in fits if 8 * (fixed + r * per_row) <= SMEM_LIMIT), fits[0])
+    if m * math.ceil(n / rows) < sm_count:
+        rows = max(TILE_MIN_ROWS, min(rows, math.ceil(m * n / sm_count / TILE_RT) * TILE_RT))
+    return LaunchPlan(PATH_TILE, rows, 4 * (fixed + rows * per_row), resident, wbuf, math.ceil(n / rows))
+
+
+def launch_plan(dims: Sequence[int], m: int, n: int, sm_count: int, with_detector: bool = True, x_bytes: int = 4,
+                store_bytes: int = 4, targets: bool = False) -> LaunchPlan:
+    """The kernel's path and its plan for a chain of widths ``dims``: the
+    row path (:func:`row_plan`) when no width passes ``NARROW_MAX``, else
+    the tile path (:func:`tile_plan`)."""
+    if max(dims) <= NARROW_MAX:
+        return row_plan(dims, m, n, sm_count, with_detector, x_bytes, store_bytes, targets)
+    return tile_plan(dims, m, n, sm_count, with_detector)
 
 
 def _host_ints(values, name: str, lo: int, hi: int) -> np.ndarray:
@@ -288,7 +366,6 @@ def fleet_score(
     float32 either way.
     """
     steps = list(chain or ())
-    dets = [] if det is None else [det]
     if x.device.type == "cpu":
         return fleet_score_plain(
             x, layers, acts, chain=steps, det=det, agg_thr=agg_thr,
@@ -296,6 +373,30 @@ def fleet_score(
         )
     if x.device.type != "cuda":
         raise ValueError(f"fleet_score runs on cuda or cpu tensors, got {x.device}")
+    sm_count = torch.cuda.get_device_properties(x.device).multi_processor_count
+    args, result = launch_args(x, layers, acts, steps, det, agg_thr, idx, n_rows, y, y_offset, sm_count)
+    lib = _library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.fleet_score_launch(ctypes.byref(args), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(
+            f"fleet_score launch failed: {lib.fleet_score_error_string(rc).decode()}"
+        )
+    global launches, bf16_launches, epilogue_launches
+    with _launches_lock:
+        launches += 1
+        bf16_launches += args.bf16
+        epilogue_launches += int(not layers)
+    return result
+
+
+def launch_args(x: torch.Tensor, layers: Layers, acts, steps: Prefix, det: Optional[Step], agg_thr, idx, n_rows,
+                y: Optional[torch.Tensor], y_offset: int, sm_count: int):
+    """``(args, result)``: :func:`fleet_score`'s checked arguments for the
+    kernel, planned for ``sm_count`` SMs, and its output tensors (on ``x``'s
+    device, not yet written)."""
+    dets = [] if det is None else [det]
     device = x.device
     if x.dim() != 3:
         raise ValueError(f"x must be (m, n, f), got shape {tuple(x.shape)}")
@@ -349,8 +450,8 @@ def fleet_score(
         if rows_dev.numel() != m:
             raise ValueError(f"n_rows needs one entry per slot ({rows_dev.numel()} != {m})")
 
-    sm_count = torch.cuda.get_device_properties(device).multi_processor_count
-    plan = launch_plan(dims, m, n, sm_count, with_detector=bool(dets))
+    plan = launch_plan(dims, m, n, sm_count, with_detector=bool(dets), x_bytes=x.element_size(),
+                       store_bytes=torch.finfo(store).bits // 8, targets=y is not None)
     pred = torch.empty((m, n, fo), dtype=torch.float32, device=device) if layers else None
     result = {"model-output": x if pred is None else pred}
     tag = total = conf = None
@@ -378,21 +479,11 @@ def fleet_score(
     args.smem_bytes = plan.smem_bytes
     args.x_bf16 = int(x.dtype == torch.bfloat16)
     args.bf16 = int(store == torch.bfloat16)
-
-    lib = _library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.fleet_score_launch(ctypes.byref(args), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(
-            f"fleet_score launch failed: {lib.fleet_score_error_string(rc).decode()}"
-        )
-    global launches, bf16_launches, epilogue_launches
-    with _launches_lock:
-        launches += 1
-        bf16_launches += args.bf16
-        epilogue_launches += int(not layers)
-    return result
+    args.path = plan.path
+    args.blocks_per_slot = plan.blocks_per_slot
+    args.row_rpt = plan.row_rpt
+    args.inputs = (idx_dev, rows_dev)  # alive until the launch is enqueued
+    return args, result
 
 
 def _epilogue_only_check(layers: Layers, acts, steps: Prefix, dets: Prefix) -> Tuple[Optional[int], Optional[torch.dtype]]:

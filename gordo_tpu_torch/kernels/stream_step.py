@@ -33,7 +33,7 @@ import torch
 
 from gordo_tpu_torch.kernels import build
 from gordo_tpu_torch.kernels.fleet_score import (
-    _ROW_TILES,
+    RESIDENT_WEIGHT_BYTES,
     SMEM_LIMIT,
     DenseChain,
     Layers,
@@ -42,12 +42,24 @@ from gordo_tpu_torch.kernels.fleet_score import (
     _ptr,
     fleet_score_plain,
     storage_of,
-    weight_buffer,
 )
 from gordo_tpu_torch.kernels.scaler_stats import Prefix, ScalerChain, check_steps
 
 SOURCE = "gordo_tpu_torch/csrc/stream_step.cu"
 REPLACES = "gordo_tpu/serve/stream.py:175"
+
+#: row tiles of the full window's pass (a multiple of the rows each thread
+#: computes, DR_RPT in ``csrc/dense_rows.cuh``)
+_ROW_TILES = (256, 128, 64, 32, 16, 8)
+
+
+def weight_buffer(dims: Sequence[int]):
+    """``(resident, wbuf_floats, layer_sizes)`` of a dense chain of widths
+    ``dims`` in shared memory (``csrc/dense_rows.cuh``): all layers at once
+    when they take at most ``RESIDENT_WEIGHT_BYTES``, else one at a time."""
+    sizes = [dims[i] * dims[i + 1] + dims[i + 1] for i in range(len(dims) - 1)]
+    resident = 4 * sum(sizes) <= RESIDENT_WEIGHT_BYTES
+    return resident, sum(sizes) if resident else max(sizes), sizes
 
 #: kernel launches so far (the CPU path never counts): scoring steps, and
 #: ring shifts alone (an LSTM stream's first launch of a row)

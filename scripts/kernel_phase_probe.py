@@ -1,17 +1,21 @@
-"""Per-phase clocks of ``stream_step`` and ``fleet_fit`` on the card.
+"""Per-phase clocks of ``stream_step``, ``fleet_fit`` and ``fleet_score`` on the card.
 
-    python3 scripts/kernel_phase_probe.py
+    python3 scripts/kernel_phase_probe.py [stream_step] [fleet_fit] [fleet_score]
 
 A copy of each kernel's source reads ``%globaltimer`` at its phase
 boundaries (thread 0; for ``fleet_fit`` thread 0 of the first block, one
-of the longest fits) and adds each phase's nanoseconds to a device array.
+of the longest fits; for ``fleet_score``'s row path thread 0 of every
+block, once a tile) and adds each phase's nanoseconds to a device array.
 The copies are built with ``nvcc`` beside the kernels' own libraries and
 launched through the kernels' wrappers (the wrapper's library swapped for
 the copy), at the smoke's shapes: a default detector and an LSTM head
-streamed (one new row, and the full window), and ``fleet_fit`` at
-512 x 576 x 10.  Prints one JSON line each: microseconds a launch (a
-stream step) or a step of the first block (``fleet_fit``) by phase.  The
-probes cost a few clock reads; read the split, not the total.
+streamed (one new row, and the full window), ``fleet_fit`` at
+512 x 576 x 10, and ``fleet_score`` at the bench's bucket (512 x 2048 x
+10, f32 and bf16, and the epilogue alone), each also with its tanh layers
+made linear (``linear_acts``: other bits, the activations' share of the
+time).  Prints one JSON line each: microseconds a launch (a stream step),
+a step of the first block (``fleet_fit``) or a tile (``fleet_score``) by
+phase.  The probes cost a few clock reads; read the split, not the total.
 """
 import ctypes
 import json
@@ -41,10 +45,11 @@ extern "C" int probe_zero() { unsigned long long z[16] = {0};
 """
 
 
-def clock(i: int, cond: str = "threadIdx.x == 0") -> str:
-    """CUDA source: add the time since the last clock to phase ``i``."""
-    return (f"if ({cond}) {{ const unsigned long long pt_ = probe_now(); "
-            f"g_probe_acc[{i}] += pt_ - probe_prev; probe_prev = pt_; }}")
+def clock(i: int, cond: str = "threadIdx.x == 0", atomic: bool = False) -> str:
+    """CUDA source: add the time since the last clock to phase ``i`` (by an
+    atomic add where many blocks clock at once)."""
+    add = f"atomicAdd(&g_probe_acc[{i}], pt_ - probe_prev)" if atomic else f"g_probe_acc[{i}] += pt_ - probe_prev"
+    return f"if ({cond}) {{ const unsigned long long pt_ = probe_now(); {add}; probe_prev = pt_; }}"
 
 
 def _insert(src: str, anchor: str, text: str, after: bool = True) -> str:
@@ -94,21 +99,45 @@ def patch_fit(src: str) -> str:
                    after=False)
 
 
-def build_probe(name: str, patch) -> ctypes.CDLL:
+#: fleet_score's row-path phases a tile (a block walks a run of tiles):
+#: the wait for its rows (the block's weights and stats too, before its
+#: first tile) and the barrier; thread 0's row through the scaler steps,
+#: the layers and the epilogue; the barrier; the staged stores
+SCORE_PHASES = ["wait_rows", "score", "barrier", "stores"]
+
+
+def patch_score(src: str, linear_acts: bool = False) -> str:
+    src = _insert(src, '#include "spans.cuh"', "\n" + PROBE_DEFS)
+    src = _insert(src, "  constexpr int S = FS_ROW_STRIDE;\n", "  unsigned long long probe_prev = probe_now();\n")
+    src = _insert(src, "    __syncthreads();  // this tile's rows in; the last tile's stores done\n",
+                  "    " + clock(1, atomic=True) + "\n")
+    src = _insert(src, "    __syncthreads();\n    if (a.pred) walk_nt(rows, fo, tid, nt,", "    " + clock(2, atomic=True) + "\n",
+                  after=False)
+    src = _insert(src, "    if (a.pred) walk_nt(rows, fo, tid, nt,", "    " + clock(3, atomic=True) + "\n", after=False)
+    src = _insert(src, "    if (det) store_span(a.tag + row_base * fo, ts, rows * fo, tid, nt);\n",
+                  "    " + clock(4, atomic=True) + "\n")
+    if linear_acts:
+        tanh = "if (code == ACT_TANH) body([](float v) { return act_fn(ACT_TANH, v); });"
+        src = _insert(src, tanh, "")  # checks the anchor
+        src = src.replace(tanh, "if (code == ACT_TANH) body([](float v) { return v; });", 1)
+    return src
+
+
+def build_probe(name: str, patch, tag: str = "") -> ctypes.CDLL:
     """The patched copy of ``csrc/<name>.cu`` built beside the kernels."""
     out = os.path.join(build.BUILD_DIR, "probe")
     os.makedirs(out, exist_ok=True)
-    path = os.path.join(out, f"{name}_probe.cu")
+    path = os.path.join(out, f"{name}_probe{tag}.cu")
     with open(build.source_path(name)) as f:
         src = patch(f.read())
     with open(path, "w") as f:
         f.write(src)
-    lib_path = os.path.join(out, f"lib{name}_probe.so")
+    lib_path = os.path.join(out, f"lib{name}_probe{tag}.so")
     cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-I", build.CSRC_DIR, "-o", lib_path, path]
     r = subprocess.run(cmd, capture_output=True, text=True)
     if r.returncode:
         raise SystemExit(r.stderr[-4000:])
-    print(json.dumps({"probe_build": name,
+    print(json.dumps({"probe_build": name + tag,
                       "ptxas": [ln for ln in r.stderr.splitlines() if "registers" in ln or "stack" in ln]}))
     lib = ctypes.CDLL(lib_path)
     lib.probe_read.argtypes = [ctypes.c_void_p]
@@ -209,13 +238,57 @@ def probe_fit() -> None:
           flush=True)
 
 
+def probe_score(reps: int = 20) -> None:
+    from gordo_tpu_torch.kernels import fleet_score as fs
+
+    machines, n, tags = cs.KERNEL_SHAPES[0]
+    rng = np.random.default_rng(cs.SEED)
+    dev = cs.to_device(cs.random_chain(rng, machines, tags), "cuda")
+    x = torch.from_numpy(rng.standard_normal((machines, n, tags)).astype(np.float32)).cuda()
+    bf = torch.bfloat16
+    (form, s, o), (dform, ds, do) = dev["kw"]["chain"][0], dev["kw"]["det"]
+    cases = {
+        "bucket": (x, dev["layers"], dev["acts"], dev["kw"]),
+        "bucket_bf16": (x.to(bf), [(W.to(bf), b.to(bf)) for W, b in dev["layers"]], dev["acts"],
+                        dict(chain=[(form, s.to(bf), o.to(bf))], det=(dform, ds.to(bf), do.to(bf)),
+                             agg_thr=dev["kw"]["agg_thr"])),
+        "epilogue": (x, [], [], dict(det=dev["kw"]["det"], agg_thr=dev["kw"]["agg_thr"], y=x + 0.05)),
+    }
+    for linear in (False, True):
+        lib = build_probe("fleet_score", lambda src: patch_score(src, linear), "_linear" if linear else "")
+        lib.fleet_score_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        lib.fleet_score_launch.restype = ctypes.c_int
+        lib.fleet_score_error_string.argtypes = [ctypes.c_int]
+        lib.fleet_score_error_string.restype = ctypes.c_char_p
+        fs._lib = lib
+        for case, (xc, layers, acts, kw) in cases.items():
+            if linear and not layers:
+                continue
+            run = lambda: fs.fleet_score(xc, layers, acts, **kw)  # noqa: E731
+            plan = fs.launch_plan([tags] + [int(W.shape[2]) for W, _ in layers], machines, n,
+                                  torch.cuda.get_device_properties(0).multi_processor_count)
+            tiles = machines * -(-n // plan.rows_per_block)
+            for _ in range(3):
+                run()
+            torch.cuda.synchronize()
+            lib.probe_zero()
+            for _ in range(reps):
+                run()
+            print(json.dumps({"probe": "fleet_score", "case": case, "linear_acts": linear,
+                              "rows_per_block": plan.rows_per_block, "blocks_per_slot": plan.blocks_per_slot,
+                              "us_per_tile": read_us(lib, reps * tiles, SCORE_PHASES),
+                              "ms": cs.time_ms(run, 20)[0]}), flush=True)
+    fs._lib = None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phase_probe: needs a CUDA card", file=sys.stderr)
         return 1
     resolve_device()
-    probe_stream()
-    probe_fit()
+    probes = {"stream_step": probe_stream, "fleet_fit": probe_fit, "fleet_score": probe_score}
+    for name in sys.argv[1:] or list(probes):
+        probes[name]()
     return 0
 
 

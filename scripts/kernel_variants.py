@@ -2,13 +2,15 @@
 
     python3 scripts/kernel_variants.py KERNEL [VARIANT ...]
 
-KERNEL is ``fleet_init`` or ``fake_quant``.  A variant is the kernel's
-``csrc/<KERNEL>.cu`` built with some of its macros set on the ``nvcc``
-command line, and its wrapper with some of its constants set
-(``FLEET_INIT_VARIANTS``, ``FAKE_QUANT_VARIANTS`` below; ``kept`` is the
-source and wrapper as they stand), built beside the kernels' own
-libraries and launched through the wrapper (its library swapped for the
-variant's) at the smoke's shapes:
+KERNEL is ``fleet_init``, ``fake_quant``, ``fleet_score`` or
+``chain_apply``.  A variant is the kernel's ``csrc/<KERNEL>.cu`` built
+with some of its macros set on the ``nvcc`` command line, and its wrapper
+with some of its constants set (``FLEET_INIT_VARIANTS``,
+``FAKE_QUANT_VARIANTS``, ``FLEET_SCORE_VARIANTS``,
+``CHAIN_APPLY_VARIANTS`` below; ``kept`` is the source and wrapper as
+they stand), built beside the kernels' own libraries and launched
+through the wrapper (its library swapped for the variant's) at the
+smoke's shapes:
 
 - ``fleet_init`` (``chip_smoke._fleet_init_cases``): the bench's bucket
   with its values, and each of its permutation lengths alone; one seed of
@@ -17,14 +19,22 @@ variant's) at the smoke's shapes:
 - ``fake_quant``: the stacked bf16 leaves of a 512-machine default bucket
   and of a 64-machine LSTM bucket (the shapes of
   ``chip_smoke.phase_precision_kernel_check``, random values), and one
-  machine's f32 leaves, each set in one launch.
+  machine's f32 leaves, each set in one launch;
+- ``fleet_score``: the bench's bucket (512 × 2048 × 10, f32 and bf16),
+  the 128-tag hourglass (1 × 4096 × 128), the LSTM head (64 × 4085 × 42
+  → 50) and the epilogue alone at 512 × 2048 × 10;
+- ``chain_apply``: chain C stacked at 512 × 2048 × 10 (f32 and bf16
+  rows), the stacked Standard inverse there, chain A at 576 × 10.
 
 Each variant is first held to the plain version on every case
-(``fleet_init``'s permutations and ``fake_quant``'s outputs bit for bit).
-Prints one JSON line a variant: ptxas's registers and spills, and device
-ms a case (CUDA events, ``chip_smoke.time_ms``), with the card's name and
-power limit; first, for ``fleet_init``, the launch of an empty kernel
-taking the argument struct's bytes and one taking an int.
+(``fleet_init``'s permutations and ``fake_quant``'s outputs bit for bit;
+``fleet_score``'s and ``chain_apply``'s within the smoke's tolerances,
+with a hash of each output, ``chip_smoke.output_hashes``, so that two
+variants' bits compare).  Prints one JSON line a variant: ptxas's
+registers and spills, and device ms a case (CUDA events,
+``chip_smoke.time_ms``), with the card's name and power limit; first, for
+``fleet_init``, the launch of an empty kernel taking the argument
+struct's bytes and one taking an int.
 """
 import ctypes
 import json
@@ -40,8 +50,10 @@ sys.path.insert(0, os.getcwd())
 import chip_smoke as cs  # noqa: E402
 from gordo_tpu_torch.device import resolve_device  # noqa: E402
 from gordo_tpu_torch.kernels import build  # noqa: E402
+from gordo_tpu_torch.kernels import chain_apply as ca  # noqa: E402
 from gordo_tpu_torch.kernels import fake_quant as fq  # noqa: E402
 from gordo_tpu_torch.kernels import fleet_init as fi  # noqa: E402
+from gordo_tpu_torch.kernels import fleet_score as fs  # noqa: E402
 
 #: name -> ({macro: value} for nvcc's -D, {wrapper constant: value})
 FLEET_INIT_VARIANTS = {
@@ -63,6 +75,41 @@ FAKE_QUANT_VARIANTS = {
     "threads_1024": ({"FQ_THREADS": 1024}, {}),
     # a cluster for every unit past 16,384 values (four times the kept)
     "big_16384": ({"FQ_BIG": 16384}, {"BIG": 16384}),
+}
+
+#: as FLEET_INIT_VARIANTS, for csrc/fleet_score.cu
+FLEET_SCORE_VARIANTS = {
+    "kept": ({}, {}),
+    # the tile path in blocks of 128 threads (one item a thread at the
+    # 128-tag shape's widest layers)
+    "tile_threads_128": ({"FS_TILE_THREADS": 128}, {}),
+    # the tile path's tiles kept at 32 rows or more (128 blocks at 1 x
+    # 4096 x 128, one an SM)
+    "tile_rows_32": ({}, {"TILE_MIN_ROWS": 32}),
+    # the row path in tiles of 512 rows (256 threads), and of 128 (64)
+    "row_tile_512": ({}, {"ROW_TILE": 512}),
+    "row_tile_128": ({}, {"ROW_TILE": 128}),
+    # the row path's grid at 4 and at 16 blocks an SM (longer and shorter
+    # runs of tiles a block)
+    "row_blocks_4": ({}, {"ROW_BLOCKS_PER_SM": 4}),
+    "row_blocks_16": ({}, {"ROW_BLOCKS_PER_SM": 16}),
+}
+
+#: as FLEET_INIT_VARIANTS, for csrc/chain_apply.cu
+CHAIN_APPLY_VARIANTS = {
+    "kept": ({}, {}),
+    # the elementwise path with two 16-byte loads in flight a thread
+    "ew_batch_2": ({"CA_EW_BATCH": 2}, {"EW_TILE_VALUES": 2 * 4 * ca.THREADS}),
+    # the elementwise path's tiles of about 16,384 values (four batches)
+    "ew_tile_16384": ({}, {"EW_TILE_VALUES": 16384}),
+    # the row path in tiles of 256 rows
+    "rows_256": ({}, {"ROW_THREADS_MAX": 256}),
+    # the row path's ring of raw tiles two deep (one in flight), and four
+    "row_stages_2": ({"CA_ROW_STAGES": 2}, {}),
+    "row_stages_4": ({"CA_ROW_STAGES": 4}, {}),
+    # the row path's grid at 4 and at 16 blocks an SM
+    "row_blocks_4": ({}, {"ROW_BLOCKS_PER_SM": 4}),
+    "row_blocks_16": ({}, {"ROW_BLOCKS_PER_SM": 16}),
 }
 
 #: empty kernels, to time a launch alone: one taking the kernel's
@@ -153,8 +200,98 @@ def fake_quant_cases():
     return out
 
 
+def _held_within(run, plain, tol: float, rows=None):
+    """``held`` for a kernel whose outputs the smoke holds within ``tol``
+    of the plain version (each slot's first ``rows[s]`` rows where given),
+    the kernel's output hashes kept in ``hashes``."""
+    hashes = {}
+
+    def held():
+        got, ref = run(), plain()
+        got = got if isinstance(got, dict) else {"out": got}
+        ref = ref if isinstance(ref, dict) else {"out": ref}
+        hashes.update(cs.output_hashes(got, rows))
+        for k in ref:
+            g, r = got[k].float(), ref[k].float()
+            if rows is not None:
+                g = torch.cat([g[i, :c] for i, c in enumerate(rows)])
+                r = torch.cat([r[i, :c] for i, c in enumerate(rows)])
+            if cs._masked_err(r, g, k)[0] > tol:
+                return False
+        return True
+    held.hashes = hashes
+    return held
+
+
+def fleet_score_cases():
+    """As :func:`fleet_init_cases`, each output held within the smoke's
+    tolerance of the plain version."""
+    rng = np.random.default_rng(cs.SEED)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(cs.SEED)
+    out = {}
+    for label, (machines, n, tags) in zip(("bucket", "wide"), cs.KERNEL_SHAPES):
+        dev = cs.to_device(cs.random_chain(rng, machines, tags), "cuda")
+        x = torch.randn((machines, n, tags), generator=gen, device="cuda")
+        run = lambda x=x, d=dev: fs.fleet_score(x, d["layers"], d["acts"], **d["kw"])  # noqa: E731
+        plain = lambda x=x, d=dev: fs.fleet_score_plain(x, d["layers"], d["acts"], **d["kw"])  # noqa: E731
+        out[label] = (run, _held_within(run, plain, cs.TOLERANCE))
+        if label == "bucket":
+            bf = torch.bfloat16
+            layers = [(W.to(bf), b.to(bf)) for W, b in dev["layers"]]
+            (form, s, o), (dform, ds, do) = dev["kw"]["chain"][0], dev["kw"]["det"]
+            kw = dict(chain=[(form, s.to(bf), o.to(bf))], det=(dform, ds.to(bf), do.to(bf)), agg_thr=dev["kw"]["agg_thr"])
+            xb = x.to(bf)
+            run = lambda xb=xb, l=layers, kw=kw, a=dev["acts"]: fs.fleet_score(xb, l, a, **kw)  # noqa: E731
+            plain = lambda xb=xb, l=layers, kw=kw, a=dev["acts"]: fs.fleet_score_plain(xb, l, a, **kw)  # noqa: E731
+            out["bucket_bf16"] = (run, _held_within(run, plain, cs.TOLERANCE))
+            y = x + 0.05 * torch.randn(x.shape, generator=gen, device="cuda")
+            ekw = dict(det=dev["kw"]["det"], agg_thr=dev["kw"]["agg_thr"], y=y)
+            run = lambda x=x, ekw=ekw: fs.fleet_score(x, [], [], **ekw)  # noqa: E731
+            plain = lambda x=x, ekw=ekw: fs.fleet_score_plain(x, [], [], **ekw)  # noqa: E731
+            out["epilogue"] = (run, _held_within(run, plain, cs.TOLERANCE))
+    machines, n, tags = cs.LSTM_SHAPE
+    nw, hidden = n - cs.LOOKBACK + 1, 42  # the lstm_hourglass's last layer at 50 tags
+    put = lambda *shape: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).cuda()  # noqa: E731
+    h, W, b = put(machines, nw, hidden), put(machines, hidden, tags) / hidden ** 0.5, put(machines, tags)
+    det = cs.minmax_step(put(machines, tags).abs() + 0.5, put(machines, tags))
+    y = put(machines, n, tags)
+    run = lambda: fs.fleet_score(h, [(W, b)], ["linear"], det=det, y=y, y_offset=cs.LOOKBACK - 1)  # noqa: E731
+    plain = lambda: fs.fleet_score_plain(h, [(W, b)], ["linear"], det=det, y=y, y_offset=cs.LOOKBACK - 1)  # noqa: E731
+    out["lstm_head"] = (run, _held_within(run, plain, cs.TOLERANCE))
+    return out
+
+
+def chain_apply_cases():
+    """As :func:`fleet_score_cases`, for ``chain_apply``."""
+    rng = np.random.default_rng(cs.SEED)
+    M, n, F = cs.TRANSFORM_SERVE_SHAPE
+    src = cs.random_chain_c(rng, M, F, cs.CHAIN_C_K)
+    x = torch.from_numpy(cs.request_rows(rng, M, n, F)).cuda()
+    f32 = cs.chain_c_steps(src, "cuda")
+    bf = torch.bfloat16
+    bf16 = [ca.Step(s.form, s.a.to(bf), None if s.b is None else s.b.to(bf), stacked=True) for s in f32]
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()  # noqa: E731
+    inverse = [ca.Step(ca.AFFINE, put(rng.uniform(0.5, 2, (M, F))), put(rng.standard_normal((M, F))), stacked=True)]
+    rows, tags = cs.TRANSFORM_SHAPES[0]
+    xa = put(cs.bench_fleet(rng, 1, rows, tags)[0])
+    chain_a = [ca.Step(ca.IMPUTE, put(src["fill"][0])), ca.func_step(ca.MUL, 2.0),
+               ca.Step(ca.PCA, put(src["mean"][0]), put(src["components"][0].T)),
+               ca.Step(ca.AFFINE, put(src["pca_scale"][0]), put(src["pca_offset"][0]))]
+    spec = {"chain_c": (x, f32), "chain_c_bf16": (x.to(bf), bf16), "standard_inverse": (x, inverse),
+            "chain_a": (xa, chain_a)}
+    out = {}
+    for case, (rows_in, steps) in spec.items():
+        run = lambda r=rows_in, s=steps: ca.chain_apply(r, s)  # noqa: E731
+        plain = lambda r=rows_in, s=steps: ca.chain_apply_plain(r, s)  # noqa: E731
+        out[case] = (run, _held_within(run, plain, cs.TRANSFORM_TOLERANCE["chain_apply"]))
+    return out
+
+
 KERNELS = {"fleet_init": (fi, FLEET_INIT_VARIANTS, fleet_init_cases),
-           "fake_quant": (fq, FAKE_QUANT_VARIANTS, fake_quant_cases)}
+           "fake_quant": (fq, FAKE_QUANT_VARIANTS, fake_quant_cases),
+           "fleet_score": (fs, FLEET_SCORE_VARIANTS, fleet_score_cases),
+           "chain_apply": (ca, CHAIN_APPLY_VARIANTS, chain_apply_cases)}
 
 
 def main() -> None:
@@ -177,10 +314,12 @@ def main() -> None:
         regs = re.findall(r"Used (\d+) registers", log)
         spills = re.findall(r"(\d+) bytes spill stores", log)
         line = {"kernel": kernel, "variant": name, "card": card, "registers": regs, "spill_stores": spills,
-                "ms": {}}
+                "ms": {}, "hashes": {}}
         for case, (run, held) in todo.items():
-            cs.check(held(), f"{kernel} {name} {case}: bit for bit the plain version")
+            cs.check(held(), f"{kernel} {name} {case}: held to the plain version")
             line["ms"][case] = cs.time_ms(run, 20)[0]
+            if hasattr(held, "hashes"):
+                line["hashes"][case] = dict(held.hashes)
         print(json.dumps(line), flush=True)
 
 

@@ -189,20 +189,98 @@ def test_other_devices_are_refused():
 
 
 def test_launch_plan_fits_shared_memory_or_raises():
-    # the default width: all 367 weights resident, the largest row tile
+    # the default width: the row path, all 367 weights resident (each
+    # layer's rows padded to four columns), tiles of 256 rows
     plan = fs.launch_plan([10, 8, 7, 5, 5, 7, 8, 10], m=512, n=2048, sm_count=132)
-    assert plan.weights_resident and plan.wbuf_floats == 367 + 50
+    assert plan.path == fs.PATH_ROWS and plan.weights_resident and plan.wbuf_floats == 492
     assert plan.rows_per_block == 256 and plan.smem_bytes <= fs.SMEM_LIMIT
-    # the 128-tag hourglass: 242 KB of weights in all, streamed a layer at
-    # a time through a buffer of the largest (107 x 128 + 128 floats)
+    # the 128-tag hourglass: the tile path, 242 KB of weights in all,
+    # streamed a layer at a time through a buffer of the largest padded
+    # one (128 x 108 + 108 floats)
     dims = [128, 107, 85, 64, 64, 85, 107, 128]
     plan = fs.launch_plan(dims, m=1, n=4096, sm_count=132)
-    assert not plan.weights_resident and plan.wbuf_floats == 107 * 128 + 128
-    assert plan.rows_per_block % 4 == 0
+    assert plan.path == fs.PATH_TILE and not plan.weights_resident and plan.wbuf_floats == 128 * 108 + 108
+    assert plan.rows_per_block % fs.TILE_RT == 0
     assert 48 * 1024 < plan.smem_bytes <= fs.SMEM_LIMIT
-    # a large grid keeps the largest tile that fits (64 rows at this
-    # width); a small one takes smaller tiles so that every SM has a block
-    assert fs.launch_plan(dims, m=64, n=4096, sm_count=132).rows_per_block == 64
-    assert plan.rows_per_block < 64
+    # a large grid keeps the largest tile that leaves two blocks an SM (32
+    # rows at this width); a small one spreads its rows over the SMs
+    big = fs.launch_plan(dims, m=64, n=4096, sm_count=132)
+    assert big.rows_per_block == 32 and 2 * big.smem_bytes <= fs.SMEM_LIMIT
+    assert plan.rows_per_block <= 32
     with pytest.raises(ValueError, match="cannot take widths"):
         fs.launch_plan([256, 250, 256], m=1, n=10, sm_count=132)
+
+
+@pytest.mark.parametrize("dims, path", [
+    ([10, 8, 7, 5, 5, 7, 8, 10], fs.PATH_ROWS),   # the default hourglass
+    ([8, 6, 5, 4, 4, 5, 6, 10], fs.PATH_ROWS),    # chain C's model: PCA(8) in, 10 tags out
+    ([10], fs.PATH_ROWS),                        # the epilogue alone at 10 tags
+    ([16, 16, 16], fs.PATH_ROWS),                # the row path's widest
+    ([16, 17, 16], fs.PATH_TILE),
+    ([42, 50], fs.PATH_TILE),                    # the LSTM head
+    ([128], fs.PATH_TILE),                       # the epilogue alone at 128 tags
+    ([128, 107, 85, 64, 64, 85, 107, 128], fs.PATH_TILE),
+])
+def test_launch_plan_path_by_width(dims, path):
+    assert fs.launch_plan(dims, m=512, n=2048, sm_count=132).path == path
+
+
+def test_row_path_width_limit_raises():
+    assert fs.row_plan([fs.NARROW_MAX] * 3, m=8, n=100, sm_count=132).path == fs.PATH_ROWS
+    with pytest.raises(ValueError, match=f"row path takes widths up to {fs.NARROW_MAX}"):
+        fs.row_plan([10, fs.NARROW_MAX + 1, 10], m=8, n=100, sm_count=132)
+
+
+@pytest.mark.parametrize("dims, m, n, x_bytes, store_bytes, targets", [
+    ([10, 8, 7, 5, 5, 7, 8, 10], 512, 2048, 4, 4, False),
+    ([10, 8, 7, 5, 5, 7, 8, 10], 512, 2048, 2, 2, False),    # bf16 storage
+    ([10], 512, 2048, 4, 4, True),                           # the epilogue alone
+    ([16] * 17, 1, 1, 4, 4, True),                            # the row path's most shared memory
+    ([16] * 17, 65535, 100_000, 4, 4, True),
+    ([128, 107, 85, 64, 64, 85, 107, 128], 1, 4096, 4, 4, False),
+    ([42, 50], 64, 4085, 4, 2, True),                        # the LSTM head over bf16 storage
+    ([128] * 17, 3, 7, 4, 4, True),
+])
+def test_launch_plan_shared_memory_within_a_block(dims, m, n, x_bytes, store_bytes, targets):
+    plan = fs.launch_plan(dims, m, n, 132, x_bytes=x_bytes, store_bytes=store_bytes, targets=targets)
+    assert plan.smem_bytes <= fs.SMEM_LIMIT == 232_448
+    assert 1 <= plan.blocks_per_slot <= math.ceil(n / plan.rows_per_block)
+    if plan.path == fs.PATH_ROWS:
+        # every tile's rows row_rpt a thread, in whole warps
+        assert plan.row_rpt in (1, fs.ROW_RPT)
+        assert plan.rows_per_block % (32 * plan.row_rpt) == 0
+        assert plan.rows_per_block <= plan.row_rpt * fs.ROW_THREADS_MAX
+    else:
+        assert plan.blocks_per_slot == math.ceil(n / plan.rows_per_block)
+
+
+def test_wide_grid_fills_the_card():
+    """1 x 4096 x 128 spreads its rows over the card's 132 SMs: 32 rows
+    an SM (4096 / 132 up to the tile's four rows), one wave of 128 blocks
+    that gives no SM a second."""
+    plan = fs.launch_plan([128, 107, 85, 64, 64, 85, 107, 128], m=1, n=4096, sm_count=132)
+    assert plan.path == fs.PATH_TILE
+    assert plan.rows_per_block == math.ceil(4096 / 132 / fs.TILE_RT) * fs.TILE_RT == 32
+    assert plan.blocks_per_slot == 128 <= 132
+    # the LSTM head's bucket fills the card many times over
+    head = fs.launch_plan([42, 50], m=64, n=4085, sm_count=132)
+    assert 64 * head.blocks_per_slot >= 132
+
+
+@pytest.mark.parametrize("dims, m, n, rpt", [
+    ([10, 8, 7, 5, 5, 7, 8, 10], 512, 2048, 2),   # the bench's bucket: two rows a thread
+    ([10, 8, 7, 5, 5, 7, 8, 10], 64, 576, 2),
+    ([10, 8, 7, 5, 5, 7, 8, 10], 1, 2048, 1),     # a short request: one, more blocks
+    ([10, 8, 7, 5, 5, 7, 8, 10], 1, 1, 1),
+    ([10], 512, 2048, 1),                        # the epilogue alone: one
+])
+def test_row_plan_runs_each_slot_in_a_few_blocks(dims, m, n, rpt):
+    """The row path's blocks walk runs of their slot's tiles: about
+    ROW_BLOCKS_PER_SM blocks an SM in all, at most a tile each; two rows
+    a thread where the grid fills the SMs and there are layers."""
+    plan = fs.row_plan(dims, m, n, 132)
+    tiles = math.ceil(n / plan.rows_per_block)
+    assert plan.row_rpt == rpt
+    assert plan.blocks_per_slot == min(tiles, max(1, fs.ROW_BLOCKS_PER_SM * 132 // m))
+    if m * tiles < 132:
+        assert plan.rows_per_block == 32

@@ -564,3 +564,63 @@ def test_mixed_collection_serves_unfused_chains_at_float32(fleet, unfused, dtype
     for name in fleet["port"]:
         for key, tol in BOUNDS[dtype].items():
             assert r12_nan(fleet["ref"]["bucket"][name][key], got[name][key]) <= tol, (name, key)
+
+
+# ---------------------------------------------------------------------------
+# chain_apply's launch plans (the kernel's paths; checked without a card)
+# ---------------------------------------------------------------------------
+
+_CHAIN_C_FORMS = [ca.IMPUTE, ca.PCA, ca.AFFINE]
+
+
+@pytest.mark.parametrize("forms, ws, path", [
+    (_CHAIN_C_FORMS, [10, 10, 8, 8], ca.PATH_ROWS),                       # chain C
+    ([ca.IMPUTE, ca.MUL, ca.PCA, ca.AFFINE], [10, 10, 10, 8, 8], ca.PATH_ROWS),  # chain A
+    ([ca.PCA_INV], [8, 10], ca.PATH_ROWS),
+    ([ca.PCA], [16, 16], ca.PATH_ROWS),
+    ([ca.PCA], [17, 16], ca.PATH_TILE),                                    # past the row path's width
+    ([ca.PCA_INV], [128, 128], ca.PATH_TILE),
+    ([ca.IMPUTE, ca.QUANTILE], [10, 10, 10], ca.PATH_TILE),
+    ([ca.QUANTILE_INV], [10, 10], ca.PATH_TILE),
+    ([ca.PCA, ca.QUANTILE], [10, 4, 4], ca.PATH_TILE),
+    ([ca.CENTER, ca.MUL, ca.EXPM1, ca.ADD, ca.LOG1P, ca.IMPUTE], [10] * 7, ca.PATH_ELEMENTWISE),
+    ([ca.AFFINE], [128, 128], ca.PATH_ELEMENTWISE),
+])
+def test_chain_apply_plan_path(forms, ws, path):
+    assert ca.launch_plan(forms, ws, 512, 2048, 132).path == path
+
+
+@pytest.mark.parametrize("scaler", ["MinMaxScaler", "StandardScaler", "RobustScaler"])
+@pytest.mark.parametrize("m, n, tags", [(1, 2048, 10), (512, 2048, 10), (1, 4096, 128), (1, 1, 3)])
+def test_every_affine_inverse_takes_the_elementwise_path(scaler, m, n, tags):
+    """A TransformedTargetRegressor's target inverse (MinMax as CENTER,
+    Standard and Robust as AFFINE) runs on the elementwise path, in tiles
+    of about EW_TILE_VALUES values, a block a tile."""
+    from gordo_tpu_torch.ops import scalers as port_scalers
+
+    X = np.random.default_rng(3).normal(size=(40, tags)).astype(np.float32)
+    steps = getattr(port_scalers, scaler)().fit(X, device="cpu").inverse_steps("cpu")
+    assert [s.form for s in steps] in ([ca.CENTER], [ca.AFFINE]) and all(s.inverse for s in steps)
+    plan = ca.launch_plan([s.form for s in steps], ca.widths(steps, tags), m, n, 132)
+    assert plan.path == ca.PATH_ELEMENTWISE
+    assert plan.blocks_per_slot == -(-n // plan.rows_per_tile)
+    assert plan.rows_per_tile * tags <= max(ca.EW_TILE_VALUES + tags, tags)
+
+
+@pytest.mark.parametrize("m, n, f, elem", [(512, 2048, 10, 4), (512, 2048, 10, 2), (1, 576, 10, 4),
+                                           (1, 1, 16, 4), (64, 99_234, 16, 4)])
+def test_chain_apply_row_plan_fits_a_block(m, n, f, elem):
+    """The row path's tiles: whole warps of rows, at most a block's
+    threads, a run of tiles a block (ROW_BLOCKS_PER_SM blocks an SM in
+    all); its shared memory (the stats, the rows, two raw tiles, as
+    ``rows_smem`` counts it) within 232,448 bytes."""
+    plan = ca.launch_plan(_CHAIN_C_FORMS, [f, f, 8, 8], m, n, 132)
+    assert plan.path == ca.PATH_ROWS
+    R = plan.rows_per_tile
+    assert R % 32 == 0 and ca.ROW_THREADS_MIN <= R <= ca.THREADS
+    tiles = -(-n // R)
+    assert plan.blocks_per_slot == min(tiles, max(1, ca.ROW_BLOCKS_PER_SM * 132 // m))
+    stats = 4 * ca.MAX_STEPS * ca.NARROW_MAX * (ca.NARROW_MAX + 1)
+    smem = stats + 4 * R * (ca.NARROW_MAX + 1) + 2 * (-(-R * f * elem // 16) * 16)
+    assert smem <= 232_448
+
