@@ -574,6 +574,16 @@ def time_calls_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, host * 1e3 / reps
 
 
+def time_entry(entry: dict, run, plain, reps: int, plain_reps: int = 2, library=None) -> None:
+    """On the card, ``entry``'s times: the kernel's by ``time_ms`` over
+    ``reps`` calls, its plain version's (and ``library``'s, where given)
+    by ``time_calls_ms``."""
+    if DEVICE == "cuda":
+        entry["ms"], entry["host_ms"] = time_ms(run, reps)
+        entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, plain_reps)
+        if library is not None:
+            entry["library_ms"], _ = time_calls_ms(library, 2)
+
 def bound(nbytes: float, ops: float):
     """Least time for ``nbytes`` of device memory traffic and ``ops`` fp32
     operations, and which of the two bounds it."""
@@ -1433,6 +1443,99 @@ def lstm_redesign_line(lstm_kernels: dict, lstm_train_kernels: dict, lstm_train:
             "parent": PARENT_LSTM}
 
 
+#: the parent design's figures beside which the smoke prints the
+#: redesigned rolling_median and lstm_head_fit (``median_head_redesign_line``):
+#: each the mean of the parent tree's runs of these phases before and after
+#: the redesign's in one call (``scripts/chip_phases.py``, PERF.md §6,
+#: "NVIDIA H100 80GB HBM3, 700.00 W")
+PARENT_ROLLING_MEDIAN = {"lstm_bucket_ms": 5.030573, "default_bucket_ms": 8.153302, "longest_window_ms": 246.673108}
+PARENT_HEAD_FIT = {"bench_step_ms": 0.051206, "batch_256_ms": 0.10985, "lstm_build_seconds": 0.589526}
+
+
+def median_head_redesign_line(lstm_kernels: dict, lstm_train_kernels: dict, lstm_train: dict) -> dict:
+    """``rolling_median`` at the LSTM bucket, the stacked default bucket and
+    the longest window, ``lstm_head_fit`` on the bench's lockstep step and
+    at a batch of 256 windows, and the LSTM build's seconds, beside the
+    parent design's (PARENT_ROLLING_MEDIAN, PARENT_HEAD_FIT); with
+    ``fleet_adam`` beside fused ``torch.optim.Adam`` by the same events."""
+    med, head = lstm_kernels["rolling_median"], lstm_train_kernels["lstm_head_fit"]
+    adam = lstm_train_kernels["fleet_adam"]
+    return {"phase": "median_head_redesign",
+            "rolling_median": {"lstm_bucket_ms": med.get("ms"), "default_bucket_ms": med["default_bucket"].get("ms"),
+                               "longest_window_ms": med["longest_window"].get("ms")},
+            "lstm_head_fit": {"bench_step_ms": head.get("ms"), "batch_256_ms": head["batch_256"].get("ms"),
+                              "lstm_build_seconds": lstm_train["build_seconds"]},
+            "fleet_adam": {"ms": adam.get("ms"), "fused_adam_ms": adam.get("library_ms"),
+                           "fused_adam_window_ms": adam.get("library_window_ms")},
+            "parent": {"rolling_median": PARENT_ROLLING_MEDIAN, "lstm_head_fit": PARENT_HEAD_FIT}}
+
+
+#: the stacked default bucket (512 machines × 2048 rows × 10 tags, the
+#: fleet_score bench's) smoothed over SMOOTH_WINDOW, and the slots of the
+#: LSTM bucket smoothed over rolling_median.MAX_WINDOW (few, so that the
+#: plain version's windows stay small)
+MEDIAN_DEFAULT_SHAPE = KERNEL_SHAPES[0]
+MEDIAN_LONGEST_SLOTS = 8
+
+
+def with_holes(rng, tag: torch.Tensor) -> None:
+    """NaNs in tag 3 of every slot: a tenth of its rows at random, and a
+    run of 2 SMOOTH_WINDOW rows (all-NaN windows)."""
+    machines, rows, _ = tag.shape
+    holes = torch.from_numpy(rng.random((machines, rows)) < 0.1).to(tag.device)
+    gap = min(1000, rows // 4)
+    holes[:, gap: gap + 2 * SMOOTH_WINDOW] = True
+    tag[:, :, 3] = torch.where(holes, torch.nan, tag[:, :, 3])
+
+
+def median_case(tag, total, thr, window: int, reps: int = 20, plain_reps: int = 2, library=None):
+    """``rolling_median`` against its plain version on one input: equal
+    bit for bit (NaN in the same places), the kernel's output hashes, its
+    time, the plain version's (and ``library``'s) and the bound.  Returns
+    the entry and the plain version's outputs."""
+    from gordo_tpu_torch.kernels import rolling_median as rm
+
+    run = lambda: rm.rolling_median(tag, total, window, agg_thr=thr)  # noqa: E731
+    plain = lambda: rm.rolling_median_plain(tag, total, window, agg_thr=thr)  # noqa: E731
+    got, ref = run(), plain()
+    machines, rows, tags = tag.shape
+    errs, worst = {}, 0.0
+    for k in ref:
+        r, g = ref[k], got[k]
+        check(bool(torch.equal(torch.isnan(r), torch.isnan(g))),
+              f"rolling_median {k} (window {window}, {machines} slots): NaN exactly where the plain version has it")
+        fin = ~torch.isnan(r)
+        errs[k] = norm_err(r[fin], g[fin])
+        worst = max(worst, float((r[fin].double() - g[fin].double()).abs().max()))
+    check(all(e <= LSTM_TOLERANCE["rolling_median"] for e in errs.values()),
+          f"rolling_median (window {window}, {machines} slots) within {LSTM_TOLERANCE['rolling_median']}: {errs}")
+    entry = {"shape": [machines, rows, tags + 1], "window": window, "max_norm_err": errs, "max_abs_err": worst,
+             "tolerance": LSTM_TOLERANCE["rolling_median"], "hashes": output_hashes(got)}
+    del got
+    time_entry(entry, run, plain, reps, plain_reps, library)
+    elems = machines * rows * (tags + 1)
+    # in: the scores, thresholds; out: the smoothed scores, confidence; an
+    # order-statistic tree's compares an output, log2 of the window (a
+    # sort's is more)
+    entry.update(bound(4 * (2 * elems + int(thr.numel()) + machines * rows),
+                       elems * max(1, (window - 1).bit_length())))
+    return entry, ref
+
+
+def default_bucket_median(rng) -> dict:
+    """``median_case`` at the stacked default bucket: positive scores, a
+    total per row, NaN holes as in the LSTM bucket's case."""
+    machines, rows, tags = MEDIAN_DEFAULT_SHAPE
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)  # noqa: E731
+    tag = put(np.abs(rng.standard_normal((machines, rows, tags))))
+    total = tag.square().mean(-1).sqrt()
+    with_holes(rng, tag)
+    thr = put(rng.uniform(0.5, 2.0, machines))
+    entry, ref = median_case(tag, total, thr, SMOOTH_WINDOW)
+    del ref, tag, total
+    return entry
+
+
 def rolling_median_variant(rng, tag, total, thr):
     """``rolling_median`` on a subset of the bucket's machines with ragged
     rows per slot and the confidence of each slot's machine."""
@@ -1451,7 +1554,7 @@ def rolling_median_variant(rng, tag, total, thr):
         errs[k], a = _valid_err(ref[k], got[k], rows, f"rolling_median subset {k}",
                                 LSTM_TOLERANCE["rolling_median"])
         worst = max(worst, a)
-    return {"machines": m_sub, "max_norm_err": errs, "max_abs_err": worst}
+    return {"machines": m_sub, "max_norm_err": errs, "max_abs_err": worst, "hashes": output_hashes(got, rows)}
 
 
 def phase_lstm_kernel_check():
@@ -1468,13 +1571,6 @@ def phase_lstm_kernel_check():
     scale, offset = put(net["scale"]), put(net["offset"])
     nw = n - LOOKBACK + 1
     entries, layers = {}, []
-
-    def timed(entry, run, plain, reps, library=None):
-        if DEVICE == "cuda":
-            entry["ms"], entry["host_ms"] = time_ms(run, reps)
-            entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, 2)
-            if library is not None:
-                entry["library_ms"], _ = time_calls_ms(library, 2)
 
     # every layer, fed what the kernel made for the layer before
     h = x
@@ -1508,7 +1604,7 @@ def phase_lstm_kernel_check():
             lib_out = torch.stack([o[:, -1] if last else o for o in library()])
             entry["library_max_norm_err"] = norm_err(got, lib_out)
             del lib_out
-        timed(entry, run, plain, 5, library)
+        time_entry(entry, run, plain, 5, library=library)
         entry.update(bound(*lstm_layer_cost(machines, n, n_in, hidden, first, last)))
         layers.append(entry)
         h = got
@@ -1539,7 +1635,7 @@ def phase_lstm_kernel_check():
     head = {"shape": [machines, nw, hidden, tags], "max_norm_err": errs,
             "max_abs_err": max(float((ref[k].double() - got[k].double()).abs().max()) for k in ref),
             "hashes": output_hashes(got)}
-    timed(head, run, plain, 20)
+    time_entry(head, run, plain, 20)
     head.update(bound(4 * (machines * nw * (hidden + tags)  # states, targets
                            + machines * (hidden * tags + 3 * tags)  # head, detector stats
                            + machines * nw * (2 * tags + 1)),  # pred, tags, total
@@ -1549,30 +1645,8 @@ def phase_lstm_kernel_check():
     # the detector's smoothing, with NaNs in one tag's column
     tag = got["tag-anomaly-scores"].clone()
     total_score = got["total-anomaly-score"]
-    holes = torch.from_numpy(rng.random((machines, nw)) < 0.1).to(tag.device)
-    gap = min(1000, nw // 4)
-    holes[:, gap: gap + 2 * SMOOTH_WINDOW] = True  # all-NaN windows too
-    tag[:, :, 3] = torch.where(holes, torch.nan, tag[:, :, 3])
+    with_holes(rng, tag)
     thr = put(net["agg"])
-    run = lambda: rm.rolling_median(tag, total_score, SMOOTH_WINDOW, agg_thr=thr)  # noqa: E731
-    plain = lambda: rm.rolling_median_plain(tag, total_score, SMOOTH_WINDOW, agg_thr=thr)  # noqa: E731
-    got_m, ref_m = run(), plain()
-    check(bool(torch.isnan(ref_m["tag-anomaly-scores"][:, gap + 2 * SMOOTH_WINDOW - 1, 3]).all()),
-          "an all-NaN window gives NaN")
-    errs, worst = {}, 0.0
-    for k in ref_m:
-        r, g = ref_m[k], got_m[k]
-        check(bool(torch.equal(torch.isnan(r), torch.isnan(g))),
-              f"rolling_median {k}: NaN exactly where the plain version has it")
-        fin = ~torch.isnan(r)
-        errs[k] = norm_err(r[fin], g[fin])
-        worst = max(worst, float((r[fin].double() - g[fin].double()).abs().max()))
-    check(all(e <= LSTM_TOLERANCE["rolling_median"] for e in errs.values()),
-          f"rolling_median within {LSTM_TOLERANCE['rolling_median']}: {errs}")
-    subset = rolling_median_variant(rng, tag, total_score, thr)
-    median = {"shape": [machines, nw, tags + 1], "window": SMOOTH_WINDOW, "max_norm_err": errs,
-              "max_abs_err": max(worst, subset["max_abs_err"]), "subset": subset,
-              "tolerance": LSTM_TOLERANCE["rolling_median"]}
 
     def library():
         # torch.nanquantile refuses inputs over 2**24 elements: each slot's
@@ -1585,15 +1659,26 @@ def phase_lstm_kernel_check():
                                   0.5, dim=-1, interpolation="midpoint")
                 for j in range(machines) for lo, hi in ((0, half), (half, nw))]
 
-    timed(median, run, plain, 20, library)
-    elems = machines * nw * (tags + 1)
-    # in: the scores, thresholds; out: the smoothed scores, confidence; a
-    # compare per window element
-    median.update(bound(4 * (2 * elems + machines + machines * nw), elems * SMOOTH_WINDOW))
+    median, ref_m = median_case(tag, total_score, thr, SMOOTH_WINDOW, library=library)
+    gap = min(1000, nw // 4)
+    check(bool(torch.isnan(ref_m["tag-anomaly-scores"][:, gap + 2 * SMOOTH_WINDOW - 1, 3]).all()),
+          "an all-NaN window gives NaN")
+    del ref_m
+    subset = rolling_median_variant(rng, tag, total_score, thr)
+    median["subset"] = subset
+    median["max_abs_err"] = max(median["max_abs_err"], subset["max_abs_err"])
+    # the stacked default bucket's smoothing, and the longest window on a
+    # few of this bucket's slots
+    median["default_bucket"] = default_bucket_median(rng)
+    few = MEDIAN_LONGEST_SLOTS
+    median["longest_window"], _ = median_case(tag[:few].contiguous(), total_score[:few].contiguous(),
+                                              thr[:few].contiguous(), rm.MAX_WINDOW, reps=5, plain_reps=1)
+    for case in ("default_bucket", "longest_window"):
+        median["max_abs_err"] = max(median["max_abs_err"], median[case]["max_abs_err"])
     entries["rolling_median"] = median
     emit({"phase": "lstm_kernel_check", "shape": list(LSTM_SHAPE), "lookback": LOOKBACK,
           "kernels": entries})
-    del x, h, got, ref, tag, got_m, ref_m
+    del x, h, got, ref, tag
     if DEVICE == "cuda":
         torch.cuda.empty_cache()
     return entries
@@ -1919,6 +2004,66 @@ def _lstm_library_fwd(x, cells, batch, valid, scale, offset, layer: int, last: b
     return library, nets, inputs
 
 
+def head_fit_hashes(out, valid) -> dict:
+    """``output_hash`` of each output of ``lstm_head_fit``, ``dh`` over
+    each slot's real windows only (the rest is unspecified)."""
+    loss, dW, db, dh = out
+    return {"loss": output_hash(loss), "dW": output_hash(dW), "db": output_hash(db), "dh": output_hash(dh, valid)}
+
+
+#: a head whose rows padded to 16 bytes do not fit a block (4 slots, 256
+#: windows, 42 -> 85): lstm_head_fit's plan takes the first design's layout
+HEAD_FIRST_LAYOUT = (4, 256, 42, 85)
+
+
+def random_head_step(rng, slots: int, windows: int, hidden: int, fo: int, device=None):
+    """Seeded inputs of one ``lstm_head_fit`` step: ``(h, W, b, y, batch,
+    n_real)``, each slot's real windows between half the batch and all of
+    it, every tenth slot without one, its windows drawn from a row list
+    of 400 of the 576 rows of one of 64 machines."""
+    from gordo_tpu_torch.kernels.lstm_layer import Minibatch
+
+    put = lambda a, t=np.float32: torch.from_numpy(np.ascontiguousarray(a, t)).to(device or DEVICE)  # noqa: E731
+    n, per_fit = 576, 400
+    n_real = np.minimum(rng.integers(windows // 2, 2 * windows, slots), windows)
+    n_real[::10] = 0
+    win = np.full((slots, windows), -1)
+    for s in range(slots):
+        win[s, : n_real[s]] = rng.integers(0, per_fit - LOOKBACK, n_real[s])
+    rows = np.concatenate([np.sort(rng.choice(n, per_fit, replace=False)) for _ in range(slots)])
+    batch = Minibatch(put(win, np.int32), put(n_real, np.int32), put(rows, np.int32),
+                      put(np.arange(slots) * per_fit, np.int32), put(np.arange(slots) % 64, np.int32))
+    h = put(np.tanh(rng.standard_normal((slots, windows, hidden))))
+    W = put(rng.standard_normal((slots, hidden, fo)) / hidden ** 0.5)
+    b, y = put(0.1 * rng.standard_normal((slots, fo))), put(rng.standard_normal((64, n, fo)))
+    return h, W, b, y, batch, n_real
+
+
+def head_first_layout_check(rng) -> dict:
+    """``lstm_head_fit`` on HEAD_FIRST_LAYOUT against its plain version
+    (the plan's other layout: one float a load)."""
+    from gordo_tpu_torch.kernels import lstm_head_fit as hf
+
+    slots, windows, hidden, fo = HEAD_FIRST_LAYOUT
+    h, W, b, y, batch, n_real = random_head_step(rng, slots, windows, hidden, fo)
+    kw = dict(batch=batch, shift=LOOKBACK - 1, act="linear")
+    run = lambda: hf.lstm_head_fit(h, W, b, y, **kw)  # noqa: E731
+    got, ref = run(), hf.lstm_head_fit_plain(h, W, b, y, **kw)
+    tol = LSTM_TRAIN_TOLERANCE["lstm_head_fit"]
+    errs = {}
+    for k, r, g in zip(("loss", "dW", "db"), ref[:3], got[:3]):
+        check(bool(g.isfinite().all()), f"lstm_head_fit first layout {k} is finite")
+        errs[k] = norm_err(r, g)
+    errs["dh"], _ = _valid_err(ref[3], got[3], n_real, "lstm_head_fit first layout dh", tol)
+    check(all(e <= tol for e in errs.values()), f"lstm_head_fit first layout within {tol}: {errs}")
+    entry = {"shape": list(HEAD_FIRST_LAYOUT), "max_norm_err": errs, "hashes": head_fit_hashes(got, n_real),
+             "vec": hf.launch_plan(hidden, fo, windows).vec}
+    check(entry["vec"] == 1, "HEAD_FIRST_LAYOUT takes the first design's layout")
+    if DEVICE == "cuda":
+        entry["ms"], entry["host_ms"] = time_ms(run, 20)
+    return entry
+
+
 def _real_windows_only(out: torch.Tensor, batch) -> torch.Tensor:
     """A training-mode layer's output with zeros past each slot's real
     windows: the kernel leaves padding windows unwritten (no kernel reads
@@ -1978,11 +2123,15 @@ def _lstm_train_variant(X, row_lists, scale, offset, off, hp, batch_size: int) -
         inputs.append(h)
         saves.append(got[1:])
         h = _real_windows_only(got[0], batch)
-    got = hf.lstm_head_fit(h, W, bh, X, batch=batch, shift=off, act="linear")
+    run = lambda: hf.lstm_head_fit(h, W, bh, X, batch=batch, shift=off, act="linear")  # noqa: E731
+    got = run()
     ref = hf.lstm_head_fit_plain(h, W, bh, X, batch=batch, shift=off, act="linear")
     for r, g in zip(ref[:3], got[:3]):
         hold("lstm_head_fit", r, g)
     hold("lstm_head_fit", ref[3], got[3], valid)
+    head = {"hashes": head_fit_hashes(got, valid)}
+    if DEVICE == "cuda":
+        head["ms"], head["host_ms"] = time_ms(run, 20)
     grads, dout = [None] * len(cells), got[3]
     for i in reversed(range(len(cells))):
         first = i == 0
@@ -2007,7 +2156,7 @@ def _lstm_train_variant(X, row_lists, scale, offset, off, hp, batch_size: int) -
         for g, r in zip(group_got, group_ref):
             hold("fleet_adam", r, g)
     return {"batch_size": batch_size, "slots": S, "real_windows": int(valid.sum()),
-            "max_norm_err": errs}
+            "max_norm_err": errs, "lstm_head_fit": head}
 
 
 def phase_lstm_train_kernel_check():
@@ -2070,13 +2219,6 @@ def phase_lstm_train_kernel_check():
             worst = max(worst, a)
         return errs, worst
 
-    def timed(entry, run, plain, reps, library=None):
-        if DEVICE == "cuda":
-            entry["ms"], entry["host_ms"] = time_ms(run, reps)
-            entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, 2)
-            if library is not None:
-                entry["library_ms"], _ = time_calls_ms(library, 2)
-
     # forward: every layer fed what the kernel made for the layer before
     h, inputs, saves = X, [], []
     for i, (ki, kh, b) in enumerate(cells):
@@ -2093,7 +2235,7 @@ def phase_lstm_train_kernel_check():
         library = None
         if DEVICE == "cuda":
             library, _, _ = _lstm_library_fwd(inp, cells, batch, valid, scale, offset, i, last)
-        timed(entry, run, plain, 5, library)
+        time_entry(entry, run, plain, 5, library=library)
         entries["lstm_layer_train"]["layers"].append(entry)
         entries["lstm_layer_train"]["max_abs_err"] = max(entries["lstm_layer_train"]["max_abs_err"], worst)
         inputs.append(inp)
@@ -2110,8 +2252,9 @@ def phase_lstm_train_kernel_check():
                                          "db": (ref[2], got[2])})
     errs_dh, worst_dh = hold("lstm_head_fit", {"dh": (ref[3], got[3])}, valid)
     head = {"max_norm_err": {**errs, **errs_dh}, "max_abs_err": max(worst, worst_dh),
-            "tolerance": tol["lstm_head_fit"], **bound(*costs["lstm_head_fit"])}
-    timed(head, run, plain, 20)
+            "tolerance": tol["lstm_head_fit"], "hashes": head_fit_hashes(got, valid),
+            **bound(*costs["lstm_head_fit"])}
+    time_entry(head, run, plain, 20)
     entries["lstm_head_fit"] = head
     head_grads, dout = [got[1], got[2]], got[3]
 
@@ -2150,7 +2293,7 @@ def phase_lstm_train_kernel_check():
             def library():
                 return [torch.autograd.grad(outs[s], wants[s], douts[s], retain_graph=True)
                         for s in range(len(outs))]
-        timed(entry, run, plain, 5, library)
+        time_entry(entry, run, plain, 5, library=library)
         entries["lstm_layer_bwd"]["layers"].append(entry)
         entries["lstm_layer_bwd"]["max_abs_err"] = max(entries["lstm_layer_bwd"]["max_abs_err"], worst)
         grads[i] = got[1:]
@@ -2198,10 +2341,17 @@ def phase_lstm_train_kernel_check():
             p.grad = g.clone()
         opt = torch.optim.Adam(lib_params, lr=hp["lr"], betas=(hp["b1"], hp["b2"]), eps=hp["eps"], fused=True)
         library = opt.step
-    timed(adam, run, plain, 20, library)
+    time_entry(adam, run, plain, 20, library=library)
+    if DEVICE == "cuda":
+        # the same call by the kernels' own events (no launch gaps), the
+        # one-call window's figure kept beside it
+        adam["library_window_ms"] = adam["library_ms"]
+        adam["library_ms"], adam["library_host_ms"] = time_ms(library, 20)
     entries["fleet_adam"] = adam
     variant = _lstm_train_variant(X[:LSTM_VARIANT_MACHINES], row_lists, scale, offset, off, hp,
                                   LSTM_VARIANT_BATCH)
+    entries["lstm_head_fit"]["batch_256"] = variant["lstm_head_fit"]
+    entries["lstm_head_fit"]["first_layout"] = head_first_layout_check(rng)
     emit({"phase": "lstm_train_kernel_check", "shape": list(LSTM_TRAIN_SHAPE), "slots": S,
           "batch": cfg.batch_size, "lookback": LOOKBACK, "step": CHECK_STEP,
           "real_windows": int(valid.sum()), "kernels": entries, "variant": variant})
@@ -2794,11 +2944,6 @@ def phase_ragged_kernel_check():
     rng = np.random.default_rng(SEED + 9)
     entries = {}
 
-    def timed(entry, run, plain, reps, plain_reps):
-        if DEVICE == "cuda":
-            entry["ms"], entry["host_ms"] = time_ms(run, reps)
-            entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, plain_reps)
-
     def errors(pairs, tol, what):
         errs, worst = {}, 0.0
         for key, (ref, got) in pairs.items():
@@ -2846,7 +2991,7 @@ def phase_ragged_kernel_check():
     # the metrics sum in XLA's window order on both sides: bit for bit
     entry["differing"] = sum(differing(ref[k], got[k]) for k in ref)
     check(entry["differing"] == 0, f"cv_epilogue masked: bit for bit its plain version ({entry['differing']} differ)")
-    timed(entry, run, plain, 20, 5)
+    time_entry(entry, run, plain, 20, 5)
     entry["non_finite"] = _non_finite_max_check(rng, tags)
     entries["cv_epilogue_masked"] = entry
 
@@ -2866,7 +3011,7 @@ def phase_ragged_kernel_check():
     entry = {"max_norm_err": errs, "max_abs_err": abs_err, "tolerance": TRAIN_TOLERANCE["scaler_stats"],
              **bound(4 * (machines * visits * tags + visits + 2 * machines * len(row_lists) * tags),
                      2 * machines * visits * tags)}
-    timed(entry, run, plain, 20, 5)
+    time_entry(entry, run, plain, 20, 5)
     entries["scaler_stats_nan_padded"] = entry
 
     # K1 + K2 with a real-row count per (machine, fit): a quarter of the
@@ -2933,7 +3078,7 @@ def phase_ragged_kernel_check():
              "all_padding_minibatches": empty_batches, "real_rows": int(fit_counts.sum()),
              "held_to_one_ulp_movement": held,
              **fleet_fit_bound(fits, dims, machines, rows, cfg.epochs, fit_counts)}
-    timed(entry, run, plain, 3, 2)
+    time_entry(entry, run, plain, 3, 2)
     entries["fleet_fit_ragged"] = entry
     entries["lstm_zero_window_step"] = _lstm_zero_window_step_check(rng)
     emit({"phase": "ragged_kernel_check", "shape": list(TRAIN_SHAPE), "kernels": entries})
@@ -3000,7 +3145,7 @@ def _lstm_zero_window_step_check(rng) -> dict:
             err, _ = _valid_err(ref, got, counts_, name, tol)
         errs[name] = max(errs.get(name, 0.0), err)
 
-    empty_grads = []
+    empty_grads, head_hashes = [], {}
     for s in (0, s_empty):
         batch = Minibatch(steps.win[0, s], steps.n_windows[0, s], steps.rows, steps.row_off, steps.x_mach)
         valid = batch.n_windows.cpu().numpy()
@@ -3020,6 +3165,7 @@ def _lstm_zero_window_step_check(rng) -> dict:
         ref = hf.lstm_head_fit_plain(h, W, bh, X, batch=batch, shift=off, act="linear")
         for r, g in zip(ref[:3], got[:3]):
             hold("lstm_head_fit", r, g)
+        head_hashes[f"step_{s}"] = head_fit_hashes(got, valid)
         grads, dout = [got[0], got[1], got[2]], got[3]
         for i in reversed(range(len(cells))):
             first = i == 0
@@ -3037,7 +3183,7 @@ def _lstm_zero_window_step_check(rng) -> dict:
                 empty_grads.append(bool((g[sel] == 0).all()))
     check(all(empty_grads), "the empty slots' loss and gradients are written as zeros")
     return {"slots": S, "step": s_empty, "empty_active_slots": int(zero[s_empty].sum()),
-            "max_norm_err": errs, "empty_slots_zero": all(empty_grads)}
+            "max_norm_err": errs, "empty_slots_zero": all(empty_grads), "lstm_head_fit_hashes": head_hashes}
 
 
 def phase_ragged_train():
@@ -3269,11 +3415,6 @@ def phase_precision_kernel_check():
     put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)  # noqa: E731
     entries = {}
 
-    def timed(entry, run, plain, reps, plain_reps=2):
-        if DEVICE == "cuda":
-            entry["ms"], entry["host_ms"] = time_ms(run, reps)
-            entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, plain_reps)
-
     # fleet_score over bf16 storage at the default bucket, and a subset
     machines, n, tags = KERNEL_SHAPES[0]
     chain = random_chain(rng, machines, tags)
@@ -3309,7 +3450,7 @@ def phase_precision_kernel_check():
     got_n = fs.fleet_score(xs, layers, chain["acts"], idx=idx, n_rows=rows, **nan_kw)["anomaly-confidence"]
     check(bool(torch.isnan(got_n[0, :rows[0]]).all()) and bool(got_n[1, :rows[1]].isfinite().all()),
           "a NaN threshold gives a NaN confidence, and only its slot's")
-    timed(entry, run, plain, 20, 5)
+    time_entry(entry, run, plain, 20, 5)
     entry.update(fleet_score_bound(machines, n, chain["dims"], machines, in_bytes=2))
     entries["fleet_score_bf16"] = entry
     stacked_ff = [t for layer in layers for t in layer] + [*kw["chain"][0][1:], *kw["det"][1:]]
@@ -3342,7 +3483,7 @@ def phase_precision_kernel_check():
         e = {"layer": i, "widths": [n_in, hidden], "max_norm_err": err,
              "max_abs_err": float((ref.double() - got.double()).abs().max())}
         del ref
-        timed(e, run, plain, 5)
+        time_entry(e, run, plain, 5)
         nbytes, ops = lstm_layer_cost(machines, n, n_in, hidden, first, last)
         # the first layer's rows and every layer's weights are read at 2 bytes
         weights = machines * 4 * hidden * (n_in + hidden + 1)
@@ -3371,7 +3512,7 @@ def phase_precision_kernel_check():
     head = {"shape": [machines, nw, hidden, tags], "storage": "bfloat16", "max_norm_err": errs,
             "max_abs_err": max(float((ref[k].double() - got[k].double()).abs().max()) for k in ref),
             "hashes": output_hashes(got)}
-    timed(head, run, plain, 20, 5)
+    time_entry(head, run, plain, 20, 5)
     head.update(bound(4 * machines * nw * hidden + 2 * machines * nw * tags  # f32 states, bf16 targets
                       + 2 * machines * (hidden * tags + 3 * tags)  # bf16 head and detector stats
                       + 4 * machines * nw * (2 * tags + 1),  # f32 pred, tags, total
@@ -3414,7 +3555,7 @@ def phase_precision_kernel_check():
             worst = max(worst, float((g.double() - r.double()).abs().max()))
         e = {"leaves": len(leaves), "elements": int(sum(t.numel() for t in leaves)),
              "input": str(leaves[0].dtype).replace("torch.", ""), "max_abs_err": worst}
-        timed(e, run, plain, 20, 5)
+        time_entry(e, run, plain, 20, 5)
         e.update(bound(sum(t.numel() * (t.element_size() + 2) for t in leaves),
                        sum(4 * t.numel() for t in leaves)))
         fq_entries[name] = e
@@ -6910,6 +7051,7 @@ def main() -> int:
     lstm_train = phase_lstm_train()
     emit({"phase": "lstm_train", **lstm_train})
     emit(lstm_redesign_line(lstm_kernels, lstm_train_kernels, lstm_train))
+    emit(median_head_redesign_line(lstm_kernels, lstm_train_kernels, lstm_train))
     ragged_kernels = phase_ragged_kernel_check()
     ragged = phase_ragged_train()
     emit({"phase": "ragged_train", **ragged})
@@ -7011,6 +7153,10 @@ def main() -> int:
             "library_ms": entry["library_ms"],
             "shape": list(LSTM_SHAPE),
         })
+        if name == "rolling_median":
+            summary[-1]["shapes"] = {key: {k: entry[key][k] for k in (
+                "shape", "window", "ms", "plain_ms", "bound_ms", "bound_by")}
+                for key in ("default_bucket", "longest_window")}
         if name == "lstm_layer":
             for key in ("stream_shape", "stream_prime_shape"):
                 summary[-1][key] = {k: entry[key][k] for k in (

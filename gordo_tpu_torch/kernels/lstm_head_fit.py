@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -65,6 +65,7 @@ class _Args(ctypes.Structure):
         ("fo", ctypes.c_int),
         ("shift", ctypes.c_int),
         ("act", ctypes.c_int),
+        ("vec", ctypes.c_int),
         ("smem_bytes", ctypes.c_int),
     ]
 
@@ -94,10 +95,20 @@ def _library() -> ctypes.CDLL:
         return _lib
 
 
+class Plan(NamedTuple):
+    """A launch, one block a slot: ``smem_bytes`` a block, its rows read
+    ``vec`` floats at a time (4: padded to 16 bytes; 1: the first design's
+    layout, taken where the padded one does not fit)."""
+
+    smem_bytes: int
+    vec: int
+
+
 def smem_bytes(hidden: int, fo: int, windows: int) -> int:
-    """Shared memory of one block: W (odd row stride), the windows' h,
-    their dpred and squared errors, and one loss per window.  Raises
-    ``NotImplementedError`` when it exceeds a block's."""
+    """Shared memory of one block in the first design's layout: W (odd row
+    stride), the windows' h, their dpred and squared errors, and one loss
+    per window.  Raises ``NotImplementedError`` when it exceeds a block's:
+    the heads and batches the kernel takes."""
     smem = 4 * (hidden * (fo | 1) + windows * (hidden + 2 * fo + 1))
     if smem > SMEM_LIMIT:
         raise NotImplementedError(
@@ -106,6 +117,19 @@ def smem_bytes(hidden: int, fo: int, windows: int) -> int:
             f"{SMEM_LIMIT}; that waits for ROADMAP queue 1 item 14 (wide LSTM layers)"
         )
     return smem
+
+
+def launch_plan(hidden: int, fo: int, windows: int) -> Plan:
+    """The launch for heads of ``hidden`` -> ``fo`` over
+    ``windows``-window minibatches: rows padded to 16 bytes (W's and
+    dpred's to a multiple of 4 outputs, h's of 4 units) where they fit a
+    block, else the first design's layout."""
+    compact = smem_bytes(hidden, fo, windows)
+    r4 = lambda x: -(-x // 4) * 4  # noqa: E731
+    padded = 4 * (hidden * r4(fo) + windows * (r4(hidden) + r4(fo) + fo + 1))
+    if padded <= SMEM_LIMIT:
+        return Plan(padded, 4)
+    return Plan(compact, 1)
 
 
 def lstm_head_fit(
@@ -146,7 +170,7 @@ def lstm_head_fit(
     _check(y, "y", tuple(y.shape), device)
     _check_batch(batch, m, device)
 
-    smem = smem_bytes(H, fo, B)
+    plan = launch_plan(H, fo, B)
     loss = torch.empty((m,), dtype=torch.float32, device=device)
     dW = torch.empty((m, H, fo), dtype=torch.float32, device=device)
     db = torch.empty((m, fo), dtype=torch.float32, device=device)
@@ -157,7 +181,7 @@ def lstm_head_fit(
     args.x_mach, args.n_windows = _ptr(batch.x_mach), _ptr(batch.n_windows)
     args.loss, args.dw, args.db, args.dh = _ptr(loss), _ptr(dW), _ptr(db), _ptr(dh)
     args.m, args.n, args.nw, args.hidden, args.fo = m, int(y.shape[1]), B, H, fo
-    args.shift, args.act, args.smem_bytes = int(shift), ACT_CODES[act], smem
+    args.shift, args.act, args.vec, args.smem_bytes = int(shift), ACT_CODES[act], plan.vec, plan.smem_bytes
 
     lib = _library()
     with torch.cuda.device(device):

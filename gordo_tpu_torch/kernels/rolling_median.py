@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,15 +28,69 @@ from gordo_tpu_torch.kernels.fleet_score import MAX_SLOTS, SMEM_LIMIT, _check, _
 SOURCE = "gordo_tpu_torch/csrc/rolling_median.cu"
 REPLACES = "gordo_tpu/serve/scorer.py:165"
 
-#: series per block (RM_LANES in the source), and rows each thread slides over
+#: lanes of a warp
 LANES = 32
-CHUNK_ROWS = 128
-#: longest window whose sorted buffers fit a block's shared memory
+#: longest window the port smooths (longer ones wait for ROADMAP queue 1
+#: item 15): the first design's sorted buffers, 4 bytes a lane and row
 MAX_WINDOW = SMEM_LIMIT // (4 * LANES)
+#: a warp sorts at least this many keys (16 a lane, in registers; a
+#: longer network merges segments of them in shared memory)
+SEG_KEYS = 512
+#: rows a lane slides over: at least LANE_ROWS_MIN where a window leaves
+#: room for them in SEG_KEYS keys (or else in more keys), at most
+#: LANE_ROWS_MAX
+LANE_ROWS_MIN, LANE_ROWS_MAX = 8, 32
+#: series a block, a warp each (RM_MAX_THREADS / 32 in the source)
+MAX_WARPS = 4
 
 #: kernel launches so far (the CPU path never counts)
 launches = 0
 _launches_lock = threading.Lock()
+
+
+class Plan(NamedTuple):
+    """A launch: ``lane_rows`` output rows a lane, ``keys`` sorted a warp
+    (a power of two holding a chunk's 32 lane_rows rows and the window - 1
+    before them), ``warps`` series a block, and the grid (``groups`` of
+    series, ``chunks`` of rows, one z a slot)."""
+
+    lane_rows: int
+    keys: int
+    warps: int
+    warp_bytes: int
+    smem_bytes: int
+    groups: int
+    chunks: int
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def warp_bytes(keys: int) -> int:
+    """Shared memory of one warp's arrays: the network's keys past
+    SEG_KEYS (8 bytes, one in 32 skipped against bank conflicts), each
+    sorted position's value (4) and row (2), each row's position (2) and
+    the prefix count of rows with a value (2, one more), rounded to 16."""
+    nbytes = (8 * (keys + keys // 32) if keys > SEG_KEYS else 0) + 8 * keys + 2 * (keys + 1)
+    return -(-nbytes // 16) * 16
+
+
+def launch_plan(n: int, series: int, window: int) -> Plan:
+    """The launch for ``series`` series of ``n`` rows smoothed over
+    ``window`` rows."""
+    if not 1 <= window <= MAX_WINDOW:
+        raise ValueError(f"rolling_median takes windows of 1..{MAX_WINDOW} rows, got {window}")
+    keys = SEG_KEYS
+    while keys - window + 1 < LANES * LANE_ROWS_MIN:
+        keys *= 2
+    lane_rows = min(LANE_ROWS_MAX, (keys - window + 1) // LANES, -(-n // LANES))
+    keys = max(LANES, _pow2_at_least(LANES * lane_rows + window - 1))
+    per_warp = warp_bytes(keys)
+    warps = min(MAX_WARPS, SMEM_LIMIT // per_warp)
+    groups = -(-series // warps)
+    warps = -(-series // groups)
+    return Plan(lane_rows, keys, warps, per_warp, warps * per_warp, groups, -(-n // (LANES * lane_rows)))
 
 
 class _Args(ctypes.Structure):
@@ -55,8 +109,13 @@ class _Args(ctypes.Structure):
         ("n", ctypes.c_int),
         ("f", ctypes.c_int),
         ("window", ctypes.c_int),
-        ("chunk_rows", ctypes.c_int),
+        ("lane_rows", ctypes.c_int),
+        ("keys", ctypes.c_int),
+        ("warps", ctypes.c_int),
+        ("warp_bytes", ctypes.c_int),
         ("smem_bytes", ctypes.c_int),
+        ("groups", ctypes.c_int),
+        ("chunks", ctypes.c_int),
     ]
 
 
@@ -114,8 +173,7 @@ def rolling_median(
     m, n, f = (int(s) for s in tag.shape)
     if not 1 <= m <= MAX_SLOTS or n < 1:
         raise ValueError(f"tag must have 1..{MAX_SLOTS} slots and >= 1 row, got {tuple(tag.shape)}")
-    if not 1 <= window <= MAX_WINDOW:
-        raise ValueError(f"rolling_median takes windows of 1..{MAX_WINDOW} rows, got {window}")
+    plan = launch_plan(n, f + 1, window)
     _check(tag, "tag", (m, n, f), device)
     _check(total, "total", (m, n), device)
     if agg_thr is not None and agg_thr.dim() != 1:
@@ -150,8 +208,9 @@ def rolling_median(
     args.total_out = _ptr(out["total-anomaly-score"])
     args.conf = _ptr(out.get("anomaly-confidence"))
     args.m, args.n, args.f, args.window = m, n, f, window
-    args.chunk_rows = CHUNK_ROWS
-    args.smem_bytes = 4 * LANES * window
+    args.lane_rows, args.keys, args.warps = plan.lane_rows, plan.keys, plan.warps
+    args.warp_bytes, args.smem_bytes = plan.warp_bytes, plan.smem_bytes
+    args.groups, args.chunks = plan.groups, plan.chunks
 
     lib = _library()
     with torch.cuda.device(device):

@@ -1,6 +1,7 @@
-"""Per-phase clocks of ``stream_step``, ``fleet_fit`` and ``fleet_score`` on the card.
+"""Per-phase clocks of the port's kernels on the card.
 
     python3 scripts/kernel_phase_probe.py [stream_step] [fleet_fit] [fleet_score]
+        [rolling_median] [lstm_head_fit]
 
 A copy of each kernel's source reads ``%globaltimer`` at its phase
 boundaries (thread 0; for ``fleet_fit`` thread 0 of the first block, one
@@ -15,7 +16,12 @@ streamed (one new row, and the full window), ``fleet_fit`` at
 made linear (``linear_acts``: other bits, the activations' share of the
 time).  Prints one JSON line each: microseconds a launch (a stream step),
 a step of the first block (``fleet_fit``) or a tile (``fleet_score``) by
-phase.  The probes cost a few clock reads; read the split, not the total.
+phase.  ``rolling_median`` is clocked by lane 0 of every warp (its
+phases summed over the warps, at the smoke's three shapes) and
+``lstm_head_fit`` by thread 0 of every block (summed over the slots, at
+the bench's lockstep step and at a batch of 256), each through the
+shapes of ``scripts/kernel_variants.py``.  The probes cost a few clock
+reads; read the split, not the total.
 """
 import ctypes
 import json
@@ -28,6 +34,7 @@ import numpy as np
 import torch
 
 sys.path.insert(0, os.getcwd())
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import chip_smoke as cs  # noqa: E402
 from gordo_tpu_torch.device import resolve_device  # noqa: E402
 from gordo_tpu_torch.kernels import build  # noqa: E402
@@ -121,6 +128,52 @@ def patch_score(src: str, linear_acts: bool = False) -> str:
         src = _insert(src, tanh, "")  # checks the anchor
         src = src.replace(tanh, "if (code == ACT_TANH) body([](float v) { return v; });", 1)
     return src
+
+
+#: rolling_median's phases a warp: its keys sorted and placed; the prefix
+#: counts; its lanes' first rows (the walk from the first key); the rows
+#: slid over; within the first, up to 512 keys (in registers): the keys
+#: built, the network, the placing; and the block's rows staged (up to its
+#: barrier), then the warp's work to its end
+MEDIAN_PHASES = ["sort_place", "prefix", "first_row", "slid_rows", "keys", "network", "place",
+                 "stage", "smooth"]
+
+
+def patch_median(src: str) -> str:
+    lane0 = "(threadIdx.x & 31) == 0"
+    src = _insert(src, '#include "bitonic.cuh"', "\n" + PROBE_DEFS)
+    src = _insert(src, "  const int lane = threadIdx.x & 31;\n  WarpArrays s;\n",
+                  "  unsigned long long probe_prev = probe_now();\n")
+    src = _insert(src, "  __syncwarp();\n  unsigned running = 0;\n", "  " + clock(1, lane0, True) + "\n", after=False)
+    src = _insert(src, "  if (lane == 0) s.pre[P] = (unsigned short)running;\n  __syncwarp();\n",
+                  "  " + clock(2, lane0, True) + "\n")
+    src = _insert(src, "    const int j = lane * E + i;", "    if (i == 1) " + clock(3, lane0, True) + "\n", after=False)
+    src = _insert(src, "      if (a.agg_thr) a.conf[row] = med / thr;\n    }\n  }\n", "  " + clock(4, lane0, True) + "\n")
+    src = _insert(src, "  const int lane = threadIdx.x & 31;\n  uint64_t v[K];\n",
+                  "  unsigned long long probe_prev = probe_now();\n")
+    src = _insert(src, "  warp_sort<K>(v, 0);\n", "  " + clock(5, lane0, True) + "\n", after=False)
+    src = _insert(src, "  warp_sort<K>(v, 0);\n", "  " + clock(6, lane0, True) + "\n")
+    src = _insert(src, "  for (int r = 0; r < K; ++r) place(s, v[r], lane * K + r);\n", "  " + clock(7, lane0, True) + "\n")
+    src = _insert(src, "  const int W = a.warps;\n", "  unsigned long long probe_prev = probe_now();\n")
+    src = _insert(src, "  if (ch.c > a.f) return;  // the whole warp alike\n  float thr", "  " + clock(8, lane0, True) + "\n",
+                  after=False)
+    end = src.rindex("}", 0, src.index('extern "C" int rolling_median_args_size()'))
+    return src[:end] + "  " + clock(9, lane0, True) + "\n" + src[end:]
+
+
+#: lstm_head_fit's phases a block: W, h and the targets staged; the
+#: predictions and dpred; dW, dh, db and the window losses; the slot's loss
+HEAD_PHASES = ["stage", "forward", "gradients", "loss"]
+
+
+def patch_head(src: str) -> str:
+    src = _insert(src, '#include "copy_async.cuh"', "\n" + PROBE_DEFS)
+    src = _insert(src, "  const int nthr = blockDim.x;\n", "  unsigned long long probe_prev = probe_now();\n")
+    src = _insert(src, "  copy_async_wait<0>();\n  __syncthreads();\n", "  " + clock(1, atomic=True) + "\n")
+    src = _insert(src, "  // db and each window's loss", "  " + clock(2, atomic=True) + "\n", after=False)
+    src = _insert(src, "  if (tid == 0) {\n    float s = 0.f;", "  " + clock(3, atomic=True) + "\n", after=False)
+    end = src.rindex("}", 0, src.index('extern "C" int lstm_head_fit_args_size()'))
+    return src[:end] + "  " + clock(4, atomic=True) + "\n" + src[end:]
 
 
 def build_probe(name: str, patch, tag: str = "") -> ctypes.CDLL:
@@ -281,12 +334,65 @@ def probe_score(reps: int = 20) -> None:
     fs._lib = None
 
 
+def _use(mod, name: str, lib) -> None:
+    getattr(lib, f"{name}_launch").argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    getattr(lib, f"{name}_launch").restype = ctypes.c_int
+    getattr(lib, f"{name}_error_string").argtypes = [ctypes.c_int]
+    getattr(lib, f"{name}_error_string").restype = ctypes.c_char_p
+    mod._lib = lib
+
+
+def probe_cases(name: str, mod, patch, phases, units, reps: int = 10) -> None:
+    """Each case of ``kernel_variants``' for the kernel, through the probed
+    copy: microseconds by phase summed over the clocking threads, and per
+    ``units(case)`` (warps or blocks) of a launch."""
+    import kernel_variants as kv
+
+    lib = build_probe(name, patch)
+    _use(mod, name, lib)
+    for case, (run, held) in kv.KERNELS[name][2]().items():
+        cs.check(held(), f"{name} probe {case}: held to the plain version")
+        run()
+        torch.cuda.synchronize()
+        lib.probe_zero()
+        for _ in range(reps):
+            run()
+        us = read_us(lib, reps, phases)
+        n = units(case)
+        print(json.dumps({"probe": name, "case": case, "units": n, "us_summed": us,
+                          "us_per_unit": {k: v / n for k, v in us.items()}, "ms": cs.time_ms(run, 20)[0]}),
+              flush=True)
+    mod._lib = None
+
+
+def probe_median() -> None:
+    from gordo_tpu_torch.kernels import rolling_median as rm
+
+    lm, ln, lf = cs.LSTM_SHAPE
+    shapes = {"lstm_bucket": ((lm, ln - cs.LOOKBACK + 1, lf), cs.SMOOTH_WINDOW),
+              "default_bucket": (cs.MEDIAN_DEFAULT_SHAPE, cs.SMOOTH_WINDOW),
+              "longest_window": ((cs.MEDIAN_LONGEST_SLOTS, ln - cs.LOOKBACK + 1, lf), rm.MAX_WINDOW)}
+
+    def warps(case):
+        (m, n, f), w = shapes[case]
+        plan = rm.launch_plan(n, f + 1, w)
+        return m * plan.chunks * (f + 1)
+    probe_cases("rolling_median", rm, patch_median, MEDIAN_PHASES, warps)
+
+
+def probe_head() -> None:
+    from gordo_tpu_torch.kernels import lstm_head_fit as hf
+
+    probe_cases("lstm_head_fit", hf, patch_head, HEAD_PHASES, {"bench_step": 256, "batch_256": 16}.get)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phase_probe: needs a CUDA card", file=sys.stderr)
         return 1
     resolve_device()
-    probes = {"stream_step": probe_stream, "fleet_fit": probe_fit, "fleet_score": probe_score}
+    probes = {"stream_step": probe_stream, "fleet_fit": probe_fit, "fleet_score": probe_score,
+              "rolling_median": probe_median, "lstm_head_fit": probe_head}
     for name in sys.argv[1:] or list(probes):
         probes[name]()
     return 0

@@ -2,12 +2,13 @@
 
     python3 scripts/kernel_variants.py KERNEL [VARIANT ...]
 
-KERNEL is ``fleet_init``, ``fake_quant``, ``fleet_score`` or
-``chain_apply``.  A variant is the kernel's ``csrc/<KERNEL>.cu`` built
+KERNEL is ``fleet_init``, ``fake_quant``, ``fleet_score``,
+``chain_apply``, ``rolling_median`` or ``lstm_head_fit``.  A variant is the kernel's ``csrc/<KERNEL>.cu`` built
 with some of its macros set on the ``nvcc`` command line, and its wrapper
 with some of its constants set (``FLEET_INIT_VARIANTS``,
 ``FAKE_QUANT_VARIANTS``, ``FLEET_SCORE_VARIANTS``,
-``CHAIN_APPLY_VARIANTS`` below; ``kept`` is the source and wrapper as
+``CHAIN_APPLY_VARIANTS``, ``ROLLING_MEDIAN_VARIANTS``,
+``HEAD_FIT_VARIANTS`` below; ``kept`` is the source and wrapper as
 they stand), built beside the kernels' own libraries and launched
 through the wrapper (its library swapped for the variant's) at the
 smoke's shapes:
@@ -24,11 +25,19 @@ smoke's shapes:
   the 128-tag hourglass (1 × 4096 × 128), the LSTM head (64 × 4085 × 42
   → 50) and the epilogue alone at 512 × 2048 × 10;
 - ``chain_apply``: chain C stacked at 512 × 2048 × 10 (f32 and bf16
-  rows), the stacked Standard inverse there, chain A at 576 × 10.
+  rows), the stacked Standard inverse there, chain A at 576 × 10;
+- ``rolling_median``: the LSTM bucket (64 × 4085 × 50 + the total) and the
+  stacked default bucket (512 × 2048 × 10 + the total) over 144 rows, and
+  8 slots of the LSTM bucket over ``MAX_WINDOW`` rows, NaN holes as in
+  ``chip_smoke.with_holes``;
+- ``lstm_head_fit``: the bench's lockstep step (256 slots × 64 windows,
+  42 -> 50), 16 slots at 256 windows, and ``chip_smoke.HEAD_FIRST_LAYOUT``
+  (the plan's unpadded layout), on random minibatches.
 
 Each variant is first held to the plain version on every case
 (``fleet_init``'s permutations and ``fake_quant``'s outputs bit for bit;
-``fleet_score``'s and ``chain_apply``'s within the smoke's tolerances,
+``fleet_score``'s, ``chain_apply``'s, ``rolling_median``'s and
+``lstm_head_fit``'s within the smoke's tolerances,
 with a hash of each output, ``chip_smoke.output_hashes``, so that two
 variants' bits compare).  Prints one JSON line a variant: ptxas's
 registers and spills, and device ms a case (CUDA events,
@@ -54,6 +63,8 @@ from gordo_tpu_torch.kernels import chain_apply as ca  # noqa: E402
 from gordo_tpu_torch.kernels import fake_quant as fq  # noqa: E402
 from gordo_tpu_torch.kernels import fleet_init as fi  # noqa: E402
 from gordo_tpu_torch.kernels import fleet_score as fs  # noqa: E402
+from gordo_tpu_torch.kernels import lstm_head_fit as hf  # noqa: E402
+from gordo_tpu_torch.kernels import rolling_median as rm  # noqa: E402
 
 #: name -> ({macro: value} for nvcc's -D, {wrapper constant: value})
 FLEET_INIT_VARIANTS = {
@@ -110,6 +121,28 @@ CHAIN_APPLY_VARIANTS = {
     # the row path's grid at 4 and at 16 blocks an SM
     "row_blocks_4": ({}, {"ROW_BLOCKS_PER_SM": 4}),
     "row_blocks_16": ({}, {"ROW_BLOCKS_PER_SM": 16}),
+}
+
+#: as FLEET_INIT_VARIANTS, for csrc/rolling_median.cu
+ROLLING_MEDIAN_VARIANTS = {
+    "kept": ({}, {}),
+    # blocks of at most 8 and 2 warps (series)
+    "warps_8": ({"RM_MAX_THREADS": 256}, {"MAX_WARPS": 8}),
+    "warps_2": ({}, {"MAX_WARPS": 2}),
+    # the register path's registers capped for 8 blocks of 128 threads an
+    # SM (64 a thread)
+    "regs_64": ({"RM_MIN_BLOCKS": 8}, {}),
+    # at least 4 rows a lane (2,048 keys, 7 rows a lane at the longest
+    # window)
+    "lane_rows_4": ({}, {"LANE_ROWS_MIN": 4}),
+}
+
+#: as FLEET_INIT_VARIANTS, for csrc/lstm_head_fit.cu
+HEAD_FIT_VARIANTS = {
+    "kept": ({}, {}),
+    # blocks of 128 and of 512 threads
+    "threads_128": ({"HF_THREADS": 128}, {}),
+    "threads_512": ({"HF_THREADS": 512}, {}),
 }
 
 #: empty kernels, to time a launch alone: one taking the kernel's
@@ -288,10 +321,56 @@ def chain_apply_cases():
     return out
 
 
+def rolling_median_cases():
+    """As :func:`fleet_score_cases`, for ``rolling_median`` (held exactly,
+    NaN by place)."""
+    rng = np.random.default_rng(cs.SEED)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()  # noqa: E731
+    lm, ln, lf = cs.LSTM_SHAPE
+    lstm = (lm, ln - cs.LOOKBACK + 1, lf)
+    out = {}
+    for case, (m, n, f), window in (("lstm_bucket", lstm, cs.SMOOTH_WINDOW),
+                                    ("default_bucket", cs.MEDIAN_DEFAULT_SHAPE, cs.SMOOTH_WINDOW),
+                                    ("longest_window", (cs.MEDIAN_LONGEST_SLOTS, *lstm[1:]), rm.MAX_WINDOW)):
+        tag = put(np.abs(rng.standard_normal((m, n, f))))
+        total = tag.square().mean(-1).sqrt()
+        cs.with_holes(rng, tag)
+        thr = put(rng.uniform(0.5, 2.0, m))
+        run = lambda t=tag, s=total, h=thr, w=window: rm.rolling_median(t, s, w, agg_thr=h)  # noqa: E731
+        ref = rm.rolling_median_plain(tag, total, window, agg_thr=thr)  # once: slow at the longest window
+        out[case] = (run, _held_within(run, lambda ref=ref: ref, cs.LSTM_TOLERANCE["rolling_median"]))
+    return out
+
+
+def lstm_head_fit_cases():
+    """As :func:`fleet_score_cases`, for ``lstm_head_fit`` on random
+    minibatches (a tenth of the slots without a real window), ``dh`` held
+    over the real windows."""
+    rng = np.random.default_rng(cs.SEED)
+    out = {}
+    for case, shape in (("bench_step", (256, 64, 42, 50)), ("batch_256", (16, 256, 42, 50)),
+                        ("first_layout", cs.HEAD_FIRST_LAYOUT)):
+        h, W, b, y, batch, n_real = cs.random_head_step(rng, *shape, "cuda")
+        kw = dict(batch=batch, shift=cs.LOOKBACK - 1, act="linear")
+
+        def outputs(res, n_real=n_real):
+            got = dict(zip(("loss", "dW", "db", "dh"), res))
+            got["dh"] = torch.cat([got["dh"][s, :c] for s, c in enumerate(n_real)])  # real windows only
+            return got
+        run = lambda h=h, W=W, b=b, y=y, kw=kw: hf.lstm_head_fit(h, W, b, y, **kw)  # noqa: E731
+        ref = outputs(hf.lstm_head_fit_plain(h, W, b, y, **kw))
+        held = _held_within(lambda run=run, outputs=outputs: outputs(run()), lambda ref=ref: ref,
+                            cs.LSTM_TRAIN_TOLERANCE["lstm_head_fit"])
+        out[case] = (run, held)
+    return out
+
+
 KERNELS = {"fleet_init": (fi, FLEET_INIT_VARIANTS, fleet_init_cases),
            "fake_quant": (fq, FAKE_QUANT_VARIANTS, fake_quant_cases),
            "fleet_score": (fs, FLEET_SCORE_VARIANTS, fleet_score_cases),
-           "chain_apply": (ca, CHAIN_APPLY_VARIANTS, chain_apply_cases)}
+           "chain_apply": (ca, CHAIN_APPLY_VARIANTS, chain_apply_cases),
+           "rolling_median": (rm, ROLLING_MEDIAN_VARIANTS, rolling_median_cases),
+           "lstm_head_fit": (hf, HEAD_FIT_VARIANTS, lstm_head_fit_cases)}
 
 
 def main() -> None:
