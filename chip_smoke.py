@@ -23,8 +23,11 @@ itself.  Phases, each printing one JSON line:
    ``fleet_fit``, ``cv_epilogue``) against their plain versions on the
    card, at the bench shape (512 machines × 576 rows × 10 tags, the
    default ``TrainConfig``), each kernel fed what the one before it made,
-   as the build does, ``cv_epilogue`` bit for bit its plain version (also
-   on targets at a level of 1e4); times as in phase 3 (the plain
+   as the build does, ``scaler_stats`` (MinMax, the nested path) and
+   ``cv_epilogue`` (K4, the warp path) bit for bit their plain versions
+   (the epilogue also on targets at a level of 1e4, and by its block path
+   at the LSTM builds' 192 slots × 133 × 50, K4 and K8), every output
+   hashed; times as in phase 3 (the plain
    versions, thousands of small launches, are timed by CUDA events around
    whole calls, host gaps included), and each bound.
 6. ``train``: ``FleetDiffBuilder.build`` builds 512 default detectors on
@@ -87,8 +90,9 @@ itself.  Phases, each printing one JSON line:
    row counts from 0 to 144 over 1,536 slots × 144 rows × 10 tags, held
    to its plain version bit for bit, the empty slots to their fixed values, and to
    the suffix-weighted metrics; slots with NaN and inf in real rows,
-   whose non-finite maxima K8 maps to 0 and K4 keeps), ``scaler_stats`` on NaN-padded ragged
-   rows, ``fleet_fit`` with a real-row count per (machine, fit) at 512 ×
+   whose non-finite maxima K8 maps to 0 and K4 keeps; its outputs
+   hashed), ``scaler_stats`` on NaN-padded ragged rows (bit for bit its
+   plain version, hashed), ``fleet_fit`` with a real-row count per (machine, fit) at 512 ×
    576 × 10 whose fits hold minibatches of padding alone, and two
    lockstep LSTM steps of the bench's LSTM build with ragged window
    counts, the second with slots that have no real window (their loss
@@ -204,7 +208,9 @@ itself.  Phases, each printing one JSON line:
    × 10: Robust also NaN-padded and after a MinMax (1, -1) step) and at
    57,344 rows over uneven row lists, each bit for bit its plain version;
    the MinMax statistic after the Standard step in the fleet build's
-   form (its offset one FMA), bit for bit its plain version;
+   form (its offset one FMA), and by each path of its plan (nested ranges
+   over NaN-padded rows, index lists, a year, the uneven lists), each bit
+   for bit its plain version, timed, every output hashed;
    Robust's selection and sort timed beside each other; times, bounds,
    and ``torch.nanquantile`` (one call a row list) beside Robust.
 24. ``scaler_build``: ``FleetDiffBuilder.build`` of 512 × 576 × 10
@@ -484,6 +490,18 @@ def output_hashes(out, rows=None) -> dict:
     if isinstance(out, dict):
         return {k: output_hash(v, rows) for k, v in sorted(out.items())}
     return {"out": output_hash(out, rows)}
+
+
+def plan_path(mod, *args, **kw):
+    """The path name of ``mod.launch_plan(*args)`` (``cv_epilogue``: warp
+    or block; ``scaler_stats``' MinMax: nested, list or split), or None
+    for a tree whose module has no plan (a parent before the plans)."""
+    plan = getattr(mod, "launch_plan", None)
+    if plan is None:
+        return None
+    got = plan(*args, **kw)
+    names = getattr(mod, "PATH_NAMES", ("warp", "block"))
+    return names[got.path]
 
 
 def norm_err(ref, got) -> float:
@@ -921,6 +939,42 @@ def _expected_launches(spec, pending) -> dict:
     return out
 
 
+#: the slots the block path of cv_epilogue takes in the builds: an LSTM
+#: fleet's folds (64 machines x 3 folds, 144 - 11 rows of 50 tags)
+CV_BLOCK_SHAPE = (192, 133, 50)
+
+
+def _cv_block_path_check(rng) -> dict:
+    """``cv_epilogue`` at slots wider than the warp path takes (the LSTM
+    builds' 50 tags): K4 and K8 (row counts 0..nt) against their plain
+    versions bit for bit, hashed, K4 timed."""
+    from gordo_tpu_torch.kernels import cv_epilogue as ce
+
+    S, nt, tags = CV_BLOCK_SHAPE
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(DEVICE)  # noqa: E731
+    y = put(rng.standard_normal((S, nt, tags)) + 3.0)
+    pred = put(y.cpu().numpy() + 0.3 * rng.standard_normal((S, nt, tags)))
+    tag = (pred - y).abs().contiguous()
+    total = tag.norm(dim=-1).contiguous()
+    counts = rng.integers(0, nt + 1, S)
+    counts[:3] = [0, 1, nt]
+    out = {"shape": list(CV_BLOCK_SHAPE), "path": plan_path(ce, nt, tags)}
+    check(out["path"] in (None, "block"), f"cv_epilogue at {CV_BLOCK_SHAPE} takes the block path ({out['path']})")
+    for masked, n_rows in ((False, None), (True, counts)):
+        args = (tag, total, pred, y, n_rows)
+        got = ce.cv_epilogue(*args, masked=masked)
+        ref = ce.cv_epilogue_plain(*args, masked=masked)
+        key = "masked" if masked else "exact"
+        out[key] = {"differing": sum(differing(ref[k], got[k]) for k in ref), "hashes": output_hashes(got)}
+        check(out[key]["differing"] == 0, f"cv_epilogue block path {key}: bit for bit its plain version")
+        if not masked:
+            elems = S * nt * tags
+            out[key].update(bound(4 * (3 * elems + S * nt + S * (tags + 5)),
+                                  elems * (ce.SMOOTHING_WINDOW + 12) + S * nt * ce.SMOOTHING_WINDOW))
+            time_entry(out[key], lambda: ce.cv_epilogue(*args), lambda: ce.cv_epilogue_plain(*args), 20, 2)
+    return out
+
+
 def phase_train_kernel_check():
     from gordo_tpu_torch.kernels import cv_epilogue as ce
     from gordo_tpu_torch.kernels import fleet_fit as ff
@@ -968,6 +1022,12 @@ def phase_train_kernel_check():
            bound(4 * (machines * rows * tags + sum(len(r) for r in row_lists)
                       + 2 * machines * len(row_lists) * tags), 2 * visits),
            {k: TRAIN_TOLERANCE["scaler_stats"] for k in errs})
+    # a min and a max in any order, the same roundings: bit for bit
+    entries["scaler_stats"]["differing"] = differing(scale_p, scale) + differing(offset_p, offset)
+    entries["scaler_stats"]["hashes"] = {"scale": output_hash(scale), "offset": output_hash(offset)}
+    entries["scaler_stats"]["path"] = plan_path(ss, X.shape, row_lists)
+    check(entries["scaler_stats"]["differing"] == 0,
+          f"scaler_stats: bit for bit its plain version ({entries['scaler_stats']['differing']} differ)")
 
     # K1 + K2: the three fold fits and the final fit of every machine
     params0, perms = put_draws(fleet_draws, 0, dims, fits, cfg.epochs, X.device)
@@ -1016,6 +1076,10 @@ def phase_train_kernel_check():
     entries["cv_epilogue"]["differing_level_1e4"] = sum(differing(far[1][k], far[0][k]) for k in ref)
     check(entries["cv_epilogue"]["differing"] == 0 and entries["cv_epilogue"]["differing_level_1e4"] == 0,
           f"cv_epilogue: bit for bit its plain version ({entries['cv_epilogue']})")
+    entries["cv_epilogue"]["hashes"] = output_hashes(got)
+    entries["cv_epilogue"]["hashes_level_1e4"] = output_hashes(far[0])
+    entries["cv_epilogue"]["path"] = plan_path(ce, nt, tags)
+    entries["cv_epilogue"]["block_path"] = _cv_block_path_check(np.random.default_rng(SEED + 31))
     emit({"phase": "train_kernel_check", "shape": list(TRAIN_SHAPE), "kernels": entries})
     del X, layers, layers_p, scored, x_oof
     if DEVICE == "cuda":
@@ -1468,6 +1532,31 @@ def median_head_redesign_line(lstm_kernels: dict, lstm_train_kernels: dict, lstm
             "fleet_adam": {"ms": adam.get("ms"), "fused_adam_ms": adam.get("library_ms"),
                            "fused_adam_window_ms": adam.get("library_window_ms")},
             "parent": {"rolling_median": PARENT_ROLLING_MEDIAN, "lstm_head_fit": PARENT_HEAD_FIT}}
+
+
+#: cv_epilogue (K4, K8) and the MinMax statistic before their redesign
+#: (PERF.md, the parent's final runs: K4 and K8 at 1,536 slots × 144 × 10,
+#: MinMax at 512 × 576 × 10 over 4 row lists)
+PARENT_EPILOGUE_MINMAX = {"k4_ms": 0.0494, "k8_ms": 0.0407, "minmax_ms": 0.0193}
+
+
+def epilogue_minmax_redesign_line(train_kernels: dict, ragged_kernels: dict, scaler_kernels: dict) -> dict:
+    """The redesigned cv_epilogue and MinMax statistic beside their
+    parent designs' figures (``PARENT_EPILOGUE_MINMAX``), with the path
+    each case took."""
+    minmax = {k: {"path": e.get("path"), "ms": e.get("ms")} for k, e in scaler_kernels.items()
+              if e["stat"] == "minmax"}
+    return {
+        "phase": "epilogue_minmax_redesign",
+        "parent": PARENT_EPILOGUE_MINMAX,
+        "k4": {"path": train_kernels["cv_epilogue"].get("path"), "ms": train_kernels["cv_epilogue"].get("ms")},
+        "k8": {"path": ragged_kernels["cv_epilogue_masked"].get("path"),
+               "ms": ragged_kernels["cv_epilogue_masked"].get("ms")},
+        "block_path_k4_ms": train_kernels["cv_epilogue"]["block_path"]["exact"].get("ms"),
+        "minmax": {"path": train_kernels["scaler_stats"].get("path"), "ms": train_kernels["scaler_stats"].get("ms")},
+        "minmax_nan_padded_ms": ragged_kernels["scaler_stats_nan_padded"].get("ms"),
+        "minmax_cases": minmax,
+    }
 
 
 #: the stacked default bucket (512 machines × 2048 rows × 10 tags, the
@@ -2991,6 +3080,8 @@ def phase_ragged_kernel_check():
     # the metrics sum in XLA's window order on both sides: bit for bit
     entry["differing"] = sum(differing(ref[k], got[k]) for k in ref)
     check(entry["differing"] == 0, f"cv_epilogue masked: bit for bit its plain version ({entry['differing']} differ)")
+    entry["hashes"] = output_hashes(got)
+    entry["path"] = plan_path(ce, nt, tags, masked=True)
     time_entry(entry, run, plain, 20, 5)
     entry["non_finite"] = _non_finite_max_check(rng, tags)
     entries["cv_epilogue_masked"] = entry
@@ -3011,6 +3102,10 @@ def phase_ragged_kernel_check():
     entry = {"max_norm_err": errs, "max_abs_err": abs_err, "tolerance": TRAIN_TOLERANCE["scaler_stats"],
              **bound(4 * (machines * visits * tags + visits + 2 * machines * len(row_lists) * tags),
                      2 * machines * visits * tags)}
+    entry["differing"] = differing(scale_p, scale) + differing(offset_p, offset)
+    check(entry["differing"] == 0, f"scaler_stats on NaN-padded rows: bit for bit its plain version ({entry['differing']} differ)")
+    entry["hashes"] = {"scale": output_hash(scale), "offset": output_hash(offset)}
+    entry["path"] = plan_path(ss, Xn.shape, row_lists)
     time_entry(entry, run, plain, 20, 5)
     entries["scaler_stats_nan_padded"] = entry
 
@@ -4830,12 +4925,17 @@ def phase_scaler_kernel_check():
     year NaN-padded and after a MinMax (1, -1) step; both statistics at
     QS_MAX_ROWS (57,344) over uneven row lists; Robust's selection at a
     year and its sort at TRAIN_SHAPE, timed beside the launcher's choice.
-    Every Standard and Robust entry counts its values that are not the
-    plain version's bit for bit (``differing``, which must be 0: the
-    Standard sums run in XLA's window order on both sides, Robust's order
-    statistics are exact).  Times, bounds, and the library call:
+    The MinMax statistic by each path of its plan: nested ranges over the
+    NaN-padded rows, index lists at TRAIN_SHAPE and the Standard-prefixed
+    chains (the list path), the year (plain and NaN-padded) and the uneven
+    QS_MAX_ROWS lists (the split path).  Every entry counts its values that
+    are not the plain version's bit for bit (``differing``, which must be
+    0: the Standard sums run in XLA's window order on both sides, Robust's
+    order statistics are exact, a min and a max take any order) and hashes
+    its outputs.  Times, bounds, and the library call:
     ``torch.nanquantile`` (one call a row list) for Robust; no one PyTorch
-    call takes a NaN-aware std."""
+    call takes a NaN-aware std, nor MinMax's scale and offset
+    (``torch.aminmax`` propagates NaN)."""
     from gordo_tpu_torch.kernels import scaler_quantiles as sq
     from gordo_tpu_torch.kernels import scaler_stats as ss
     from gordo_tpu_torch.train.cv import TimeSeriesSplit
@@ -4854,7 +4954,7 @@ def phase_scaler_kernel_check():
     q = torch.from_numpy(sq.fractions((25.0, 75.0))).to(DEVICE)
     entries = {}
 
-    def hold(name, stat, run, plain, bound_info, library=None, reps=20, plain_reps=5):
+    def hold(name, stat, run, plain, bound_info, library=None, reps=20, plain_reps=5, path=None):
         got, ref = run(), plain()
         errs, worst = {}, 0.0
         for key, r, g in zip(_STAT_KEYS[stat], ref, got):
@@ -4864,9 +4964,11 @@ def phase_scaler_kernel_check():
         tol = SCALER_TOLERANCE[stat]
         check(all(e <= tol for e in errs.values()), f"{name} within {tol}: {errs}")
         entry = {"stat": stat, "max_norm_err": errs, "max_abs_err": worst, "tolerance": tol, **bound_info}
-        if stat in ("standard", "robust"):
-            entry["differing"] = sum(differing(r, g) for r, g in zip(ref, got))
-            check(entry["differing"] == 0, f"{name}: bit for bit its plain version ({entry['differing']} differ)")
+        entry["differing"] = sum(differing(r, g) for r, g in zip(ref, got))
+        check(entry["differing"] == 0, f"{name}: bit for bit its plain version ({entry['differing']} differ)")
+        entry["hashes"] = {key: output_hash(g) for key, g in zip(_STAT_KEYS[stat], got)}
+        if path is not None:
+            entry["path"] = path
         if DEVICE == "cuda":
             entry["ms"], entry["host_ms"] = time_ms(run, reps)
             entry["plain_ms"], entry["plain_host_ms"] = time_calls_ms(plain, plain_reps)
@@ -4903,17 +5005,13 @@ def phase_scaler_kernel_check():
     std_prefix = [(ss.CENTER, mean, std)]
     hold("chain_standard_minmax", "minmax", lambda: ss.scaler_stats(X, row_lists, prefix=std_prefix),
          lambda: ss.scaler_stats_plain(X, row_lists, prefix=std_prefix),
-         stat_bound(machines, rows, tags, row_lists, 1, 2))
+         stat_bound(machines, rows, tags, row_lists, 1, 2), path=plan_path(ss, X.shape, row_lists, 1))
     # the fleet build's form: the offset a - lo * scale one FMA, as
     # fleet.exact's fusion computes it, bit for bit its plain version
-    fused = hold("chain_standard_minmax_fused", "minmax",
-                 lambda: ss.scaler_stats(X, row_lists, (1.0, -1.0), prefix=std_prefix, offset_fma=True),
-                 lambda: ss.scaler_stats_plain(X, row_lists, (1.0, -1.0), prefix=std_prefix, offset_fma=True),
-                 stat_bound(machines, rows, tags, row_lists, 1, 2))
-    fused_ref = ss.scaler_stats_plain(X, row_lists, (1.0, -1.0), prefix=std_prefix, offset_fma=True)
-    entries["chain_standard_minmax_fused"]["differing"] = sum(differing(r, g) for r, g in zip(fused_ref, fused))
-    check(entries["chain_standard_minmax_fused"]["differing"] == 0,
-          "the fused MinMax offsets are their plain version's bit for bit")
+    hold("chain_standard_minmax_fused", "minmax",
+         lambda: ss.scaler_stats(X, row_lists, (1.0, -1.0), prefix=std_prefix, offset_fma=True),
+         lambda: ss.scaler_stats_plain(X, row_lists, (1.0, -1.0), prefix=std_prefix, offset_fma=True),
+         stat_bound(machines, rows, tags, row_lists, 1, 2), path=plan_path(ss, X.shape, row_lists, 1))
     reverse = ss.scaler_stats(X, row_lists, (1.0, -1.0))
     check(bool((reverse[0] < 0).all()), "a MinMax step to (1, -1) has a negative scale")
     mm_prefix = [(ss.AFFINE, *reverse)]
@@ -4923,6 +5021,16 @@ def phase_scaler_kernel_check():
     hold("chain_minmax_standard", "standard", lambda: ss.scaler_stats(X, row_lists, stat="standard", prefix=mm_prefix),
          lambda: ss.scaler_stats_plain(X, row_lists, stat="standard", prefix=mm_prefix),
          stat_bound(machines, rows, tags, row_lists, 1, 4))
+    # MinMax by each of its plan's paths: the nested ranges of the build
+    # over NaN-padded rows (the nested path), index lists at TRAIN_SHAPE
+    # (the list path; the Standard-prefixed chains above too), and past
+    # one block's rows a year and uneven index lists below (the split path)
+    hold("minmax_nan_padded", "minmax", lambda: ss.scaler_stats(Xn, row_lists, offset_fma=True),
+         lambda: ss.scaler_stats_plain(Xn, row_lists, offset_fma=True), stat_bound(machines, rows, tags, row_lists, 0, 2),
+         path=plan_path(ss, Xn.shape, row_lists))
+    picked = [np.sort(rng.permutation(rows)[: rows // 2 + 12]), np.arange(rows // 6, 2 * rows // 3), np.arange(rows)]
+    hold("minmax_index_lists", "minmax", lambda: ss.scaler_stats(Xn, picked), lambda: ss.scaler_stats_plain(Xn, picked),
+         stat_bound(machines, rows, tags, picked, 0, 2), path=plan_path(ss, Xn.shape, picked))
     wide = put(bench_fleet(rng, 64, rows, 128))
     hold("standard_128_tags", "standard", lambda: ss.scaler_stats(wide, row_lists, stat="standard"),
          lambda: ss.scaler_stats_plain(wide, row_lists, stat="standard"), stat_bound(64, rows, 128, row_lists, 0, 4))
@@ -4931,6 +5039,8 @@ def phase_scaler_kernel_check():
     hold("standard_year", "standard", lambda: ss.scaler_stats(year, whole, stat="standard"),
          lambda: ss.scaler_stats_plain(year, whole, stat="standard"), stat_bound(1, SCALER_YEAR, tags, whole, 0, 4),
          reps=5, plain_reps=3)
+    hold("minmax_year", "minmax", lambda: ss.scaler_stats(year, whole), lambda: ss.scaler_stats_plain(year, whole),
+         stat_bound(1, SCALER_YEAR, tags, whole, 0, 2), reps=20, plain_reps=3, path=plan_path(ss, year.shape, whole))
     hold("robust_year", "robust", lambda: sq.scaler_quantiles(year, whole),
          lambda: sq.scaler_quantiles_plain(year, whole), stat_bound(1, SCALER_YEAR, tags, whole, 0, 1),
          library=nanquantile(year, whole), reps=5, plain_reps=3)
@@ -4944,6 +5054,9 @@ def phase_scaler_kernel_check():
     hold("robust_year_nan_padded", "robust", lambda: sq.scaler_quantiles(year_pad, whole),
          lambda: sq.scaler_quantiles_plain(year_pad, whole), stat_bound(1, SCALER_YEAR, tags, whole, 0, 1),
          library=nanquantile(year_pad, whole), reps=5, plain_reps=3)
+    hold("minmax_year_nan_padded", "minmax", lambda: ss.scaler_stats(year_pad, whole, offset_fma=True),
+         lambda: ss.scaler_stats_plain(year_pad, whole, offset_fma=True), stat_bound(1, SCALER_YEAR, tags, whole, 0, 2),
+         reps=20, plain_reps=3, path=plan_path(ss, year_pad.shape, whole))
     year_flip = [(ss.AFFINE, *ss.scaler_stats(year, whole, (1.0, -1.0)))]
     hold("robust_year_minmax", "robust", lambda: sq.scaler_quantiles(year, whole, prefix=year_flip),
          lambda: sq.scaler_quantiles_plain(year, whole, prefix=year_flip),
@@ -4960,6 +5073,8 @@ def phase_scaler_kernel_check():
     hold("standard_max_rows", "standard", lambda: ss.scaler_stats(long_x, uneven, stat="standard"),
          lambda: ss.scaler_stats_plain(long_x, uneven, stat="standard"),
          stat_bound(2, longest, tags, uneven, 0, 4), reps=5, plain_reps=2)
+    hold("minmax_max_rows", "minmax", lambda: ss.scaler_stats(long_x, uneven), lambda: ss.scaler_stats_plain(long_x, uneven),
+         stat_bound(2, longest, tags, uneven, 0, 2), reps=20, plain_reps=2, path=plan_path(ss, long_x.shape, uneven))
     hold("robust_max_rows", "robust", lambda: sq.scaler_quantiles(long_x, uneven),
          lambda: sq.scaler_quantiles_plain(long_x, uneven), stat_bound(2, longest, tags, uneven, 0, 1),
          reps=5, plain_reps=2)
@@ -7220,6 +7335,15 @@ def main() -> int:
     stats_entry = next(e for e in summary if e["name"] == "scaler_stats")
     for entry, key in ((fit_entry, "fleet_fit_ragged"), (stats_entry, "scaler_stats_nan_padded")):
         entry[key] = {k: v for k, v in ragged_kernels[key].items() if k not in ("bytes", "flops")}
+    # the MinMax statistic by each path of its plan (scaler_kernel_check)
+    stats_entry["path"] = train_kernels["scaler_stats"].get("path")
+    stats_entry["shapes"] = {k: {f: e.get(f) for f in ("path", "ms", "plain_ms", "bound_ms", "bound_by")}
+                             for k, e in scaler_kernels.items() if e["stat"] == "minmax"}
+    epi_entry = next(e for e in summary if e["name"] == "cv_epilogue")
+    epi_entry["path"] = train_kernels["cv_epilogue"].get("path")
+    block = train_kernels["cv_epilogue"]["block_path"]
+    epi_entry["block_path"] = {"shape": block["shape"], "path": block["path"],
+                               **{k: block["exact"].get(k) for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}
     masked = ragged_kernels["cv_epilogue_masked"]
     from gordo_tpu_torch.kernels import cv_epilogue as ce
     by_path = {path: info["cv_epilogue_masked_launches"] for path, info in ragged_paths.items()}
@@ -7409,6 +7533,7 @@ def main() -> int:
         "shapes": [{k: e[k] for k in ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_chain_ms")}
                    for e in apply_entry["shapes"]],
     })
+    emit(epilogue_minmax_redesign_line(train_kernels, ragged_kernels, scaler_kernels))
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                   "count": torch.cuda.device_count()}})

@@ -45,35 +45,59 @@
 // Bound: each input element is read once, a few operations each: by
 // device memory (0.008 ms at 1,536 slots of 144 x 10).  In practice the
 // window order's serial sums bound it: a window is 32 dependent adds (K4's
-// mse and mae windows 32 rows x fo, 320), and with a dozen blocks on an
-// SM each such chain waits for its issue slots.
+// mse and mae windows 32 rows x fo, 320), and each slot's sums wait on
+// one another pass after pass.
 //
-// Design: one block of 128 threads per slot.  The slot's scores, totals,
-// targets, differences (and for K4 their squares) are staged in shared
-// memory where they fit (48 KB; a fold of 144 rows of 10 tags takes 25
-// KB): read straight from device memory, each thread's loads waited on one
-// another at the slot's first touch.  The maxima: the threads split into
-// one group per column (the tags, then the total), each thread strides
-// over its column's rows, each row's window loaded ahead of its min; min
-// and max that keep a NaN are one instruction each.  The metrics: columns
-// in chunks that fit shared memory, each pass a window of 32 rows of one
-// column a thread, two to four sums at once (xla_order_sums), K4 in three
-// passes and K8 in two, each form its own instantiation.  K4's mse and
-// mae windows run in the last warp, two threads a window (squares, then
-// absolute values), while the other three warps run the maxima and the
-// passes on a named barrier of their own.  K4 runs at 64 registers a
-// thread and K8 at 40, the faster of the launch bounds measured for each
-// (PERF.md).
+// Two paths, chosen on the host (`launch_plan` in
+// gordo_tpu_torch/kernels/cv_epilogue.py, which fills `path` and the
+// launch's shape):
+//
+// The warp path (`cv_epilogue_warp_kernel`; fo <= 32, rows <= 1,024, a
+// window of at most 8 rows, the slot staged within 48 KB): a slot is a
+// block of two warps, at most 18 KB of shared memory at 144 x 10, so that
+// twelve slots share an SM and 1,536 slots are resident at once (one wave;
+// the launch bound caps a thread at 80 registers).  The slot's targets,
+// predictions, scores and totals are staged by cp.async (16 bytes a copy
+// where the slot's rows align, copy_async.cuh), the targets and
+// predictions with 4 floats of padding after every 32 rows, so that the
+// lanes reading one column in 32-row windows read other banks; one
+// barrier makes the copies visible, and from there each warp runs on its
+// own with warp-level synchronisation only.  Warp 1 starts K4's mse and mae
+// windows first, a lane a window, both sums of the window on the lane
+// (float4 or float2 loads where fo allows), and sums the windows in order
+// by shuffles; then the maxima: a lane a (column, run of rows), the
+// column's rolling minimum over the window sliding down the lane's rows in
+// registers (8 rows a step, every index fixed at compile time), the runs'
+// maxima combined by shuffles.  Warp 0 runs the metrics' passes: a lane a
+// (column, 32-row window), the column's windows on consecutive lanes, as
+// many columns a round as fit the warp (six at 144 rows); each lane sums
+// its window in order, each column's window sums are added in order by
+// shuffles on every lane of the column, which then holds the column's
+// means for its next pass (K4 three passes, K8 two).  The per-column
+// scores meet in shared memory, summed over the columns in order.
+//
+// The block path (`cv_epilogue_kernel`, the first design, for the rest):
+// one block of 128 threads per slot.  The slot's scores, totals, targets,
+// differences (and for K4 their squares) are staged in shared memory
+// where they fit (48 KB), else read from device memory.  The maxima: the
+// threads split into one group per column, each thread strides over its
+// column's rows.  The metrics: columns in chunks that fit shared memory,
+// each pass a window of 32 rows of one column a thread, two to four sums
+// at once (xla_order_sums), K4 in three passes and K8 in two.  K4's mse
+// and mae windows run in the last warp while the other three warps run
+// the maxima and the passes on a named barrier of their own.  K4 runs at
+// 64 registers a thread and K8 at 40.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "copy_async.cuh"
 #include "xla_order.cuh"
 
 #define CE_THREADS 128
 #define CE_EPS 1e-12f
-#define CE_MAX_SMEM (200 * 1024)
-#define CE_STAGE_SMEM (48 * 1024)  // a slot staged in shared memory up to this much
+#define CE_PATH_WARP 0
+#define CE_PATH_BLOCK 1
 
 // Mirrored field by field by `_Args` in gordo_tpu_torch/kernels/cv_epilogue.py.
 struct CvEpilogueArgs {
@@ -81,7 +105,7 @@ struct CvEpilogueArgs {
   const float* total;   // (S, nt)     its L2 norm over tags
   const float* pred;    // (S, nt, fo) out-of-fold predictions
   const float* y;       // (S, nt, fo) raw targets
-  const int* n_rows;    // (S,) valid rows of each slot, 0 .. nt
+  const int* n_rows;    // (S,) valid rows of each slot, 0 .. nt (null: every slot nt)
   float* feat_max;      // (S, fo)
   float* total_max;     // (S,)
   float* metrics;       // (S, 4): explained variance, r2, mse, mae
@@ -91,8 +115,12 @@ struct CvEpilogueArgs {
   int fo;
   int window;
   int masked;           // 1: K8, a non-finite maximum of a slot with rows is 0
-  int chunk;            // columns a pass of the metrics (shared memory)
-  int staged;           // 1: the slot's y and y - pred staged in shared memory
+  int chunk;            // block path: columns a pass of the metrics (shared memory)
+  int staged;           // block path: 1, the slot's y and y - pred staged in shared memory
+  int path;             // CE_PATH_WARP or CE_PATH_BLOCK
+  int vec;              // warp path: floats a load of K4's mse and mae windows (4, 2 or 1)
+  int stage16;          // warp path: bit 0, rows of fo staged 16 bytes a copy; bit 1, the totals
+  int smem_bytes;       // dynamic shared memory of a block
 };
 
 
@@ -190,7 +218,7 @@ __global__ void __launch_bounds__(CE_THREADS, CE_MIN_BLOCKS) cv_epilogue_kernel(
   const int slot = blockIdx.x;
   const int t = threadIdx.x;
   const int fo = a.fo;
-  const int n = a.n_rows[slot];
+  const int n = a.n_rows ? a.n_rows[slot] : a.nt;
   const float* tag = a.tag + (size_t)slot * a.nt * fo;
   const float* total = a.total + (size_t)slot * a.nt;
   const float* pred = a.pred + (size_t)slot * a.nt * fo;
@@ -438,35 +466,395 @@ __global__ void __launch_bounds__(CE_THREADS, CE_MIN_BLOCKS) cv_epilogue_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The warp path
+
+#define CW_THREADS 64     // two warps a slot
+#define CW_MIN_BLOCKS 12  // slots an SM (1,536 slots of 144 x 10 in one wave)
+#define CW_PAD 4         // floats after every 32 staged rows of y and pred
+#define CW_FULL 0xffffffffu
+
+__host__ __device__ __forceinline__ int cw_round4(int v) { return (v + 3) & ~3; }
+
+// floats of a slot's staged y (or pred): nt rows of fo, CW_PAD after every 32
+__host__ __device__ __forceinline__ int cw_rows_floats(int nt, int fo) {
+  return cw_round4(nt * fo + CW_PAD * ((nt + 31) >> 5));
+}
+
+// the warp path's shared memory (floats): y, pred, the scores, the totals,
+// and four per-column scores
+__host__ __device__ __forceinline__ int cw_smem_floats(int nt, int fo) {
+  return 2 * cw_rows_floats(nt, fo) + cw_round4(nt * fo) + cw_round4(nt) + 4 * fo;
+}
+
+// row r's first value in the staged y or pred
+__device__ __forceinline__ int cw_at(int r, int fo) { return r * fo + CW_PAD * (r >> 5); }
+
+// cp.async copies of `count` floats of src into dst, `pad` floats of gap in
+// dst after every `block` floats (a multiple of 4); 16 bytes a copy where
+// `v16` (src and dst 16-byte aligned), else 4
+__device__ __forceinline__ void cw_stage(float* dst, const float* src, int count, int block, int pad, bool v16) {
+  const int t = threadIdx.x;
+  for (int e0 = 0, b = 0; e0 < count; e0 += block, ++b) {
+    const int e1 = min(count, e0 + block);
+    float* d = dst + pad * b;
+    int e4 = e0;
+    if (v16) {
+      e4 = e0 + ((e1 - e0) & ~3);
+      for (int e = e0 + 4 * t; e < e4; e += 4 * CW_THREADS) copy_async16(d + e, src + e);
+    }
+    for (int e = e4 + t; e < e1; e += CW_THREADS) copy_async(d + e, src + e);
+  }
+}
+
+// `len` staged values of y and pred from ys and ps (a multiple of V, V
+// floats aligned), their differences' squares summed in order into sq and
+// their absolute values into ab
+template <int V>
+__device__ __forceinline__ void cw_run(const float* ys, const float* ps, int len, float& sq, float& ab) {
+  constexpr int B = 16;  // values loaded ahead of their adds
+  int k = 0;
+  for (; k + B <= len; k += B) {
+    float d[B];
+#pragma unroll
+    for (int u = 0; u < B; u += V) {
+      float y[V], p[V];
+      if (V == 4) {
+        const float4 a = *reinterpret_cast<const float4*>(ys + k + u);
+        const float4 b = *reinterpret_cast<const float4*>(ps + k + u);
+        y[0] = a.x, y[1] = a.y, y[2 % V] = a.z, y[3 % V] = a.w;
+        p[0] = b.x, p[1] = b.y, p[2 % V] = b.z, p[3 % V] = b.w;
+      } else if (V == 2) {
+        const float2 a = *reinterpret_cast<const float2*>(ys + k + u);
+        const float2 b = *reinterpret_cast<const float2*>(ps + k + u);
+        y[0] = a.x, y[1 % V] = a.y;
+        p[0] = b.x, p[1 % V] = b.y;
+      } else {
+        y[0] = ys[k + u];
+        p[0] = ps[k + u];
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) d[u + v] = __fsub_rn(y[v], p[v]);
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      sq = __fadd_rn(sq, __fmul_rn(d[u], d[u]));
+      ab = __fadd_rn(ab, fabsf(d[u]));
+    }
+  }
+  for (; k < len; ++k) {
+    const float d = __fsub_rn(ys[k], ps[k]);
+    sq = __fadd_rn(sq, __fmul_rn(d, d));
+    ab = __fadd_rn(ab, fabsf(d));
+  }
+}
+
+// K4's mse and mae (fo <= XO_WINDOW: every row window one 2-D window):
+// lane w sums window w (rows 32w - lo .. 32w - lo + 31 within [0, n)),
+// row-major, its squares and its absolute values; the windows' sums are
+// added in order, then scaled by 1 / (n fo), as xla_order_sum2 and
+// xo_sum2_finish take them
+template <int V>
+__device__ void cw_sum2(const float* ys, const float* ps, int n, int fo, int l1, int lo, int lane, float* out) {
+  float sq = 0.f, ab = 0.f;
+  if (lane < l1) {
+    const int r1 = min(n, 32 * lane - lo + 32);
+    for (int r = max(0, 32 * lane - lo); r < r1;) {
+      const int rb = min(r1, (r | 31) + 1);  // a run within one 32-row block of the staging
+      const int at = cw_at(r, fo);
+      cw_run<V>(ys + at, ps + at, (rb - r) * fo, sq, ab);
+      r = rb;
+    }
+  }
+  float tsq = 0.f, tab = 0.f;
+  for (int w = 0; w < l1; ++w) {
+    tsq = __fadd_rn(tsq, __shfl_sync(CW_FULL, sq, w));
+    tab = __fadd_rn(tab, __shfl_sync(CW_FULL, ab, w));
+  }
+  if (lane == 0) {
+    const float inv_all = __fdiv_rn(1.f, (float)n * (float)fo);
+    out[2] = __fmul_rn(tsq, inv_all);
+    out[3] = __fmul_rn(tab, inv_all);
+  }
+}
+
+// max over rows [r0, r1) of the min over the W rows up to each (rows >= 0)
+// of src[row * stride]; r0 a multiple of 8, so that row r's value lives in
+// h[r & 7] / v[r & 7], every index fixed at compile time
+template <int W>
+__device__ __forceinline__ float cw_window_max(const float* src, int stride, int r0, int r1) {
+  float mx = -INFINITY;
+  if (r0 >= r1) return mx;
+  float h[8];  // the previous 8 rows
+#pragma unroll
+  for (int i = 0; i < 8; ++i) h[i] = INFINITY;
+#pragma unroll
+  for (int u = 1; u < W; ++u)
+    if (r0 - u >= 0) h[8 - u] = src[(r0 - u) * stride];
+  for (int r = r0; r < r1; r += 8) {
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = r + i < r1 ? src[(r + i) * stride] : INFINITY;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float mn = v[i];
+#pragma unroll
+      for (int u = 1; u < W; ++u) mn = nan_min(mn, i >= u ? v[i - u] : h[8 + i - u]);
+      if (r + i < r1) mx = nan_max(mx, mn);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) h[i] = v[i];
+  }
+  return mx;
+}
+
+__device__ __forceinline__ float cw_window_max(int window, const float* src, int stride, int r0, int r1) {
+  switch (window) {
+    case 1: return cw_window_max<1>(src, stride, r0, r1);
+    case 2: return cw_window_max<2>(src, stride, r0, r1);
+    case 3: return cw_window_max<3>(src, stride, r0, r1);
+    case 4: return cw_window_max<4>(src, stride, r0, r1);
+    case 5: return cw_window_max<5>(src, stride, r0, r1);
+    case 6: return cw_window_max<6>(src, stride, r0, r1);
+    case 7: return cw_window_max<7>(src, stride, r0, r1);
+    default: return cw_window_max<8>(src, stride, r0, r1);
+  }
+}
+
+// the smoothed maxima of the fo tags and the total: lane (s, c) takes
+// column j0 + c over its run s of rows, runs of a multiple of 8 rows; the
+// runs of a column are combined by shuffles
+template <bool MASKED>
+__device__ void cw_maxima(const float* tg, const float* to, int n, int fo, int window, int lane, float* feat_max,
+                          float* total_max) {
+  const int ncol = fo + 1;
+  const int cols = min(ncol, 32);  // columns a round
+  const int runs = 32 / cols;
+  const int s = lane / cols, c = lane - s * cols;
+  const int len = ((n + runs - 1) / runs + 7) & ~7;
+  const int r0 = min(n, s * len), r1 = min(n, r0 + len);
+  for (int j0 = 0; j0 < ncol; j0 += cols) {
+    const int j = j0 + c;
+    float mx = -INFINITY;
+    if (s < runs && j < ncol)
+      mx = j < fo ? cw_window_max(window, tg + j, fo, r0, r1) : cw_window_max(window, to, 1, r0, r1);
+    for (int d = cols; d < 32; d <<= 1) mx = nan_max(mx, __shfl_down_sync(CW_FULL, mx, d));
+    if (s == 0 && j < ncol) {
+      if (MASKED && !isfinite(mx)) mx = 0.f;
+      if (j < fo)
+        feat_max[j] = mx;
+      else
+        *total_max = mx;
+    }
+  }
+}
+
+// The metrics' passes: lane (cl, w) sums column j0 + cl's window w, rows
+// 32w - lo .. 32w - lo + 31 within [0, n); the window's rows before and
+// after the staging's 32-row boundary are two runs of stride fo (window 0
+// has only the second).  `add(at, sums)` adds the row's values at staged
+// index `at` into the lane's sums.
+template <int K, typename Add>
+__device__ __forceinline__ void cw_window(int n, int fo, int j, int w, int lo, bool on, float (&sums)[K], Add add) {
+#pragma unroll
+  for (int q = 0; q < K; ++q) sums[q] = 0.f;
+  if (!on) return;
+  const int ra = 32 * w - lo;     // the window's first row
+  const int rb = min(n, 32 * w);  // the block boundary (rows before it in block w - 1)
+  const int re = min(n, ra + 32);
+  int at = cw_at(max(ra, 0), fo) + j;
+#pragma unroll 4
+  for (int r = max(ra, 0); r < rb; ++r, at += fo) add(at, sums);
+  at = cw_at(max(rb, max(ra, 0)), fo) + j;
+#pragma unroll 4
+  for (int r = max(rb, max(ra, 0)); r < re; ++r, at += fo) add(at, sums);
+}
+
+// each column's sum of its lanes' window sums in order, on every lane of
+// the column (its windows on lanes base .. base + l1 - 1)
+__device__ __forceinline__ float cw_column_sum(float s, int base, int l1) {
+  float acc = 0.f;
+  for (int k = 0; k < l1; ++k) acc = __fadd_rn(acc, __shfl_sync(CW_FULL, s, (base + k) & 31));
+  return acc;
+}
+
+template <bool MASKED>
+__device__ void cw_passes(const float* ys, const float* ps, int n, int fo, int l1, int lo, int lane, float* per,
+                          float* out) {
+  const int cols = 32 / l1;  // columns a round
+  const int cl = lane / l1, w = lane - cl * l1;
+  const int base = cl * l1;
+  const float nf = (float)n;
+  const float inv_n = __fdiv_rn(1.f, nf);
+  auto mean = [&](float s) { return MASKED ? __fdiv_rn(s, nf) : __fmul_rn(s, inv_n); };
+  for (int j0 = 0; j0 < fo; j0 += cols) {
+    const int j = j0 + cl;
+    const bool on = cl < cols && j < fo;
+    if (MASKED) {
+      // pass 1: y, d = y - p, d^2, |d| (the rows past n add 0)
+      float s[4];
+      cw_window<4>(n, fo, j, w, lo, on, s, [&](int at, float(&a)[4]) {
+        const float y = ys[at], d = __fsub_rn(y, ps[at]);
+        a[0] = __fadd_rn(a[0], y);
+        a[1] = __fadd_rn(a[1], d);
+        a[2] = __fadd_rn(a[2], __fmul_rn(d, d));
+        a[3] = __fadd_rn(a[3], fabsf(d));
+      });
+      const float my = mean(cw_column_sum(s[0], base, l1));
+      const float md = mean(cw_column_sum(s[1], base, l1));
+      const float sdd = cw_column_sum(s[2], base, l1);
+      const float sad = cw_column_sum(s[3], base, l1);
+      // pass 2: the centred squares
+      float c2[2];
+      cw_window<2>(n, fo, j, w, lo, on, c2, [&](int at, float(&a)[2]) {
+        const float y = ys[at];
+        const float cy = __fsub_rn(y, my), cd = __fsub_rn(__fsub_rn(y, ps[at]), md);
+        a[0] = __fadd_rn(a[0], __fmul_rn(cy, cy));
+        a[1] = __fadd_rn(a[1], __fmul_rn(cd, cd));
+      });
+      const float ss_tot = cw_column_sum(c2[0], base, l1);
+      const float ss_d = cw_column_sum(c2[1], base, l1);
+      if (on && w == 0) {
+        per[j] = __fsub_rn(1.f, __fdiv_rn(mean(ss_d), floor_eps(mean(ss_tot))));
+        per[fo + j] = __fsub_rn(1.f, __fdiv_rn(sdd, floor_eps(ss_tot)));
+        per[2 * fo + j] = __fdiv_rn(sdd, nf);
+        per[3 * fo + j] = __fdiv_rn(sad, nf);
+      }
+    } else {
+      // pass 1: y, d = y - p, d^2
+      float s[3];
+      cw_window<3>(n, fo, j, w, lo, on, s, [&](int at, float(&a)[3]) {
+        const float y = ys[at], d = __fsub_rn(y, ps[at]);
+        a[0] = __fadd_rn(a[0], y);
+        a[1] = __fadd_rn(a[1], d);
+        a[2] = __fadd_rn(a[2], __fmul_rn(d, d));
+      });
+      const float my = mean(cw_column_sum(s[0], base, l1));
+      const float md = mean(cw_column_sum(s[1], base, l1));
+      const float sdd = cw_column_sum(s[2], base, l1);
+      // pass 2: the centred values cy = y - mean y, cd = d - mean d
+      float s2[3];
+      cw_window<3>(n, fo, j, w, lo, on, s2, [&](int at, float(&a)[3]) {
+        const float y = ys[at];
+        const float cy = __fsub_rn(y, my);
+        a[0] = __fadd_rn(a[0], __fmul_rn(cy, cy));
+        a[1] = __fadd_rn(a[1], cy);
+        a[2] = __fadd_rn(a[2], __fsub_rn(__fsub_rn(y, ps[at]), md));
+      });
+      const float den = cw_column_sum(s2[0], base, l1);
+      const float mcy = mean(cw_column_sum(s2[1], base, l1));
+      const float mcd = mean(cw_column_sum(s2[2], base, l1));
+      // pass 3: jnp.var's own centring of cy and cd
+      float s3[2];
+      cw_window<2>(n, fo, j, w, lo, on, s3, [&](int at, float(&a)[2]) {
+        const float y = ys[at];
+        const float ey = __fsub_rn(__fsub_rn(y, my), mcy);
+        const float ed = __fsub_rn(__fsub_rn(__fsub_rn(y, ps[at]), md), mcd);
+        a[0] = __fadd_rn(a[0], __fmul_rn(ey, ey));
+        a[1] = __fadd_rn(a[1], __fmul_rn(ed, ed));
+      });
+      const float sey = cw_column_sum(s3[0], base, l1);
+      const float sed = cw_column_sum(s3[1], base, l1);
+      if (on && w == 0) {
+        per[j] = __fsub_rn(1.f, __fdiv_rn(mean(sed), floor_eps(mean(sey))));
+        per[fo + j] = __fsub_rn(1.f, __fdiv_rn(sdd, floor_eps(den)));
+      }
+    }
+  }
+  __syncwarp();
+  // the scores' means over the columns: each the sum in order times 1 / fo
+  if (lane < (MASKED ? 4 : 2)) {
+    float acc = 0.f;
+    for (int c = 0; c < fo; ++c) acc = __fadd_rn(acc, per[lane * fo + c]);
+    out[lane] = __fmul_rn(acc, __fdiv_rn(1.f, (float)fo));
+  }
+}
+
+template <bool MASKED>
+__global__ void __launch_bounds__(CW_THREADS, CW_MIN_BLOCKS) cv_epilogue_warp_kernel(const __grid_constant__ CvEpilogueArgs a) {
+  extern __shared__ __align__(16) float cw_smem[];
+  const int slot = blockIdx.x;
+  const int t = threadIdx.x;
+  const int fo = a.fo, nt = a.nt;
+  const int n = a.n_rows ? a.n_rows[slot] : a.nt;
+  float* out = a.metrics + (size_t)slot * 4;
+  if (n == 0) {  // uniform over the block
+    for (int j = t; j < fo; j += CW_THREADS) a.feat_max[(size_t)slot * fo + j] = 0.f;
+    if (t == 0) {
+      a.total_max[slot] = 0.f;
+      out[0] = 1.f;
+      out[1] = 1.f;
+      out[2] = 0.f;
+      out[3] = 0.f;
+      a.has[slot] = 0.f;
+    }
+    return;
+  }
+  if (t == 0) a.has[slot] = 1.f;
+  float* ys = cw_smem;
+  float* ps = ys + cw_rows_floats(nt, fo);
+  float* tg = ps + cw_rows_floats(nt, fo);
+  float* to = tg + cw_round4(nt * fo);
+  float* per = to + cw_round4(nt);
+  const size_t off = (size_t)slot * nt * fo;
+  const bool v16 = a.stage16 & 1;
+  cw_stage(ys, a.y + off, n * fo, 32 * fo, CW_PAD, v16);
+  cw_stage(ps, a.pred + off, n * fo, 32 * fo, CW_PAD, v16);
+  cw_stage(tg, a.tag + off, n * fo, n * fo, 0, v16);
+  cw_stage(to, a.total + (size_t)slot * nt, n, n, 0, a.stage16 & 2);
+  copy_async_commit();
+  copy_async_wait<0>();
+  __syncthreads();  // the one barrier: every copy visible to both warps
+
+  const int lane = t & 31;
+  const int L = MASKED ? nt : n;  // the sums' layout: the padded fold, or the real rows
+  const int l1 = (L + 31) >> 5;
+  const int lo = (32 * l1 - L) >> 1;
+  if (t >= 32) {
+    // K4's long serial windows first, then the maxima
+    if (!MASKED) {
+      if (a.vec == 4)
+        cw_sum2<4>(ys, ps, n, fo, l1, lo, lane, out);
+      else if (a.vec == 2)
+        cw_sum2<2>(ys, ps, n, fo, l1, lo, lane, out);
+      else
+        cw_sum2<1>(ys, ps, n, fo, l1, lo, lane, out);
+    }
+    cw_maxima<MASKED>(tg, to, n, fo, a.window, lane, a.feat_max + (size_t)slot * fo, a.total_max + slot);
+  } else {
+    cw_passes<MASKED>(ys, ps, n, fo, l1, lo, lane, per, out);
+  }
+}
+
 extern "C" int cv_epilogue_args_size() { return (int)sizeof(CvEpilogueArgs); }
 
 extern "C" const char* cv_epilogue_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// The metrics' column chunk of nt-row slots of fo columns: every column in
-// one pass where shared memory allows, else fewer (0: not even one).
-static int ce_chunk(int nt, int fo, int staged, int masked) {
-  int chunk = fo;
-  while (chunk > 0 && (size_t)ce_smem_floats(nt, fo, chunk, staged, masked) * sizeof(float) > CE_MAX_SMEM) --chunk;
-  return chunk;
+// dynamic shared memory `smem` for `kernel` (and for the warp path, whose
+// slots share an SM's shared memory, the largest carveout; the block path
+// keeps the default, its unstaged slots read through L1), then the launch
+template <typename Kernel>
+static int ce_launch(Kernel kernel, const CvEpilogueArgs* a, int threads, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a->smem_bytes);
+  if (err == cudaSuccess && a->path == CE_PATH_WARP)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout, cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<a->s, threads, a->smem_bytes, stream>>>(*a);
+  return (int)cudaGetLastError();
 }
 
-// Launches on `stream` without synchronising; returns cudaGetLastError(),
-// or cudaErrorInvalidValue where one column's sums do not fit.
+// Launches on `stream` without synchronising, by the path and the shared
+// memory the plan chose (kernels/cv_epilogue.py::launch_plan); returns
+// cudaGetLastError().
 extern "C" int cv_epilogue_launch(const CvEpilogueArgs* a, void* stream) {
-  CvEpilogueArgs args = *a;
-  // stage the slot where every column fits one pass beside it
-  args.staged = (size_t)ce_smem_floats(a->nt, a->fo, a->fo, 1, a->masked) * sizeof(float) <= CE_STAGE_SMEM;
-  args.chunk = ce_chunk(a->nt, a->fo, args.staged, a->masked);
-  if (args.chunk < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)ce_smem_floats(a->nt, a->fo, args.chunk, args.staged, a->masked) * sizeof(float);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a->path == CE_PATH_WARP)
+    return a->masked ? ce_launch(cv_epilogue_warp_kernel<true>, a, CW_THREADS, s)
+                     : ce_launch(cv_epilogue_warp_kernel<false>, a, CW_THREADS, s);
   // the launch bounds measured fastest on an H100 (PERF.md): K4 at 64
   // registers a thread, K8 at 40
-  void (*kernel)(const CvEpilogueArgs) =
-      a->masked ? cv_epilogue_kernel<12, true> : cv_epilogue_kernel<8, false>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<a->s, CE_THREADS, smem, (cudaStream_t)stream>>>(args);
-  return (int)cudaGetLastError();
+  return a->masked ? ce_launch(cv_epilogue_kernel<12, true>, a, CE_THREADS, s)
+                   : ce_launch(cv_epilogue_kernel<8, false>, a, CE_THREADS, s);
 }

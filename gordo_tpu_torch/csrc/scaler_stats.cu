@@ -39,14 +39,34 @@
 // per element: bound by device memory (each input row read once per row
 // list).
 //
-// Design (MinMax): one block per (row list, machine), one instantiation
-// with and one without a prefix (the MinMax of a chain's first step runs
-// the loop it ran before chains).  The block's threads split into one
-// group per column; each thread strides over the rows of its column, the
-// groups' partials meet in shared memory, and one thread per column
-// finishes the column.  NaN follows the JAX package: CUDA's
-// fminf/fmaxf would skip NaN rows too, but an all-NaN column must come
-// out NaN, and max(NaN, 1e-12) must stay NaN, which fmaxf would not do.
+// Design (MinMax): min and max do not depend on order, so any tree gives
+// the same bits.  Three paths, chosen on the host (`launch_plan` in
+// gordo_tpu_torch/kernels/scaler_stats.py, which fills the `mm_*` fields):
+//   nested: every row list a range from the same row and no prefix (the
+//     build's pipeline and detector calls, TimeSeriesSplit's folds and the
+//     whole series): a block per machine reads the longest range once, in
+//     segments between the lists' ends, and each list's stats combine the
+//     segments up to its end, in list order;
+//   list: with a prefix (each fit's maps differ) or index lists, a block
+//     per (row list, machine);
+//   split: past ONE_BLOCK_ROWS rows, a block per (chunk of `mm_chunk_rows`
+//     positions, machine, row list); the blocks' partials meet in a
+//     scratch by integer atomics and the last block of a (machine, list)
+//     (an atomic ticket) finishes it and leaves the scratch zero.
+// Loads are coalesced: `mm_vec` 4 (a range whose rows start 16-byte
+// aligned, fo <= 256) reads float4s, consecutive threads on consecutive
+// values, a thread's stride a multiple of fo so that its four values keep
+// their columns (blocks of 128 threads on the nested and list paths, 256
+// on the split path: the faster on an H100, PERF.md); `mm_vec` 1 reads a
+// row's columns on consecutive threads (columns in groups of `mm_cw`,
+// blocks of 256).  A prefix's stats are loaded once a thread (its columns
+// are fixed).  A thread keeps a min and a max a column it reads
+// (fminf/fmaxf skip NaN); lanes of a warp that share a column (a period of
+// `mm_period` lanes, at most 16) combine by shuffles, and one lane a
+// column adds its pair to the block's by shared-memory atomics on
+// order-preserving keys.  NaN follows the JAX package: an
+// all-NaN column comes out NaN, and max(NaN, 1e-12) stays NaN, which
+// fmaxf would not keep.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -84,7 +104,18 @@ struct ScalerStatsArgs {
   int with_std;        // Standard
   ScalerPrefix prefix;
   float* part2;        // past one block: the level-2 window sums (scratch)
-  int* ints;           // past one block: counts and tickets, zero between launches
+  int* ints;           // past one block: counts, keys and tickets, zero between launches
+  // MinMax: the plan's path and layout (kernels/scaler_stats.py::launch_plan)
+  int mm_path;         // MM_NESTED, MM_LIST or MM_SPLIT
+  int mm_vec;          // 4: float4 loads along a range; 1: a row's columns on consecutive threads
+  int mm_active;       // threads that load
+  int mm_cw;           // columns a group (mm_vec 4: every column)
+  int mm_period;       // lanes after which a warp's columns repeat
+  int mm_nseg;         // nested: segments
+  int mm_chunk_rows;   // split: positions a block
+  int mm_threads;      // a block's threads
+  int mm_seg_end[SS_MAX_FITS];   // nested: each segment's end position, ascending
+  int mm_list_seg[SS_MAX_FITS];  // nested: each row list's last segment
 };
 
 __device__ __forceinline__ float floor_eps(float v) {
@@ -98,57 +129,223 @@ __device__ __forceinline__ float load_value(const ScalerStatsArgs& a, const floa
   return PREFIX ? prefix_apply(a.prefix, at, v) : v;
 }
 
-template <bool PREFIX>
-__global__ void __launch_bounds__(SS_THREADS) scaler_minmax_kernel(const ScalerStatsArgs a) {
-  __shared__ float s_a[SS_THREADS];
-  __shared__ float s_b[SS_THREADS];
-  __shared__ int s_any[SS_THREADS];
-  const int fit = blockIdx.x;
-  const int mach = blockIdx.y;
+#define MM_NESTED 0
+#define MM_LIST 1
+#define MM_SPLIT 2
+#define MM_THREADS 256  // a MinMax block at most (the plan's `mm_threads`)
+#define MM_FULL 0xffffffffu
+
+// an order-preserving key of a float that is not NaN: a larger value has
+// a larger key, and 0 is below every key (the neutral of a max); a min is
+// kept as the max of ~key (0 again its neutral)
+__device__ __forceinline__ unsigned mm_key(float v) {
+  const unsigned u = __float_as_uint(v);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float mm_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+// scale and offset from the keys of a column's max and ~min (0: no value,
+// so NaN, as the JAX package's nanmin of an all-NaN column)
+__device__ __forceinline__ void mm_write(const ScalerStatsArgs& a, size_t at, unsigned hk, unsigned nk) {
+  float lo = NAN, hi = NAN;
+  if (hk) {
+    hi = mm_value(hk);
+    lo = mm_value(~nk);
+  }
+  const float sc = __fdiv_rn(a.range_span, floor_eps(__fsub_rn(hi, lo)));
+  a.out0[at] = sc;
+  a.out1[at] = a.offset_fma ? fmaf(-lo, sc, a.range_lo) : __fsub_rn(a.range_lo, __fmul_rn(lo, sc));
+}
+
+// thread t's column of its value v (mm_vec 4: of its float4; else its
+// column within the group)
+template <int V>
+__device__ __forceinline__ int mm_column(const ScalerStatsArgs& a, int t, int v) {
+  return V == 4 ? (4 * t + v) % a.f : t % a.mm_cw;
+}
+
+// a thread's columns' prefix stats, loaded once (its columns are fixed):
+// step i's a and b of the column of value v
+template <int V>
+struct MinMaxPrefix {
+  float a[V][SP_MAX_PREFIX], b[V][SP_MAX_PREFIX];
+};
+
+template <int V, bool PREFIX>
+__device__ __forceinline__ void mm_prefix_load(const ScalerStatsArgs& a, size_t at, const int (&col)[V],
+                                               MinMaxPrefix<V>& p) {
+  if (!PREFIX) return;
+#pragma unroll
+  for (int v = 0; v < V; ++v)
+#pragma unroll
+    for (int i = 0; i < SP_MAX_PREFIX; ++i)
+      if (i < a.prefix.n) {
+        p.a[v][i] = ld(static_cast<const float*>(a.prefix.a[i]) + at + col[v]);
+        p.b[v][i] = ld(static_cast<const float*>(a.prefix.b[i]) + at + col[v]);
+      }
+}
+
+// value v of a thread through the prefix (prefix_apply's steps and
+// roundings, the stats from registers), then into its min and max
+template <int V, bool PREFIX>
+__device__ __forceinline__ void mm_take(const ScalerStatsArgs& a, const MinMaxPrefix<V>& p, int v, float x,
+                                        float (&lo)[V], float (&hi)[V]) {
+  if (PREFIX) {
+#pragma unroll
+    for (int i = 0; i < SP_MAX_PREFIX; ++i)
+      if (i < a.prefix.n) x = step_apply(a.prefix.form[i], x, p.a[v][i], p.b[v][i]);
+  }
+  lo[v] = fminf(lo[v], x);
+  hi[v] = fmaxf(hi[v], x);
+}
+
+// a float4 of a range from `base`, values at or past `end` NaN (skipped)
+__device__ __forceinline__ float4 mm_load4(const float* base, int e, int end) {
+  if (e + 4 <= end) return __ldg(reinterpret_cast<const float4*>(base + e));
+  float x[4];
+#pragma unroll
+  for (int v = 0; v < 4; ++v) x[v] = e + v < end ? __ldg(base + e + v) : NAN;
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// the min (lo) and max (hi) of this thread's values of positions [p0, p1)
+// of a row list: V 4, a range from row `start` (float4s at 4t + k * 4 *
+// mm_active of the range's values); V 1, rows[i] at column col0 + t % cw
+template <int V, bool PREFIX>
+__device__ __forceinline__ void mm_scan(const ScalerStatsArgs& a, const float* xm, RowList rows, int start,
+                                        int p0, int p1, int col0, size_t at, float (&lo)[V], float (&hi)[V]) {
   const int t = threadIdx.x;
   const int F = a.f;
-  const int n = a.fit_rows[fit];
-  const RowList rows = row_list(a.rows, a.fit_row_off[fit]);
-  const float* xm = a.x + (size_t)mach * a.n * F;
-  const size_t stat_row = ((size_t)mach * a.g + fit) * F;
-  // `per` threads per column, `cols` columns per pass
-  const int per = F < SS_THREADS ? SS_THREADS / F : 1;
-  const int cols = SS_THREADS / per;
-  const int c = t / per;
-  const int sub = t - c * per;
-  for (int j0 = 0; j0 < F; j0 += cols) {
-    const int j = j0 + c;
-    const bool mine = c < cols && j < F;
-    float pa = INFINITY, pb = -INFINITY;
-    int any = 0;
-    if (mine) {
-      for (int r = sub; r < n; r += per) {
-        const float v = load_value<PREFIX>(a, xm + (size_t)rows[r] * F + j, stat_row + j);
-        if (v == v) {
-          pa = fminf(pa, v);
-          pb = fmaxf(pb, v);
-          any = 1;
-        }
+  if (t >= a.mm_active) return;
+  int col[V];
+#pragma unroll
+  for (int v = 0; v < V; ++v) col[v] = V == 4 ? mm_column<V>(a, t, v) : col0 + t % a.mm_cw;
+  if (V == 1 && col[0] >= F) return;
+  MinMaxPrefix<V> p;
+  mm_prefix_load<V, PREFIX>(a, at, col, p);
+  if (V == 4) {
+    const float* base = xm + (size_t)start * F;
+    const int e1 = p1 * F;
+#pragma unroll 4
+    for (int e = p0 * F + 4 * t; e < e1; e += 4 * a.mm_active) {
+      const float4 q = mm_load4(base, e, e1);
+      mm_take<V, PREFIX>(a, p, 0, q.x, lo, hi);
+      mm_take<V, PREFIX>(a, p, 1 % V, q.y, lo, hi);
+      mm_take<V, PREFIX>(a, p, 2 % V, q.z, lo, hi);
+      mm_take<V, PREFIX>(a, p, 3 % V, q.w, lo, hi);
+    }
+  } else {
+    const int step = a.mm_active / a.mm_cw;
+#pragma unroll 4
+    for (int i = p0 + t / a.mm_cw; i < p1; i += step)
+      mm_take<V, PREFIX>(a, p, 0, __ldg(xm + (size_t)rows[i] * F + col[0]), lo, hi);
+  }
+}
+
+// the block's pairs: a warp's lanes that share a column combine by
+// shuffles (a period of mm_period lanes, when it is at most 16), then one
+// lane a column (every lane past that) adds its pair to the group's keys
+// (`keys` the max keys, `keys + cw` the ~min keys, by column within the
+// group); every thread of the block calls it
+template <int V>
+__device__ __forceinline__ void mm_reduce(const ScalerStatsArgs& a, float (&lo)[V], float (&hi)[V], unsigned* keys) {
+  const int period = a.mm_period;
+  const int lane = threadIdx.x & 31;
+  if (period <= 16) {
+    for (int d = period; d < 32; d <<= 1) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        lo[v] = fminf(lo[v], __shfl_down_sync(MM_FULL, lo[v], d));
+        hi[v] = fmaxf(hi[v], __shfl_down_sync(MM_FULL, hi[v], d));
       }
     }
-    s_a[t] = pa;
-    s_b[t] = pb;
-    s_any[t] = any;
+    if (lane >= period) return;
+  }
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    if (lo[v] <= hi[v]) {  // else no value was read (a thread's start values, or NaN alone)
+      const int c = mm_column<V>(a, threadIdx.x, v);
+      atomicMax(keys + c, mm_key(hi[v]));
+      atomicMax(keys + a.mm_cw + c, ~mm_key(lo[v]));
+    }
+  }
+}
+
+template <int V, bool PREFIX, int PATH>
+__global__ void __launch_bounds__(MM_THREADS) scaler_minmax_kernel(const __grid_constant__ ScalerStatsArgs a) {
+  extern __shared__ unsigned mm_keys[];  // a segment's max keys, then its ~min keys, by column of the group
+  __shared__ int s_last;
+  const int t = threadIdx.x;
+  const int F = a.f;
+  const int fit = PATH == MM_NESTED ? 0 : PATH == MM_LIST ? blockIdx.x : blockIdx.z;
+  const int mach = PATH == MM_NESTED ? blockIdx.x : blockIdx.y;
+  int p0 = 0, p1 = a.fit_rows[fit];
+  if (PATH == MM_SPLIT) {
+    p0 = blockIdx.x * a.mm_chunk_rows;
+    if (p0 >= p1) return;  // this row list has fewer chunks
+    p1 = min(p1, p0 + a.mm_chunk_rows);
+  }
+  const RowList rows = row_list(a.rows, a.fit_row_off[fit]);
+  const float* xm = a.x + (size_t)mach * a.n * F;
+  const size_t at = ((size_t)mach * a.g + fit) * F;
+  const int nseg = PATH == MM_NESTED ? a.mm_nseg : 1;
+  const int cw = a.mm_cw;
+  for (int col0 = 0; col0 < F; col0 += cw) {
+    for (int i = t; i < 2 * nseg * cw; i += blockDim.x) mm_keys[i] = 0u;
     __syncthreads();
-    if (mine && sub == 0) {
-      for (int k = 1; k < per; ++k) {
-        pa = fminf(pa, s_a[t + k]);
-        pb = fmaxf(pb, s_b[t + k]);
-        any |= s_any[t + k];
+    for (int k = 0; k < nseg; ++k) {
+      float lo[V], hi[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) lo[v] = INFINITY, hi[v] = -INFINITY;
+      const int q0 = PATH == MM_NESTED ? (k ? a.mm_seg_end[k - 1] : 0) : p0;
+      const int q1 = PATH == MM_NESTED ? a.mm_seg_end[k] : p1;
+      mm_scan<V, PREFIX>(a, xm, rows, rows.start, q0, q1, col0, at, lo, hi);
+      mm_reduce<V>(a, lo, hi, mm_keys + 2 * k * cw);
+    }
+    __syncthreads();
+    const int nc = min(cw, F - col0);
+    for (int c = t; c < nc; c += blockDim.x) {
+      if (PATH == MM_NESTED) {
+        // each row list's segments in list order: its stats those of
+        // every segment up to its end
+        for (int g = 0; g < a.g; ++g) {
+          unsigned hk = 0u, nk = 0u;
+          for (int k = 0; k <= a.mm_list_seg[g]; ++k) {
+            hk = max(hk, mm_keys[2 * k * cw + c]);
+            nk = max(nk, mm_keys[(2 * k + 1) * cw + c]);
+          }
+          mm_write(a, ((size_t)mach * a.g + g) * F + col0 + c, hk, nk);
+        }
+      } else if (PATH == MM_LIST) {
+        mm_write(a, at + col0 + c, mm_keys[c], mm_keys[cw + c]);
+      } else if (mm_keys[c]) {
+        unsigned* keys = reinterpret_cast<unsigned*>(a.ints) + 2 * (at + col0 + c);
+        atomicMax(keys, mm_keys[c]);
+        atomicMax(keys + 1, mm_keys[cw + c]);
       }
-      if (!any) pa = pb = NAN;
-      const float sc = __fdiv_rn(a.range_span, floor_eps(__fsub_rn(pb, pa)));
-      a.out0[stat_row + j] = sc;
-      a.out1[stat_row + j] = a.offset_fma ? fmaf(-pa, sc, a.range_lo)
-                                          : __fsub_rn(a.range_lo, __fmul_rn(pa, sc));
     }
     __syncthreads();
   }
+  if (PATH != MM_SPLIT) return;
+  // the last chunk of this (machine, row list) to finish writes its stats
+  // and leaves its keys and ticket zero
+  __threadfence();
+  __syncthreads();
+  int* ticket = a.ints + 2 * (size_t)a.m * a.g * F + (size_t)mach * a.g + fit;
+  const int chunks = (a.fit_rows[fit] + a.mm_chunk_rows - 1) / a.mm_chunk_rows;
+  if (t == 0) s_last = atomicAdd(ticket, 1) == chunks - 1;
+  __syncthreads();
+  if (!s_last) return;
+  for (int c = t; c < F; c += blockDim.x) {
+    unsigned* keys = reinterpret_cast<unsigned*>(a.ints) + 2 * (at + c);
+    const unsigned hk = atomicExch(keys, 0u);
+    const unsigned nk = atomicExch(keys + 1, 0u);
+    mm_write(a, at + c, hk, nk);
+  }
+  if (t == 0) *ticket = 0;
 }
 
 // The means (SS_MEAN, SS_NANMEAN) and the Standard statistic's two sums
@@ -444,6 +641,40 @@ static int tile_launches(const ScalerStatsArgs* a, int longest, cudaStream_t str
   return (int)cudaGetLastError();
 }
 
+// MinMax by the plan's path: grid (machines) nested, (row lists,
+// machines) list, (chunks, machines, row lists) split; 2 keys a column of
+// a group and segment in shared memory
+template <int V, bool PREFIX, int PATH>
+static int minmax_path(const ScalerStatsArgs* a, dim3 grid, cudaStream_t s) {
+  const size_t smem = (size_t)2 * (PATH == MM_NESTED ? a->mm_nseg : 1) * a->mm_cw * sizeof(unsigned);
+  scaler_minmax_kernel<V, PREFIX, PATH><<<grid, a->mm_threads, smem, s>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+template <int V>
+static int minmax_vec(const ScalerStatsArgs* a, cudaStream_t s) {
+  const bool prefix = a->prefix.n > 0;
+  if (a->mm_path == MM_NESTED) {
+    if (prefix) return (int)cudaErrorInvalidValue;
+    return minmax_path<V, false, MM_NESTED>(a, dim3(a->m), s);
+  }
+  if (a->mm_path == MM_LIST) {
+    const dim3 grid(a->g, a->m);
+    return prefix ? minmax_path<V, true, MM_LIST>(a, grid, s) : minmax_path<V, false, MM_LIST>(a, grid, s);
+  }
+  int longest = 0;
+  for (int i = 0; i < a->g; ++i) longest = a->fit_rows[i] > longest ? a->fit_rows[i] : longest;
+  const dim3 grid((longest + a->mm_chunk_rows - 1) / a->mm_chunk_rows, a->m, a->g);
+  return prefix ? minmax_path<V, true, MM_SPLIT>(a, grid, s) : minmax_path<V, false, MM_SPLIT>(a, grid, s);
+}
+
+static int minmax_launch(const ScalerStatsArgs* a, cudaStream_t s) {
+  if (a->mm_cw < 1 || (a->mm_vec == 1 && a->mm_active < a->mm_cw) || a->mm_threads < 32 || a->mm_threads > MM_THREADS || a->mm_threads % 32 || a->mm_active > a->mm_threads || a->mm_nseg < 1 ||
+      a->mm_nseg > SS_MAX_FITS || (a->mm_path == MM_SPLIT && a->mm_chunk_rows < 1))
+    return (int)cudaErrorInvalidValue;
+  return a->mm_vec == 4 ? minmax_vec<4>(a, s) : minmax_vec<1>(a, s);
+}
+
 extern "C" int scaler_stats_args_size() { return (int)sizeof(ScalerStatsArgs); }
 
 // The longest row list whose two levels of window sums, ceil(n / 32) and
@@ -461,14 +692,11 @@ extern "C" const char* scaler_stats_error_string(int code) {
 
 // Launches on `stream` without synchronising; returns cudaGetLastError().
 extern "C" int scaler_stats_launch(const ScalerStatsArgs* a, void* stream) {
-  dim3 grid(a->g, a->m);
   cudaStream_t s = (cudaStream_t)stream;
   const bool prefix = a->prefix.n > 0;
-  if (a->stat == SS_MINMAX && !prefix)
-    scaler_minmax_kernel<false><<<grid, SS_THREADS, 0, s>>>(*a);
-  else if (a->stat == SS_MINMAX)
-    scaler_minmax_kernel<true><<<grid, SS_THREADS, 0, s>>>(*a);
-  else if (prefix && (a->stat == SS_MEAN || a->stat == SS_NANMEAN))
+  if (a->stat == SS_MINMAX)
+    return minmax_launch(a, s);
+  if (prefix && (a->stat == SS_MEAN || a->stat == SS_NANMEAN))
     return (int)cudaErrorInvalidValue;
   else {
     // the window-ordered sums: past one block's threads a window each, a

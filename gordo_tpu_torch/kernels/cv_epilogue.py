@@ -17,6 +17,12 @@ design); :func:`cv_epilogue_plain` is the same function in plain PyTorch.
 The inputs are ``fleet_score``'s outputs over each slot's out-of-fold rows
 (tag errors, totals, predictions) and the raw targets.
 
+:func:`launch_plan` chooses the kernel's path on the host: the warp path
+(a slot two warps, staged by cp.async, one wave of slots at the build's
+shapes) where the slot fits it, else the block path (the first design,
+which takes every shape whose one column of sums fits a block's shared
+memory); :func:`launch_args` fills the launch arguments from it.
+
 :func:`cv_epilogue` takes the plain version only for tensors on the CPU.
 For CUDA tensors it launches the kernel or raises, and adds one to
 :data:`launches` per launch.
@@ -26,7 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -46,6 +52,27 @@ _EPS = 1e-12
 #: the metrics that are 1 (not 0) on a slot with no row, as the weighted
 #: forms give them
 EMPTY_ONE = ("explained_variance_score", "r2_score")
+
+#: the two paths (``CE_PATH_WARP``, ``CE_PATH_BLOCK``)
+PATH_WARP, PATH_BLOCK = 0, 1
+#: the warp path: two warps a slot, twelve slots an SM (the launch bound),
+#: 4 floats of padding after every 32 staged rows, and what it takes
+WARP_THREADS = 64
+WARP_MIN_BLOCKS = 12
+WARP_PAD = 4
+WARP_MAX_WINDOW = 8
+WARP_MAX_ROWS = 1024
+WARP_MAX_COLS = 32
+WARP_MAX_SMEM = 48 * 1024
+#: the block path (the first design): 128 threads a slot, its launch bound
+#: (blocks an SM) by form, the slot staged up to ``BLOCK_STAGE_SMEM`` and
+#: the sums' shared memory at most ``BLOCK_MAX_SMEM``
+BLOCK_THREADS = 128
+BLOCK_MIN_BLOCKS = {False: 8, True: 12}
+BLOCK_STAGE_SMEM = 48 * 1024
+BLOCK_MAX_SMEM = 200 * 1024
+#: an SM's registers
+SM_REGISTERS = 65536
 
 #: kernel launches so far (the CPU path never counts)
 launches = 0
@@ -72,7 +99,93 @@ class _Args(ctypes.Structure):
         ("masked", ctypes.c_int),
         ("chunk", ctypes.c_int),
         ("staged", ctypes.c_int),
+        ("path", ctypes.c_int),
+        ("vec", ctypes.c_int),
+        ("stage16", ctypes.c_int),
+        ("smem_bytes", ctypes.c_int),
     ]
+
+
+class Plan(NamedTuple):
+    """A launch, one block a slot: ``path`` (:data:`PATH_WARP` or
+    :data:`PATH_BLOCK`), ``threads`` and ``smem_bytes`` a block, ``regs``
+    the most registers a thread takes under the launch bound; the warp
+    path's ``vec`` (floats a load of K4's mse and mae windows), the block
+    path's ``chunk`` (columns a pass of the metrics) and ``staged`` (the
+    slot held in shared memory)."""
+
+    path: int
+    threads: int
+    smem_bytes: int
+    regs: int
+    vec: int = 1
+    chunk: int = 0
+    staged: int = 0
+
+
+def _windows_of(n: int) -> int:
+    return -(-n // XLA_WINDOW)
+
+
+def _part_floats(nc: int, k: int, n: int) -> int:
+    """``xo_part_floats``: the window sums of ``nc`` columns of ``n``
+    values, ``k`` sums each, and the level above."""
+    level1 = _windows_of(n)
+    return nc * k * (level1 + _windows_of(level1))
+
+
+def _sum2_part_floats(n: int, f: int, k: int) -> int:
+    """``xo_sum2_part_floats``: the 2-D window sums of an n x f array."""
+    dim = lambda m: _windows_of(m) if m > XLA_WINDOW else 1  # noqa: E731
+    r1, c1 = dim(n), dim(f)
+    return k * (r1 * c1 + dim(r1) * dim(c1))
+
+
+def block_smem_floats(nt: int, fo: int, chunk: int, staged: bool, masked: bool) -> int:
+    """``ce_smem_floats``: the block path's shared memory in floats."""
+    part = max(_part_floats(chunk, 4, nt), _sum2_part_floats(nt, fo, 2), _part_floats(1, 4, fo))
+    stage = ((3 if masked else 4) * nt * fo + nt) if staged else 0
+    return part + 12 * chunk + 4 * fo + 4 + _sum2_part_floats(nt, fo, 2) + stage
+
+
+def warp_smem_floats(nt: int, fo: int) -> int:
+    """``cw_smem_floats``: the warp path's staged y and pred (4 floats of
+    padding after every 32 rows), scores, totals and per-column scores."""
+    r4 = lambda v: -(-v // 4) * 4  # noqa: E731
+    rows = r4(nt * fo + WARP_PAD * -(-nt // 32))
+    return 2 * rows + r4(nt * fo) + r4(nt) + 4 * fo
+
+
+def _regs(threads: int, min_blocks: int) -> int:
+    """The registers a thread may take under ``__launch_bounds__(threads,
+    min_blocks)`` (allocated 8 at a time)."""
+    return SM_REGISTERS // (threads * min_blocks) // 8 * 8
+
+
+def launch_plan(nt: int, fo: int, window: int = SMOOTHING_WINDOW, masked: bool = False) -> Plan:
+    """The launch for slots of ``nt`` rows of ``fo`` columns: the warp path
+    where fo <= 32, nt <= 1,024, the window at most 8 rows and the staged
+    slot within 48 KB; else the block path, the slot staged where every
+    column's sums fit beside it within 48 KB, its columns in chunks that
+    fit 200 KB.  Raises ``NotImplementedError`` where one column's sums do
+    not fit (the block path's refusal)."""
+    if fo <= WARP_MAX_COLS and nt <= WARP_MAX_ROWS and 1 <= window <= WARP_MAX_WINDOW:
+        smem = 4 * warp_smem_floats(nt, fo)
+        if smem <= WARP_MAX_SMEM:
+            vec = 4 if fo % 4 == 0 else 2 if fo % 2 == 0 else 1
+            return Plan(PATH_WARP, WARP_THREADS, smem, _regs(WARP_THREADS, WARP_MIN_BLOCKS), vec=vec)
+    staged = 4 * block_smem_floats(nt, fo, fo, True, masked) <= BLOCK_STAGE_SMEM
+    chunk = fo
+    while chunk > 0 and 4 * block_smem_floats(nt, fo, chunk, staged, masked) > BLOCK_MAX_SMEM:
+        chunk -= 1
+    if chunk < 1:
+        raise NotImplementedError(
+            f"cv_epilogue cannot take slots of {nt} rows x {fo} columns: one column's sums "
+            f"need more than {BLOCK_MAX_SMEM} bytes of shared memory"
+        )
+    return Plan(PATH_BLOCK, BLOCK_THREADS, 4 * block_smem_floats(nt, fo, chunk, staged, masked),
+                _regs(BLOCK_THREADS, BLOCK_MIN_BLOCKS[bool(masked)]), chunk=chunk, staged=int(staged))
+
 
 
 _lib: Optional[ctypes.CDLL] = None
@@ -143,25 +256,8 @@ def cv_epilogue(
         return cv_epilogue_plain(tag, total, pred, y, n_rows, window, masked)
     if tag.device.type != "cuda":
         raise ValueError(f"cv_epilogue runs on cuda or cpu tensors, got {tag.device}")
-    rows = _validate(tag, total, pred, y, n_rows)
-    S, nt, fo = (int(s) for s in tag.shape)
+    args, out, keep = launch_args(tag, total, pred, y, n_rows, window, masked)  # noqa: F841 (keep: alive past the launch)
     device = tag.device
-    rows_dev = to_device(rows.astype(np.int32), device)
-    feat_max = torch.empty((S, fo), dtype=torch.float32, device=device)
-    total_max = torch.empty((S,), dtype=torch.float32, device=device)
-    metrics = torch.empty((S, 4), dtype=torch.float32, device=device)
-    has = torch.empty((S,), dtype=torch.float32, device=device)
-    args = _Args()
-    args.tag, args.total, args.pred, args.y = (
-        tag.data_ptr(), total.data_ptr(), pred.data_ptr(), y.data_ptr()
-    )
-    args.n_rows = rows_dev.data_ptr()
-    args.feat_max, args.total_max, args.metrics = (
-        feat_max.data_ptr(), total_max.data_ptr(), metrics.data_ptr()
-    )
-    args.has = has.data_ptr()
-    args.s, args.nt, args.fo, args.window = S, nt, fo, int(window)
-    args.masked = int(masked)
     lib = _library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -173,9 +269,45 @@ def cv_epilogue(
     global launches
     with _launches_lock:
         launches += 1
+    return out
+
+
+def launch_args(tag, total, pred, y, n_rows=None, window: int = SMOOTHING_WINDOW, masked: bool = False):
+    """The kernel's arguments for one launch (no launch): ``(_Args, the
+    outputs as :func:`cv_epilogue` returns them, the device row counts or
+    None where every slot has all nt rows)``,
+    the path and shape from :func:`launch_plan`, rows staged 16 bytes a
+    copy where every slot's rows (and, apart, its totals) start 16-byte
+    aligned."""
+    rows = _validate(tag, total, pred, y, n_rows)
+    S, nt, fo = (int(s) for s in tag.shape)
+    plan = launch_plan(nt, fo, int(window), masked)
+    device = tag.device
+    # every slot full (an exact group's equal folds): no counts uploaded
+    rows_dev = None if rows.min() == nt else to_device(rows.astype(np.int32), device)
+    feat_max = torch.empty((S, fo), dtype=torch.float32, device=device)
+    total_max = torch.empty((S,), dtype=torch.float32, device=device)
+    metrics = torch.empty((S, 4), dtype=torch.float32, device=device)
+    has = torch.empty((S,), dtype=torch.float32, device=device)
+    args = _Args()
+    args.tag, args.total, args.pred, args.y = (
+        tag.data_ptr(), total.data_ptr(), pred.data_ptr(), y.data_ptr()
+    )
+    args.n_rows = None if rows_dev is None else rows_dev.data_ptr()
+    args.feat_max, args.total_max, args.metrics = (
+        feat_max.data_ptr(), total_max.data_ptr(), metrics.data_ptr()
+    )
+    args.has = has.data_ptr()
+    args.s, args.nt, args.fo, args.window = S, nt, fo, int(window)
+    args.masked = int(masked)
+    args.path, args.vec, args.chunk, args.staged = plan.path, plan.vec, plan.chunk, plan.staged
+    args.smem_bytes = plan.smem_bytes
+    aligned = lambda t: t.data_ptr() % 16 == 0  # noqa: E731
+    args.stage16 = (int(nt * fo % 4 == 0 and all(aligned(t) for t in (tag, pred, y)))
+                    | 2 * int(nt % 4 == 0 and aligned(total)))
     out = {"feature_max": feat_max, "total_max": total_max, "has": has}
     out.update({name: metrics[:, i] for i, name in enumerate(METRIC_NAMES)})
-    return out
+    return args, out, rows_dev
 
 
 def smoothed_max(err: torch.Tensor, window: int = SMOOTHING_WINDOW) -> torch.Tensor:

@@ -42,8 +42,9 @@ For CUDA tensors it launches the kernel or raises, and adds one to
 from __future__ import annotations
 
 import ctypes
+import math
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -76,6 +77,15 @@ MEAN_MAX_ROWS = 1_588_736
 #: block per 1,024 rows (a level-2 window) and a scratch of their sums
 ONE_BLOCK_ROWS = 8_192
 STATS = ("minmax", "standard", "mean", "nanmean")
+#: the MinMax statistic's paths (``MM_NESTED``, ``MM_LIST``, ``MM_SPLIT``),
+#: a block's threads, and the values a block of the split path reads
+NESTED, LIST, SPLIT = 0, 1, 2
+PATH_NAMES = ("nested", "list", "split")
+THREADS = 256
+SPLIT_VALUES = 4096
+#: a block's threads on the nested and list paths' float4 loads (measured
+#: faster than THREADS there, slower on the split path's and row loads)
+RANGE_THREADS = 128
 _EPS = 1e-12
 
 #: kernel launches so far, and those of the Standard and the mean
@@ -163,7 +173,39 @@ class _Args(ctypes.Structure):
         ("prefix", ScalerChain),
         ("part2", ctypes.c_void_p),
         ("ints", ctypes.c_void_p),
+        ("mm_path", ctypes.c_int),
+        ("mm_vec", ctypes.c_int),
+        ("mm_active", ctypes.c_int),
+        ("mm_cw", ctypes.c_int),
+        ("mm_period", ctypes.c_int),
+        ("mm_nseg", ctypes.c_int),
+        ("mm_chunk_rows", ctypes.c_int),
+        ("mm_threads", ctypes.c_int),
+        ("mm_seg_end", ctypes.c_int * MAX_FITS),
+        ("mm_list_seg", ctypes.c_int * MAX_FITS),
     ]
+
+
+class MinMaxPlan(NamedTuple):
+    """The MinMax statistic's launch: ``path`` (:data:`NESTED`,
+    :data:`LIST` or :data:`SPLIT`), ``vec`` (4: float4 loads along a range,
+    a thread's four values at ``(4 t + v) % F``; 1: column ``t % cw`` of a
+    row), ``threads`` a block and the ``active`` ones that load, ``cw``
+    columns a group, ``period`` lanes after which a warp's columns repeat;
+    the nested path's segments (``segments``: each one's end position,
+    ascending; ``list_segment``: each row list's last) and the split
+    path's ``chunk_rows`` positions a block; ``grid`` the blocks."""
+
+    path: int
+    vec: int
+    threads: int
+    active: int
+    cw: int
+    period: int
+    segments: Tuple[int, ...]
+    list_segment: Tuple[int, ...]
+    chunk_rows: int
+    grid: Tuple[int, int, int]
 
 
 _lib: Optional[ctypes.CDLL] = None
@@ -231,7 +273,7 @@ def fill_launch(args, x: torch.Tensor, lists, prefix: Prefix = ()) -> Optional[t
     M, N, F = (int(s) for s in x.shape)
     args.x = x.data_ptr()
     args.m, args.n, args.f, args.g = M, N, F, len(lists)
-    ranges = all(r[-1] - r[0] == r.size - 1 and bool(np.all(np.diff(r) == 1)) for r in lists)
+    ranges = _ranges(lists)
     rows, off = None, 0
     if not ranges:
         rows = to_device(np.concatenate(lists).astype(np.int32), x.device)
@@ -243,6 +285,65 @@ def fill_launch(args, x: torch.Tensor, lists, prefix: Prefix = ()) -> Optional[t
     if prefix:
         args.prefix.fill(prefix)
     return rows
+
+
+def _ranges(lists) -> bool:
+    """Every row list a range of consecutive rows."""
+    return all(r[-1] - r[0] == r.size - 1 and bool(np.all(np.diff(r) == 1)) for r in lists)
+
+
+def launch_plan(shape, row_lists, prefix_steps: int = 0, aligned: bool = True) -> MinMaxPlan:
+    """The MinMax statistic's launch for ``x`` of ``shape`` (M, N, F) over
+    ``row_lists``, after ``prefix_steps`` chain steps, ``aligned`` where
+    ``x`` starts 16-byte aligned.  Past :data:`ONE_BLOCK_ROWS` positions in
+    a row list, the split path; else, every list a range from one row and
+    no prefix, the nested path; else the list path.  Float4 loads where
+    every list is a range, F <= 256 and every range a block starts at
+    begins 16-byte aligned (every machine's rows too); else a row's
+    columns on consecutive threads."""
+    M, N, F = (int(v) for v in shape)
+    lists = [np.asarray(r, np.int64) for r in row_lists]
+    sizes = [int(r.size) for r in lists]
+    ranges = _ranges(lists)
+    starts = [int(r[0]) for r in lists]
+    longest = max(sizes)
+    segments, list_segment, chunk_rows = (), (), 0
+    if longest > ONE_BLOCK_ROWS:
+        path = SPLIT
+        chunk_rows = -(-max(32, SPLIT_VALUES // F) // 32) * 32
+        grid = (-(-longest // chunk_rows), M, len(lists))
+        firsts = [s + k for s in starts for k in range(0, longest, chunk_rows)]
+    elif ranges and not prefix_steps and len(set(starts)) == 1:
+        path = NESTED
+        segments = tuple(sorted(set(sizes)))
+        list_segment = tuple(segments.index(n) for n in sizes)
+        grid = (M, 1, 1)
+        firsts = [starts[0] + b for b in (0,) + segments[:-1]]
+    else:
+        path = LIST
+        grid = (len(lists), M, 1)
+        firsts = starts
+    vec4 = (ranges and F <= THREADS and aligned and (M == 1 or N * F % 4 == 0)
+            and all(f * F % 4 == 0 for f in firsts))
+    if vec4:
+        period = F // math.gcd(F, 4)
+        threads = RANGE_THREADS if path != SPLIT and period <= RANGE_THREADS else THREADS
+        return MinMaxPlan(path, 4, threads, threads // period * period, F, period, segments, list_segment,
+                          chunk_rows, grid)
+    cw = min(F, THREADS)
+    return MinMaxPlan(path, 1, THREADS, THREADS // cw * cw, cw, cw, segments, list_segment, chunk_rows, grid)
+
+
+def fill_minmax(args, plan: MinMaxPlan) -> None:
+    """The plan's fields of the launch arguments."""
+    args.mm_path, args.mm_vec, args.mm_active = plan.path, plan.vec, plan.active
+    args.mm_cw, args.mm_period, args.mm_chunk_rows = plan.cw, plan.period, plan.chunk_rows
+    args.mm_nseg = max(1, len(plan.segments))
+    args.mm_threads = plan.threads
+    for i, end in enumerate(plan.segments):
+        args.mm_seg_end[i] = end
+    for i, k in enumerate(plan.list_segment):
+        args.mm_list_seg[i] = k
 
 
 def scaler_stats(
@@ -291,7 +392,12 @@ def scaler_stats(
         stream = torch.cuda.current_stream(x.device).cuda_stream
         part2 = None
         longest = max(int(r.size) for r in lists)
-        if stat != "minmax" and longest > ONE_BLOCK_ROWS:
+        if stat == "minmax":
+            plan = launch_plan(x.shape, lists, len(prefix), x.data_ptr() % 16 == 0)
+            fill_minmax(args, plan)
+            if plan.path == SPLIT:
+                args.ints = _zeroed_ints(x.device, stream, (2 * F + 1) * M * len(lists)).data_ptr()
+        elif longest > ONE_BLOCK_ROWS:
             level1 = -(-longest // XLA_WINDOW)
             level2 = -(-level1 // XLA_WINDOW) if level1 > XLA_WINDOW else 1
             part2 = torch.empty(M * len(lists) * F * level2, dtype=torch.float32, device=x.device)

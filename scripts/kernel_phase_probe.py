@@ -1,7 +1,7 @@
 """Per-phase clocks of the port's kernels on the card.
 
     python3 scripts/kernel_phase_probe.py [stream_step] [fleet_fit] [fleet_score]
-        [rolling_median] [lstm_head_fit]
+        [rolling_median] [lstm_head_fit] [cv_epilogue] [scaler_minmax]
 
 A copy of each kernel's source reads ``%globaltimer`` at its phase
 boundaries (thread 0; for ``fleet_fit`` thread 0 of the first block, one
@@ -20,8 +20,15 @@ phase.  ``rolling_median`` is clocked by lane 0 of every warp (its
 phases summed over the warps, at the smoke's three shapes) and
 ``lstm_head_fit`` by thread 0 of every block (summed over the slots, at
 the bench's lockstep step and at a batch of 256), each through the
-shapes of ``scripts/kernel_variants.py``.  The probes cost a few clock
-reads; read the split, not the total.
+shapes of ``scripts/kernel_variants.py``.  ``cv_epilogue`` and
+``scaler_minmax`` keep a timeline instead: every block's ``%globaltimer``
+at its start and at its phase boundaries (``cv_epilogue``'s warp path:
+the staging barrier as each warp passes it, K4's mse and mae windows, the
+maxima, the passes; the MinMax statistic: each segment reduced, the
+block's end), printed as the spread of the blocks' starts (waves) and
+each phase's mean and largest microseconds, at the cases of
+``scripts/kernel_variants.py``.  The probes cost a few clock reads; read
+the split, not the total.
 """
 import ctypes
 import json
@@ -386,13 +393,127 @@ def probe_head() -> None:
     probe_cases("lstm_head_fit", hf, patch_head, HEAD_PHASES, {"bench_step": 256, "batch_256": 16}.get)
 
 
+#: a block's timeline: up to 8 clocks at its marks
+TIMELINE_DEFS = r"""
+#define PROBE_MARKS 8
+__device__ unsigned long long* g_probe_times;
+__device__ __forceinline__ unsigned long long probe_now() {
+  unsigned long long t; asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t)); return t; }
+__device__ __forceinline__ size_t probe_block() {
+  return ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x; }
+extern "C" int probe_set(unsigned long long* p) {
+  return (int)cudaMemcpyToSymbol(g_probe_times, &p, sizeof(p)); }
+extern "C" int probe_read(unsigned long long*) { return 0; }
+extern "C" int probe_zero() { return 0; }
+"""
+
+
+def mark(k: int, cond: str) -> str:
+    return f"if ({cond}) g_probe_times[probe_block() * PROBE_MARKS + {k}] = probe_now();"
+
+
+#: cv_epilogue's warp path: the marks and the phases between them
+EPILOGUE_MARKS = {"start": 0, "staged_w0": 1, "staged_w1": 2, "windows_end": 3, "maxima_end": 4, "passes_end": 5}
+EPILOGUE_PHASES = {"stage": ("start", "staged_w1"), "windows": ("staged_w1", "windows_end"),
+                   "maxima": ("windows_end", "maxima_end"), "passes": ("staged_w0", "passes_end")}
+
+
+def patch_epilogue(src: str) -> str:
+    src = _insert(src, '#include "xla_order.cuh"\n', TIMELINE_DEFS)
+    src = _insert(src, "  const int slot = blockIdx.x;\n  const int t = threadIdx.x;\n  const int fo = a.fo, nt = a.nt;\n",
+                  "  " + mark(0, "t == 0") + "\n")
+    src = _insert(src, "  __syncthreads();  // the one barrier: every copy visible to both warps\n",
+                  "  " + mark(1, "t == 0") + "\n  " + mark(2, "t == 32") + "\n")
+    src = _insert(src, "    cw_maxima<MASKED>(tg, to, n, fo, a.window, lane,", "    " + mark(3, "t == 32") + "\n",
+                  after=False)
+    src = _insert(src, "a.total_max + slot);\n", "    " + mark(4, "t == 32") + "\n")
+    src = _insert(src, "    cw_passes<MASKED>(ys, ps, n, fo, l1, lo, lane, per, out);\n", "    " + mark(5, "t == 0") + "\n")
+    return src
+
+
+#: the MinMax statistic: the block's start, its first five segments reduced,
+#: its end
+MINMAX_MARKS = {"start": 0, **{f"segment_{k}": 1 + k for k in range(5)}, "end": 7}
+
+
+def patch_minmax(src: str) -> str:
+    src = _insert(src, '#include "xla_order.cuh"\n', TIMELINE_DEFS)
+    src = _insert(src, "  __shared__ int s_last;\n  const int t = threadIdx.x;\n", "  " + mark(0, "t == 0") + "\n")
+    src = _insert(src, "      mm_reduce<V>(a, lo, hi, mm_keys + 2 * k * cw);\n",
+                  "      if (k < 5) { " + mark("1 + k", "t == 0") + " }\n")
+    src = _insert(src, "  if (PATH != MM_SPLIT) return;\n", "  " + mark(7, "t == 0") + "\n", after=False)
+    return src
+
+
+def probe_timeline(name: str, source: str, mod, patch, marks: dict, phases: dict, blocks) -> None:
+    """Each case of ``kernel_variants``' for ``name`` through the patched
+    copy of ``csrc/<source>.cu``: one launch's block timeline."""
+    import kernel_variants as kv
+
+    lib = build_probe(source, patch)
+    lib.probe_set.argtypes = [ctypes.c_void_p]
+    _use(mod, source, lib)
+    inv = {v: k for k, v in marks.items()}
+    for case, (run, held) in kv.KERNELS[name][2]().items():
+        n_blocks = blocks(case)
+        times = torch.zeros(n_blocks * 8, dtype=torch.int64, device="cuda")
+        lib.probe_set(times.data_ptr())  # before any launch of the patched copy
+        cs.check(held(), f"{name} probe {case}: held to the plain version")
+        times.zero_()
+        run()
+        torch.cuda.synchronize()
+        t = times.view(n_blocks, 8).cpu().numpy().astype(np.float64)
+        seen = t[:, 0] > 0
+        t, t0 = t[seen], t[seen, 0].min()
+        at = {inv[k]: (t[:, k] - t0) / 1e3 for k in inv if (t[:, k] > 0).any()}
+        starts = at["start"]
+        line = {"probe": name, "case": case, "blocks": int(seen.sum()),
+                "start_us_quantiles": [float(np.quantile(starts, q)) for q in (0, 0.25, 0.5, 0.75, 0.9, 1)],
+                "end_us": float(max(v.max() for v in at.values())), "phases_us": {}}
+        if phases:
+            for ph, (a, b) in phases.items():
+                if a in at and b in at:
+                    d = at[b] - at[a]
+                    line["phases_us"][ph] = {"mean": float(d.mean()), "max": float(d.max())}
+        else:
+            order = sorted(at, key=marks.get)
+            for a, b in zip(order, order[1:]):
+                d = at[b] - at[a]
+                line["phases_us"][f"{a}..{b}"] = {"mean": float(d.mean()), "max": float(d.max())}
+        line["ms"] = cs.time_ms(run, 20)[0]
+        print(json.dumps(line), flush=True)
+    mod._lib = None
+
+
+def probe_epilogue() -> None:
+    from gordo_tpu_torch.kernels import cv_epilogue as ce
+    import kernel_variants as kv
+
+    probe_timeline("cv_epilogue", "cv_epilogue", ce, patch_epilogue, EPILOGUE_MARKS, EPILOGUE_PHASES,
+                   lambda case: kv.EPILOGUE_SHAPES[case][0])
+
+
+def probe_minmax() -> None:
+    from gordo_tpu_torch.kernels import scaler_stats as ss
+    import kernel_variants as kv
+
+    inputs = kv.minmax_inputs()
+
+    def blocks(case):
+        x, lists, prefix = inputs[case]
+        g = ss.launch_plan(x.shape, lists, len(prefix)).grid
+        return g[0] * g[1] * g[2]
+    probe_timeline("scaler_minmax", "scaler_stats", ss, patch_minmax, MINMAX_MARKS, {}, blocks)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_phase_probe: needs a CUDA card", file=sys.stderr)
         return 1
     resolve_device()
     probes = {"stream_step": probe_stream, "fleet_fit": probe_fit, "fleet_score": probe_score,
-              "rolling_median": probe_median, "lstm_head_fit": probe_head}
+              "rolling_median": probe_median, "lstm_head_fit": probe_head,
+              "cv_epilogue": probe_epilogue, "scaler_minmax": probe_minmax}
     for name in sys.argv[1:] or list(probes):
         probes[name]()
     return 0

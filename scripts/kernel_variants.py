@@ -3,7 +3,8 @@
     python3 scripts/kernel_variants.py KERNEL [VARIANT ...]
 
 KERNEL is ``fleet_init``, ``fake_quant``, ``fleet_score``,
-``chain_apply``, ``rolling_median`` or ``lstm_head_fit``.  A variant is the kernel's ``csrc/<KERNEL>.cu`` built
+``chain_apply``, ``rolling_median``, ``lstm_head_fit``, ``cv_epilogue``
+or ``scaler_minmax`` (``csrc/scaler_stats.cu``'s MinMax statistic).  A variant is the kernel's ``csrc/<KERNEL>.cu`` built
 with some of its macros set on the ``nvcc`` command line, and its wrapper
 with some of its constants set (``FLEET_INIT_VARIANTS``,
 ``FAKE_QUANT_VARIANTS``, ``FLEET_SCORE_VARIANTS``,
@@ -32,7 +33,14 @@ smoke's shapes:
   ``chip_smoke.with_holes``;
 - ``lstm_head_fit``: the bench's lockstep step (256 slots × 64 windows,
   42 -> 50), 16 slots at 256 windows, and ``chip_smoke.HEAD_FIRST_LAYOUT``
-  (the plan's unpadded layout), on random minibatches.
+  (the plan's unpadded layout), on random minibatches;
+- ``cv_epilogue``: K4 and K8 (row counts 0..144) at the build bench's
+  1,536 slots × 144 × 10 (the warp path), and K4 at the LSTM builds'
+  192 × 133 × 50 (the block path), held bit for bit;
+- ``scaler_minmax``: the build bench's 512 × 576 × 10 over its 4 nested
+  row lists, plain and NaN-padded (the nested path), after a Standard step
+  and over index lists (the list path), a year and 2 × 57,344 rows over
+  uneven lists (the split path), held bit for bit.
 
 Each variant is first held to the plain version on every case
 (``fleet_init``'s permutations and ``fake_quant``'s outputs bit for bit;
@@ -60,11 +68,13 @@ import chip_smoke as cs  # noqa: E402
 from gordo_tpu_torch.device import resolve_device  # noqa: E402
 from gordo_tpu_torch.kernels import build  # noqa: E402
 from gordo_tpu_torch.kernels import chain_apply as ca  # noqa: E402
+from gordo_tpu_torch.kernels import cv_epilogue as ce  # noqa: E402
 from gordo_tpu_torch.kernels import fake_quant as fq  # noqa: E402
 from gordo_tpu_torch.kernels import fleet_init as fi  # noqa: E402
 from gordo_tpu_torch.kernels import fleet_score as fs  # noqa: E402
 from gordo_tpu_torch.kernels import lstm_head_fit as hf  # noqa: E402
 from gordo_tpu_torch.kernels import rolling_median as rm  # noqa: E402
+from gordo_tpu_torch.kernels import scaler_stats as ss  # noqa: E402
 
 #: name -> ({macro: value} for nvcc's -D, {wrapper constant: value})
 FLEET_INIT_VARIANTS = {
@@ -144,6 +154,26 @@ HEAD_FIT_VARIANTS = {
     "threads_128": ({"HF_THREADS": 128}, {}),
     "threads_512": ({"HF_THREADS": 512}, {}),
 }
+
+#: as FLEET_INIT_VARIANTS, for csrc/cv_epilogue.cu (its cases timed as the
+#: source stands)
+EPILOGUE_VARIANTS = {"kept": ({}, {})}
+
+#: as FLEET_INIT_VARIANTS, for csrc/scaler_stats.cu's MinMax statistic
+MINMAX_VARIANTS = {
+    "kept": ({}, {}),
+    # the nested and list paths' float4 loads in blocks of 64 and of 256
+    # threads (the kept 128)
+    "range_threads_64": ({}, {"RANGE_THREADS": 64}),
+    "range_threads_256": ({}, {"RANGE_THREADS": 256}),
+    # the split path's blocks of about 16,384 and 2,048 values
+    "split_16384": ({}, {"SPLIT_VALUES": 16384}),
+    "split_2048": ({}, {"SPLIT_VALUES": 2048}),
+}
+
+#: cv_epilogue's cases: (slots, rows, tags, masked)
+EPILOGUE_SHAPES = {"k4_bench": (1536, 144, 10, False), "k8_bench": (1536, 144, 10, True),
+                   "k4_block_path": (192, 133, 50, False)}
 
 #: empty kernels, to time a launch alone: one taking the kernel's
 #: argument struct by value (its size in bytes), one taking an int
@@ -365,12 +395,82 @@ def lstm_head_fit_cases():
     return out
 
 
+def _held_bits(run, plain):
+    """``held`` for a kernel held bit for bit to its plain version, its
+    output hashes kept in ``hashes``."""
+    hashes = {}
+
+    def held():
+        got, ref = run(), plain()
+        got = got if isinstance(got, dict) else dict(enumerate(got))
+        ref = ref if isinstance(ref, dict) else dict(enumerate(ref))
+        hashes.update({str(k): cs.output_hash(v) for k, v in got.items()})
+        return all(cs.differing(ref[k], got[k]) == 0 for k in ref)
+    held.hashes = hashes
+    return held
+
+
+def cv_epilogue_cases():
+    """As :func:`fleet_init_cases`, for ``cv_epilogue`` (K4 and K8)."""
+    rng = np.random.default_rng(cs.SEED)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()  # noqa: E731
+    out = {}
+    for case, (S, nt, tags, masked) in EPILOGUE_SHAPES.items():
+        y = put(rng.standard_normal((S, nt, tags)) + 3.0)
+        pred = put(y.cpu().numpy() + 0.3 * rng.standard_normal((S, nt, tags)))
+        tag = (pred - y).abs().contiguous()
+        total = tag.norm(dim=-1).contiguous()
+        counts = rng.integers(0, nt + 1, S) if masked else None
+        args = (tag, total, pred, y, counts)
+        run = lambda args=args, m=masked: ce.cv_epilogue(*args, masked=m)  # noqa: E731
+        plain = lambda args=args, m=masked: ce.cv_epilogue_plain(*args, masked=m)  # noqa: E731
+        out[case] = (run, _held_bits(run, plain))
+    return out
+
+
+def minmax_inputs():
+    """The MinMax cases' ``(x, row lists, prefix)``."""
+    from gordo_tpu_torch.train.cv import TimeSeriesSplit
+
+    rng = np.random.default_rng(cs.SEED)
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()  # noqa: E731
+    machines, rows, tags = cs.TRAIN_SHAPE
+    lists = [tr for tr, _ in TimeSeriesSplit(3).split(np.empty((rows, 1)))] + [np.arange(rows)]
+    X = cs.bench_fleet(rng, machines, rows, tags)
+    Xn = X.copy()
+    for i, n in enumerate(cs.ragged_lengths(rows, machines, cs.RAGGED_SPREAD)):
+        Xn[i, n:] = np.nan
+    X, Xn = put(X), put(Xn)
+    mean, std = ss.scaler_stats(X, lists, stat="standard")
+    longest = 57_344
+    uneven = [np.arange(longest), np.arange(31_337), np.sort(rng.permutation(longest)[:45_001]), np.arange(8_193)]
+    picked = [np.sort(rng.permutation(rows)[: rows // 2 + 12]), np.arange(rows // 6, 2 * rows // 3), np.arange(rows)]
+    return {"bench": (X, lists, ()), "nan_padded": (Xn, lists, ()), "after_standard": (X, lists, [(ss.CENTER, mean, std)]),
+            "index_lists": (Xn, picked, ()), "year": (put(cs.bench_fleet(rng, 1, cs.SCALER_YEAR, tags)),
+                                                      [np.arange(cs.SCALER_YEAR)], ()),
+            "max_rows": (put(cs.bench_fleet(rng, 2, longest, tags)), uneven, ())}
+
+
+def scaler_minmax_cases():
+    """As :func:`fleet_init_cases`, for the MinMax statistic."""
+    out = {}
+    for case, (x, lists, prefix) in minmax_inputs().items():
+        run = lambda x=x, l=lists, p=prefix: ss.scaler_stats(x, l, prefix=p, offset_fma=True)  # noqa: E731
+        plain = lambda x=x, l=lists, p=prefix: ss.scaler_stats_plain(x, l, prefix=p, offset_fma=True)  # noqa: E731
+        out[case] = (run, _held_bits(run, plain))
+    return out
+
+
 KERNELS = {"fleet_init": (fi, FLEET_INIT_VARIANTS, fleet_init_cases),
            "fake_quant": (fq, FAKE_QUANT_VARIANTS, fake_quant_cases),
            "fleet_score": (fs, FLEET_SCORE_VARIANTS, fleet_score_cases),
            "chain_apply": (ca, CHAIN_APPLY_VARIANTS, chain_apply_cases),
            "rolling_median": (rm, ROLLING_MEDIAN_VARIANTS, rolling_median_cases),
-           "lstm_head_fit": (hf, HEAD_FIT_VARIANTS, lstm_head_fit_cases)}
+           "lstm_head_fit": (hf, HEAD_FIT_VARIANTS, lstm_head_fit_cases),
+           "cv_epilogue": (ce, EPILOGUE_VARIANTS, cv_epilogue_cases),
+           "scaler_minmax": (ss, MINMAX_VARIANTS, scaler_minmax_cases)}
+#: the CUDA source of each kernel where it is not ``csrc/<KERNEL>.cu``
+SOURCES = {"scaler_minmax": "scaler_stats"}
 
 
 def main() -> None:
@@ -384,10 +484,11 @@ def main() -> None:
     kept = {k: getattr(mod, k) for _, constants in variants.values() for k in constants}
     if kernel == "fleet_init":
         print(json.dumps({"launch_floor_ms": launch_floor(), "card": card}), flush=True)
+    source = SOURCES.get(kernel, kernel)
     for name in names:
         defines, constants = variants[name]
-        lib, log = build_variant(kernel, name, defines)
-        use(kernel, mod, lib)
+        lib, log = build_variant(source, name, defines)
+        use(source, mod, lib)
         for k, v in {**kept, **constants}.items():
             setattr(mod, k, v)
         regs = re.findall(r"Used (\d+) registers", log)
